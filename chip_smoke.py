@@ -2,25 +2,38 @@
 """Chip smoke test of ``proben_tpu_torch`` on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py            # from the repository root; needs one card
-    python3 chip_smoke.py --profile  # also a per-stage breakdown and a profiler table
+    python3 chip_smoke.py --profile  # also per-stage breakdowns and profiler tables
 
 Phases, each raising on a miss (exit code != 0, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the main path from ``proben_tpu_torch/csrc`` with
-   ``nvcc`` for ``sm_90a``, one process per source, in parallel;
-3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and on hazard inputs, with the tolerance stated
+2. build every kernel of the main paths (K1 stem, K2 RoIAlign forward, K3
+   RoIAlign backward) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
+   ``sm_90a``, one process per source, in parallel;
+3. K1 and K2 against their plain PyTorch versions on the card, at the
+   inference path's shapes and on hazard inputs, with the tolerance stated
    at each check; times (CUDA events) and bounds;
-4. slice phase: random-init R101-FPN (random affines, so every residual
+4. inference slice: random-init R101-FPN (random affines, so every residual
    branch is live; RPN and class head calibrated) through
    ``Predictor.predict_batch`` at batch 8, 800x1024 (true size 800x1000),
-   bf16 — every launch counter set to 0 just before and read just after —
+   bf16 -- every launch counter set to 0 just before and read just after --
    then the same model with the plain versions forced, and in f32 as the
    bf16-rounding control, detections and FPN maps compared (tolerances in
    ``slice_phase``), and pipelined img/s;
-5. one JSON line listing every kernel; the last line is
-   ``{"ok": true, "device": {...}}``.
+5. K3 against its plain version at the training path's shapes (the FPN maps
+   of the model, the 8 x 512 RoIs ``label_and_sample_proposals`` samples
+   for bench.py's training batch, a seeded bf16 cotangent), then with
+   hazard boxes mixed in, in bf16 and f32 (``check_bwd``);
+6. training slice: ``make_train_step`` on bench.py's training batch (100 gt
+   boxes per image, FREEZE_AT 2, the FLIR solver), the same model updated
+   in place: K3 as the only difference (same forward, K3 or its plain
+   version in the backward: bit-identical losses, gradients per module
+   group within the bound in ``train_phase``), one step with every launch
+   counter read around it (K1, K2 and K3 once each), train img/s with K3
+   and with the plain backward, finite losses on every step, frozen
+   parameters unchanged, every trainable tensor moved;
+7. one JSON line per kernel, one for each slice, one listing every kernel;
+   the last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
@@ -309,6 +322,153 @@ def roi_phase(model, images, sizes):
 
 
 # ---------------------------------------------------------------------------
+# K3: windowed multi-level RoIAlign backward
+# ---------------------------------------------------------------------------
+
+
+def train_batch():
+    """bench.py --train's batch: 100 gt boxes per image drawn first, then
+    the structured images, from ``np.random.RandomState(0)``; true size
+    800x1000 on the 800x1024 canvas."""
+    from proben_tpu_torch.structures import GroundTruth
+
+    rng = np.random.RandomState(0)
+    g = 100
+    xy = rng.rand(BATCH, g, 2) * (min(H, W) - 140)
+    wh = rng.rand(BATCH, g, 2) * 100 + 24
+    image = structured_images(rng, 1, BATCH, H, W, 3)[0]
+    classes = rng.randint(0, 3, (BATCH, g)).astype(np.int32)
+    gt = GroundTruth(torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)),
+                     torch.from_numpy(classes), torch.ones(BATCH, g, dtype=torch.bool))
+    return {"image": torch.from_numpy(image).cuda(),
+            "image_size": torch.tensor([TRUE_HW] * BATCH, dtype=torch.int32, device="cuda"),
+            "gt": gt.to("cuda")}
+
+
+def hazard_windows(shapes, boxes, lvl_idx, y0, x0, k):
+    """Per level, a (B, H, W) mask of the windows of RoIs with a
+    non-finite box: the only places a NaN may reach."""
+    from proben_tpu_torch.ops.roi_align import WIN_X, WIN_Y
+
+    masks = [torch.zeros(s[:3], dtype=torch.bool, device="cuda") for s in shapes]
+    for r in (~torch.isfinite(boxes).all(-1)).nonzero().flatten().tolist():
+        l, oy, ox = int(lvl_idx[r]), int(y0[r]), int(x0[r])
+        masks[l][r // k, oy:oy + WIN_Y, ox:ox + WIN_X] = True
+    return masks
+
+
+def check_bwd(g, shapes, lvl_idx, y0, x0, wy, wx, k, label, hazards=None):
+    """K3 against its plain version on identical inputs. Tolerance: both add
+    the same f32 products in other orders (atomics in the kernel), bounded
+    by 1e-5 of the sum of the terms' magnitudes (the plain backward of |g|
+    with |weights|). In bf16 the f32 u may round to the neighbouring bf16
+    value (at most 2^-8 of that sum) and the result to the neighbouring
+    value (one bf16 ulp). NaN positions must agree, and every entry outside
+    the hazard boxes' windows must be finite."""
+    from proben_tpu_torch.ops import roi_align_cuda
+    from proben_tpu_torch.ops.roi_align import roi_align_bwd_plain
+
+    got = roi_align_cuda.roi_align_bwd(g, shapes, lvl_idx, y0, x0, wy, wx, k)
+    ref = roi_align_bwd_plain(g, shapes, lvl_idx, y0, x0, wy, wx, k)
+    mag = roi_align_bwd_plain(g.float().abs(), shapes, lvl_idx, y0, x0, wy.abs(), wx.abs(), k)
+    torch.cuda.synchronize()
+    err = bad = nans = 0
+    for li, (a, r, m) in enumerate(zip(got, ref, mag)):
+        a, r = a.float(), r.float()
+        nan_a, nan_r = torch.isnan(a), torch.isnan(r)
+        if not torch.equal(nan_a, nan_r):
+            raise AssertionError(f"K3 {label}: level {li} NaN pattern differs "
+                                 f"({int(nan_a.sum())} vs {int(nan_r.sum())})")
+        if hazards is not None and not bool(torch.isfinite(a)[~hazards[li]].all()):
+            raise AssertionError(f"K3 {label}: level {li} non-finite outside the hazard windows")
+        diff = torch.where(nan_r, 0.0, (a - r).abs())
+        rr = torch.where(nan_r, 0.0, r)
+        bound = 1e-5 * torch.where(nan_r, 0.0, m)
+        if g.dtype == torch.bfloat16:
+            bound = bound + bf16_ulp(rr) + 2.0 ** -8 * torch.where(nan_r, 0.0, m)
+        bad += int((diff > bound).sum())
+        err = max(err, float(diff.max()))
+        nans += int(nan_r.sum())
+    log(f"K3 {label}: max_abs_err {err:.4g}, {nans} NaN entries, {bad} beyond tolerance")
+    if bad:
+        raise AssertionError(f"K3 {label}: {bad} entries beyond tolerance")
+    return err
+
+
+def sampled_rois(model, batch, seed=0):
+    """The training path's pooling inputs: p2..p5 of the model and the RoIs
+    ``label_and_sample_proposals`` samples for ``batch``."""
+    from proben_tpu_torch.models import rcnn
+    from proben_tpu_torch.models.roi_heads import label_and_sample_proposals
+    from proben_tpu_torch.models.rpn import find_top_proposals
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, batch["image"]), training=True)
+        logits, deltas = rcnn.rpn_outputs(model, cfg, feats)
+        boxes, _, valid = find_top_proposals(
+            logits, deltas, rcnn.anchors_for(feats), batch["image_size"],
+            cfg.rpn.pre_nms_topk_train, cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh,
+            cfg.rpn.min_box_side_len)
+        s_boxes = label_and_sample_proposals(boxes, valid, batch["gt"], gen, cfg.roi)[0]
+    return rcnn.roi_levels(feats), s_boxes
+
+
+def bwd_phase(model, batch):
+    from proben_tpu_torch.ops import roi_align_cuda
+    from proben_tpu_torch.ops.roi_align import roi_align_bwd_plain
+
+    cfg = model.cfg
+    levels, boxes = sampled_rois(model, batch)
+    b, k, _ = boxes.shape
+    shapes = [tuple(f.shape) for f in levels]
+    c = shapes[0][-1]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(bx):
+        return roi_align_cuda.window_inputs(levels, bx, **cfg.roi.pooler_args)
+
+    # main path: the sampled RoIs and a seeded bf16 cotangent
+    lvl, y0, x0, wy, wx, oow = inputs(boxes)
+    g = (0.01 * torch.randn(b * k, 7, 7, c, generator=gen, device="cuda")).to(torch.bfloat16)
+    err = check_bwd(g, shapes, lvl, y0, x0, wy, wx, k, "main-path RoIs bf16")
+    log(f"K3 main path: {b * k} RoIs, {int(oow.sum())} out of window; level histogram "
+        f"{torch.bincount(lvl.long(), minlength=4).tolist()}")
+    ms = cuda_ms(lambda: roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k), 30)
+    plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k), 5)
+    # bytes: the cotangent, weights and origins read once, every dF written
+    # once; multiply-adds the data needs per channel: P for each nonzero wy
+    # tap (u over q), then one per nonzero wx tap for every row y with a
+    # nonzero wy tap
+    nbytes = (g.numel() * g.element_size() + wy.numel() * 4 + wx.numel() * 4 + 3 * 4 * b * k
+              + sum(s[0] * s[1] * s[2] * s[3] for s in shapes) * g.element_size())
+    p = wy.shape[1]
+    nnz_y = (wy != 0).sum(dim=(1, 2)).double()
+    rows = (wy != 0).any(dim=1).sum(dim=1).double()
+    nnz_x = (wx != 0).sum(dim=(1, 2)).double()
+    flops = 2.0 * c * float((p * nnz_y + rows * nnz_x).sum())
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
+
+    # hazard boxes mixed into the sampled RoIs, bf16 and f32
+    hz = boxes.clone()
+    hz[:, -64:] = hazard_boxes(64, gen)
+    lvl_h, y0_h, x0_h, wy_h, wx_h, _ = inputs(hz)
+    windows = hazard_windows(shapes, hz.reshape(-1, 4), lvl_h, y0_h, x0_h, k)
+    err_h = check_bwd(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes bf16", windows)
+    err32 = check_bwd(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes f32", windows)
+    log(f"K3 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {max(t_ops, t_bytes):.4g} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
+    return dict(
+        name="roi_align_bwd", route="cuda", source="proben_tpu_torch/csrc/roi_align_bwd.cu",
+        replaces="proben_tpu/ops/roi_align_bwd_pallas.py:350", max_abs_err=max(err, err_h),
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+        gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err_f32=err32,
+    )
+
+
+# ---------------------------------------------------------------------------
 # slice: Predictor at batch 8, 800x1024, bf16
 # ---------------------------------------------------------------------------
 
@@ -533,6 +693,199 @@ def profile_phase(pred, images, sizes):
     log(ka.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 
+# ---------------------------------------------------------------------------
+# training slice: make_train_step at batch 8, 800x1024, bf16
+# ---------------------------------------------------------------------------
+
+# configs/FLIR-Detection/faster_rcnn_R_101_FLIR.yaml over Base-RCNN-FPN's solver
+FLIR_SOLVER = dict(base_lr=0.02, momentum=0.9, weight_decay=1e-4, weight_decay_bias=1e-4,
+                   warmup_factor=1e-3, warmup_iters=1000, steps=(210000, 250000), max_iter=270000)
+GRAD_GROUPS = ("backbone.res3", "backbone.res4", "backbone.res5", "fpn", "rpn_head", "roi.box_head",
+               "roi.output")
+
+
+def group_of(name: str) -> str:
+    return next(g for g in GRAD_GROUPS if name.startswith(g + "."))
+
+
+def grad_gaps(a, b):
+    """Relative L2 difference of two gradient dicts per module group."""
+    num, den = {}, {}
+    for n, ga in a.items():
+        k = group_of(n)
+        num[k] = num.get(k, 0.0) + float((ga.float() - b[n].float()).pow(2).sum())
+        den[k] = den.get(k, 0.0) + float(b[n].float().pow(2).sum())
+    return {k: (num[k] / den[k]) ** 0.5 if den[k] else float("inf") for k in num}
+
+
+class plain_backward:
+    """Within the block, the pooling backward runs K3's plain version
+    instead of K3 (the forward stays K2): the only difference between the
+    two training runs it is used to compare."""
+
+    def __enter__(self):
+        from proben_tpu_torch.ops import roi_align_cuda
+
+        self.module, self.kernel = roi_align_cuda, roi_align_cuda.roi_align_bwd
+        roi_align_cuda.roi_align_bwd = roi_align_cuda.roi_align_bwd_plain
+
+    def __exit__(self, *exc):
+        self.module.roi_align_bwd = self.kernel
+
+
+def train_phase(model, batch, steps=8, warmup=2):
+    """The training slice through ``make_train_step``, then K3 as the only
+    difference, then train img/s with K3 and with the plain backward.
+    Tolerance of the K3-only check: the losses must be bit-identical (the
+    forward is the same); each module group's gradient may differ by 1e-2
+    relative L2 (K3 rounds each dF entry once, from an f32 sum whose order
+    the atomics change: at most one bf16 ulp, 2^-8 relative, per entry)."""
+    from proben_tpu_torch.engine.train import losses_and_grads, make_train_step, trainable_mask
+    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+    from proben_tpu_torch.solver import SolverConfig
+
+    cfg = model.cfg
+    init_state, train_step = make_train_step(cfg, SolverConfig(**FLIR_SOLVER),
+                                             trainable_mask(model, cfg.freeze_at))
+    state = init_state(model, 7)
+    params = dict(model.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in params.items() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in params.items() if p.requires_grad}
+    torch.cuda.reset_peak_memory_stats()
+
+    # K3 as the only difference: one step's losses and gradients, same seed
+    gen = torch.Generator(device="cuda")
+    runs = {}
+    for name in ("kernel", "plain", "plain again"):
+        if name == "kernel":
+            runs[name] = losses_and_grads(model, cfg, batch, gen.manual_seed(11))
+        else:
+            with plain_backward():
+                runs[name] = losses_and_grads(model, cfg, batch, gen.manual_seed(11))
+    (lk, tk, gk), (lp, tp, gp), (_, _, gp2) = runs.values()
+    same = all(torch.equal(lk[k], lp[k]) for k in lk) and torch.equal(tk, tp)
+    gaps, control = grad_gaps(gk, gp), grad_gaps(gp2, gp)
+    norms = {}
+    for n, gr in gk.items():
+        norms[group_of(n)] = norms.get(group_of(n), 0.0) + float(gr.float().pow(2).sum())
+    log(f"K3-only: losses bit-identical {same} ({ {k: float(v) for k, v in lk.items()} })")
+    log("K3-only gradient gap per group (rel L2, K3 vs plain / plain vs plain): " + ", ".join(
+        f"{k} {gaps[k]:.3g}/{control[k]:.3g}" for k in GRAD_GROUPS))
+    if not same:
+        raise AssertionError("K3 and plain-backward runs give different losses")
+    if any(not norms[k] > 0 or not np.isfinite(norms[k]) for k in GRAD_GROUPS):
+        raise AssertionError(f"a trainable module group gets no gradient: {norms}")
+    if any(not gaps[k] <= 1e-2 for k in GRAD_GROUPS):
+        raise AssertionError(f"K3 gradients differ from the plain backward's: {gaps}")
+    del runs, gk, gp, gp2
+
+    # the main path: one step, every launch counter read around it
+    stem_cuda.launches = roi_align_cuda.launches = roi_align_cuda.bwd_launches = 0
+    state, m = train_step(state, batch)
+    launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
+                "roi_align_bwd": roi_align_cuda.bwd_launches}
+    log(f"training step launches: {launches}")
+    if any(v != 1 for v in launches.values()):
+        raise AssertionError(f"each kernel must launch once per training step: {launches}")
+    metrics = [m]
+
+    def timed(n):
+        nonlocal state
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            state, m = train_step(state, batch)
+            metrics.append(m)
+        b.record()
+        torch.cuda.synchronize()
+        return BATCH * n / (a.elapsed_time(b) / 1e3)
+
+    rates = {}
+    for name in ("kernel", "plain backward"):
+        if name == "kernel":
+            timed(warmup)
+            before = roi_align_cuda.bwd_launches
+            rates[name] = timed(steps)
+            if roi_align_cuda.bwd_launches - before != steps:
+                raise AssertionError("K3 did not launch once per timed step")
+        else:
+            with plain_backward():
+                timed(warmup)
+                rates[name] = timed(steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    table = {k: torch.stack([mm[k] for mm in metrics]).float().cpu() for k in metrics[0]}
+    if not all(bool(torch.isfinite(v).all()) for v in table.values()) or not bool((table["loss_finite"] == 1).all()):
+        raise AssertionError(f"non-finite training metrics: {table}")
+    for n, p in params.items():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            raise AssertionError(f"frozen parameter {n} changed")
+    unmoved = [n for n in start if torch.equal(params[n].detach(), start[n])]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} trainable tensors did not move, e.g. {unmoved[:3]}")
+    log(f"training: {len(metrics)} steps, total loss {float(table['total_loss'][0]):.4g} -> "
+        f"{float(table['total_loss'][-1]):.4g}; {len(frozen)} frozen tensors unchanged, "
+        f"{len(start)} trainable moved")
+    log(f"train throughput: {rates['kernel']:.2f} img/s with K3, {rates['plain backward']:.2f} img/s "
+        f"with the plain backward; peak memory {peak:.1f} GB")
+    return launches, dict(
+        img_s=rates["kernel"], img_s_plain_bwd=rates["plain backward"], peak_memory_gb=peak,
+        steps=len(metrics), losses_first={k: float(v[0]) for k, v in table.items()},
+        losses_last={k: float(v[-1]) for k, v in table.items()}, k3_grad_gap=gaps,
+        plain_grad_gap_control=control,
+    )
+
+
+def train_profile(model, batch):
+    """Where one training step's time goes: forward (losses), backward,
+    update medians with CUDA events, and a torch.profiler table of two
+    steps, all on standard error."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from proben_tpu_torch.engine.train import make_train_step, trainable_mask
+    from proben_tpu_torch.models.rcnn import rcnn_train_losses
+    from proben_tpu_torch.solver import SolverConfig
+
+    cfg = model.cfg
+    init_state, train_step = make_train_step(cfg, SolverConfig(**FLIR_SOLVER),
+                                             trainable_mask(model, cfg.freeze_at))
+    state = init_state(model, 7)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    acc = {}
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        losses = rcnn_train_losses(model, cfg, batch["image"], batch["image_size"], batch["gt"],
+                                   state.generator)
+        ev[1].record()
+        torch.autograd.grad(sum(losses.values()), [p for _, p in named], allow_unused=True)
+        ev[2].record()
+        torch.cuda.synchronize()
+        acc.setdefault("forward (losses)", []).append(ev[0].elapsed_time(ev[1]))
+        acc.setdefault("backward", []).append(ev[1].elapsed_time(ev[2]))
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = train_step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        acc.setdefault("whole step", []).append(a.elapsed_time(b))
+    for k, v in acc.items():
+        log(f"train stage {k}: {float(np.median(v[1:])):.4g} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(2):
+            state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dev = sum(e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    log(f"train profile: {wall_ms:.4g} ms wall for 2 steps, device busy {dev:.4g} ms "
+        f"({100 * dev / wall_ms:.1f}%)")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30,
+                                  max_name_column_width=60))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -554,7 +907,7 @@ def main() -> int:
     from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
 
     tb = time.time()
-    _build.build(["stem", "roi_align_fwd"])
+    _build.build(["stem", "roi_align_fwd", "roi_align_bwd"])
     log(f"build: {time.time() - tb:.1f} s")
 
     cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
@@ -565,25 +918,35 @@ def main() -> int:
     images = [torch.from_numpy(a).cuda() for a in structured_images(rng, 2, BATCH, H, W, 3)]
     sizes = torch.tensor([TRUE_HW] * BATCH, dtype=torch.int32, device="cuda")
 
+    profiling = "--profile" in sys.argv[1:]
     k1 = stem_phase(model)
     launches, slice_stats = slice_phase(model, images, sizes)
     k2 = roi_phase(model, images[0], sizes)  # the calibrated model's proposals
-    if "--profile" in sys.argv[1:]:
+    if profiling:
         from proben_tpu_torch.engine import Predictor
 
         profile_phase(Predictor(model, cfg), images, sizes)
+    # training reuses the calibrated model and updates it in place
+    batch = train_batch()
+    k3 = bwd_phase(model, batch)
+    train_launches, train_stats = train_phase(model, batch)
+    if profiling:
+        train_profile(model, batch)
     k1["launches"] = launches["stem_pool"]
     k2["launches"] = launches["roi_align_fwd"]
+    k3["launches"] = train_launches["roi_align_bwd"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    for d in (k1, k2):
+    for d in (k1, k2, k3):
         print(json.dumps({"kernel": d["name"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
                           "library_ms": d["library_ms"], "bound_ms": d["bound_ms"],
                           "bound_by": d["bound_by"], "gflop": d["gflop"], "mbytes": d["mbytes"],
                           "launches": d["launches"], "max_abs_err": d["max_abs_err"]}))
-    print(json.dumps({"slice": {**slice_stats, "card": card, "seconds": time.time() - t0}}))
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (k1, k2)]}), flush=True)
+    print(json.dumps({"slice": {**slice_stats, "card": card}}))
+    print(json.dumps({"train": {**train_stats, "launches_per_step": train_launches, "card": card,
+                                "seconds": time.time() - t0}}))
+    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (k1, k2, k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

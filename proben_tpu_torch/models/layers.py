@@ -3,7 +3,9 @@
 Feature maps are NCHW tensors in ``torch.channels_last`` memory, so C is the
 contiguous axis as in the JAX package's NHWC arrays. Weights are OIHW (convs)
 and (out, in) (linears), kept in f32; ``dtype`` selects the compute
-precision. The bf16 rounding points follow the JAX functions: a conv
+precision. Every parameter, the folded-BN affines' included (the JAX package
+trains them in every stage that is not frozen), is built with
+``requires_grad=False``; training sets it from the trainable mask. The bf16 rounding points follow the JAX functions: a conv
 outputs the compute dtype and its bias is added after, ``affine`` runs in
 the input's dtype, ``linear`` accumulates in f32 and rounds once.
 
@@ -42,12 +44,12 @@ class Conv(nn.Module):
 
 
 class Affine(nn.Module):
-    """Folded FrozenBN: per-channel ``scale * x + bias`` constants."""
+    """Folded FrozenBN: per-channel ``scale * x + bias``."""
 
     def __init__(self, c: int):
         super().__init__()
-        self.register_buffer("scale", torch.ones(c))
-        self.register_buffer("bias", torch.zeros(c))
+        self.scale = nn.Parameter(torch.ones(c), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
 
 
 class Linear(nn.Module):

@@ -1,4 +1,5 @@
-"""GeneralizedRCNN inference (counterpart of ``proben_tpu/models/rcnn.py``).
+"""GeneralizedRCNN inference and training losses (counterpart of
+``proben_tpu/models/rcnn.py``).
 
 Single-backbone input formats: ``BGR`` (3-channel; thermal-only or RGB-only
 runs feed that image) and ``BGRT`` (4-channel early fusion). The dual-backbone
@@ -21,14 +22,26 @@ import torch.nn as nn
 from ..device import resolve_device
 from ..ops.roi_align_cuda import multilevel_roi_align
 from ..structures.boxes import clip_boxes
-from ..structures.detections import Detections
+from ..structures.detections import Detections, GroundTruth
 from .anchors import multilevel_anchors
-from .box_head import init_box_head, init_output_layers
-from .fast_rcnn import FastRCNNConfig
+from .box_head import apply_box_head, apply_output_layers, init_box_head, init_output_layers
+from .fast_rcnn import FastRCNNConfig, fast_rcnn_losses
 from .fpn import FPN, FPN_STRIDES, apply_fpn, init_fpn
 from .resnet import STAGE_OUT_CHANNELS, ResNet, apply_resnet, init_resnet
-from .roi_heads import ROIHeads, ROIHeadsConfig, roi_heads_predict_from_pooled
-from .rpn import RPNConfig, RPNHead, apply_rpn_head, find_top_proposals, init_rpn_head
+from .roi_heads import (
+    ROIHeads,
+    ROIHeadsConfig,
+    label_and_sample_proposals,
+    roi_heads_predict_from_pooled,
+)
+from .rpn import (
+    RPNConfig,
+    RPNHead,
+    apply_rpn_head,
+    find_top_proposals,
+    init_rpn_head,
+    rpn_losses,
+)
 
 RPN_IN_FEATURES = ("p2", "p3", "p4", "p5", "p6")
 ROI_IN_FEATURES = ("p2", "p3", "p4", "p5")
@@ -45,6 +58,7 @@ class ModelConfig:
     num_classes: int = 3
     pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    freeze_at: int = 2  # training: 1 freezes the stem, 2 also res2, ...
     fpn_channels: int = 256
     enable_gaussian_nll: bool = False
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core speed
@@ -75,10 +89,14 @@ class ModelConfig:
 
 
 def build_config(**kw) -> ModelConfig:
-    """ModelConfig with ``num_classes`` threaded into the decoding config."""
+    """ModelConfig with ``num_classes`` and ``enable_gaussian_nll`` threaded
+    into the sub-configs."""
     num_classes = kw.pop("num_classes", 3)
-    rcnn = kw.pop("rcnn", FastRCNNConfig(num_classes=num_classes))
-    return ModelConfig(num_classes=num_classes, rcnn=rcnn, **kw)
+    enable_gnll = kw.pop("enable_gaussian_nll", False)
+    rcnn = kw.pop("rcnn", FastRCNNConfig(num_classes=num_classes, enable_gaussian_nll=enable_gnll))
+    roi = kw.pop("roi", ROIHeadsConfig(num_classes=num_classes))
+    return ModelConfig(num_classes=num_classes, enable_gaussian_nll=enable_gnll, rcnn=rcnn, roi=roi,
+                       **kw)
 
 
 class RCNN(nn.Module):
@@ -170,11 +188,14 @@ def preprocess(cfg: ModelConfig, images: torch.Tensor) -> torch.Tensor:
     return (images.to(torch.float32) - fit(cfg.pixel_mean)) / fit(cfg.pixel_std)
 
 
-def extract_features(model: RCNN, cfg: ModelConfig, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+def extract_features(
+    model: RCNN, cfg: ModelConfig, images: torch.Tensor, training: bool = False
+) -> Dict[str, torch.Tensor]:
     """Backbone + FPN on normalized (N, H, W, C) images; NCHW channels_last
-    maps p2..p6."""
+    maps p2..p6. ``training`` freezes the backbone at ``cfg.freeze_at``."""
     x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-    feats = apply_resnet(model.backbone, x, dtype=cfg.dtype, stem_impl=cfg.stem_impl)
+    feats = apply_resnet(model.backbone, x, dtype=cfg.dtype, stem_impl=cfg.stem_impl,
+                         freeze_at=cfg.freeze_at if training else 0)
     return apply_fpn(model.fpn, feats, dtype=cfg.dtype)
 
 
@@ -193,14 +214,17 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def rpn_outputs(model: RCNN, cfg: ModelConfig, features: Dict[str, torch.Tensor]):
+    """Per-level RPN logits and deltas."""
+    return apply_rpn_head(model.rpn_head, [features[f] for f in RPN_IN_FEATURES], dtype=cfg.dtype)
+
+
 def propose(
     model: RCNN, cfg: ModelConfig, features: Dict[str, torch.Tensor], image_sizes: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RPN head, then per-level top-k, decode and NMS: (boxes (N, P, 4),
     scores (N, P), valid (N, P))."""
-    logits, deltas = apply_rpn_head(
-        model.rpn_head, [features[f] for f in RPN_IN_FEATURES], dtype=cfg.dtype
-    )
+    logits, deltas = rpn_outputs(model, cfg, features)
     return find_top_proposals(
         logits, deltas, anchors_for(features), image_sizes,
         cfg.rpn.pre_nms_topk_test, cfg.rpn.post_nms_topk_test,
@@ -238,6 +262,38 @@ def rcnn_inference(
     return roi_heads_predict_from_pooled(
         model.roi, pooled, boxes, valid, image_sizes, cfg.rcnn, dtype=cfg.dtype
     )
+
+
+def rcnn_train_losses(
+    model: RCNN,
+    cfg: ModelConfig,
+    images: torch.Tensor,  # (N, H, W, C) raw 0..255
+    image_sizes: torch.Tensor,  # (N, 2)
+    gt: GroundTruth,  # batched (N, G)
+    generator: torch.Generator,
+) -> Dict[str, torch.Tensor]:
+    """Training losses, each the mean over images of the per-image loss.
+    The RPN anchors and then the RoIs are sampled with ``generator``; the
+    proposals carry no gradient (the reference detaches them too); all
+    images' sampled RoIs are pooled in one batched call, whose backward is
+    kernel K3 on the card."""
+    features = extract_features(model, cfg, preprocess(cfg, images), training=True)
+    logits, deltas = rpn_outputs(model, cfg, features)
+    anchors = anchors_for(features)
+    losses = rpn_losses(logits, deltas, anchors, gt.boxes, gt.valid, generator, cfg.rpn)
+    with torch.no_grad():
+        boxes, _, valid = find_top_proposals(
+            logits, deltas, anchors, image_sizes, cfg.rpn.pre_nms_topk_train,
+            cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len,
+        )
+    s_boxes, gt_classes, gt_boxes, s_valid, _ = label_and_sample_proposals(
+        boxes, valid, gt, generator, cfg.roi
+    )
+    x = apply_box_head(model.roi.box_head, pool_proposals(cfg, features, s_boxes), dtype=cfg.dtype)
+    cls_logits, box_deltas, variance = apply_output_layers(model.roi.output, x)
+    losses.update(fast_rcnn_losses(cls_logits, box_deltas, variance, s_boxes, gt_classes, s_valid,
+                                   gt_boxes, cfg.rcnn))
+    return {k: v.mean() for k, v in losses.items()}
 
 
 def postprocess_boxes(det: Detections, input_size, output_size) -> Detections:

@@ -6,11 +6,14 @@ input channels from the config (4 for BGRT early fusion).
 Feature maps are NCHW in channels_last memory. The stem runs kernel K1
 (``ops/stem_cuda.py``) when the compute dtype is bf16 and the shape passes
 its gate, as ``apply_resnet`` does with the Pallas stem; otherwise the plain
-composition.
+composition. For training, ``freeze_at`` runs the frozen sections under
+``torch.no_grad()`` (JAX: ``stop_gradient``) and ``freeze_mask`` names the
+parameters the optimizer leaves alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.stem_cuda import stem_pool, stem_supported
+from ..ops.stem_cuda import StemPool, stem_supported
 from .layers import Affine, Conv, affine, conv2d, init_affine, init_conv
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -122,7 +125,7 @@ def apply_stem(stem: Stem, x: torch.Tensor, dtype=None, stem_impl: str = "kernel
     conv1, norm1 = stem.conv1, stem.norm1
     o, c, kh, kw = conv1.weight.shape
     if stem_impl == "kernel" and stem_supported(c, o, kh, kw, dtype):
-        h = stem_pool(
+        h = StemPool.apply(
             x.permute(0, 2, 3, 1).to(dtype).contiguous(),
             conv1.weight.permute(2, 3, 1, 0).to(dtype).contiguous(),
             norm1.scale.to(dtype),
@@ -136,17 +139,34 @@ def apply_stem(stem: Stem, x: torch.Tensor, dtype=None, stem_impl: str = "kernel
     return F.max_pool2d(h, 3, 2, 1)
 
 
+def _frozen(frozen: bool):
+    return torch.no_grad() if frozen else contextlib.nullcontext()
+
+
 def apply_resnet(
     backbone: ResNet,
     x: torch.Tensor,  # (N, C, H, W) channels_last, normalized
     dtype=None,
     stem_impl: str = "kernel",
+    freeze_at: int = 0,
 ) -> Dict[str, torch.Tensor]:
-    """Run the backbone (inference); returns res2..res5."""
+    """Run the backbone; returns res2..res5. ``freeze_at`` follows the
+    reference (1 freezes the stem, 2 also res2, ...): frozen sections run
+    under ``torch.no_grad()``, so the backward never enters them."""
     out: Dict[str, torch.Tensor] = {}
-    h = apply_stem(backbone.stem, x, dtype, stem_impl)
+    with _frozen(freeze_at >= 1):
+        h = apply_stem(backbone.stem, x, dtype, stem_impl)
     for i, name in enumerate(STAGE_NAMES):
-        for b, block in enumerate(getattr(backbone, name)):
-            h = _bottleneck(block, h, 2 if b == 0 and i > 0 else 1, dtype)
+        with _frozen(freeze_at >= i + 2):
+            for b, block in enumerate(getattr(backbone, name)):
+                h = _bottleneck(block, h, 2 if b == 0 and i > 0 else 1, dtype)
         out[name] = h
     return out
+
+
+def freeze_mask(backbone: ResNet, freeze_at: int) -> Dict[str, bool]:
+    """Trainable flag per backbone parameter name (``freeze_at`` as in
+    ``apply_resnet``)."""
+    first_trainable = {"stem": 1, **{name: i + 2 for i, name in enumerate(STAGE_NAMES)}}
+    return {name: freeze_at < first_trainable[name.split(".")[0]]
+            for name, _ in backbone.named_parameters()}

@@ -1,6 +1,6 @@
-"""StandardROIHeads, inference half (counterpart of
-``proben_tpu/models/roi_heads.py``): box head + output layers + decoding on
-already pooled features, batched over images."""
+"""StandardROIHeads (counterpart of ``proben_tpu/models/roi_heads.py``),
+batched over images: proposal labeling and sampling for training, and box
+head + output layers + decoding on already pooled features."""
 
 from __future__ import annotations
 
@@ -10,16 +10,22 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from ..structures.detections import Detections
+from ..ops.matcher import match
+from ..ops.sampling import sample_topk_indices
+from ..structures.boxes import pairwise_iou
+from ..structures.detections import Detections, GroundTruth
 from .box_head import BoxHead, OutputLayers, apply_box_head, apply_output_layers
-from .fast_rcnn import FastRCNNConfig, fast_rcnn_inference
+from .fast_rcnn import FastRCNNConfig, fast_rcnn_inference, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
 class ROIHeadsConfig:
-    """Pooler hyperparameters (the sampling fields come with the training
-    slice)."""
+    """Proposal sampling and pooler hyperparameters."""
 
+    num_classes: int = 3
+    batch_size_per_image: int = 512
+    positive_fraction: float = 0.25
+    iou_threshold: float = 0.5
     pooler_resolution: int = 7
     pooler_sampling_ratio: int = 0
     in_strides: Tuple[int, ...] = (4, 8, 16, 32)  # p2..p5
@@ -45,6 +51,38 @@ class ROIHeads(nn.Module):
         super().__init__()
         self.box_head = BoxHead(in_channels, pooler_resolution)
         self.output = OutputLayers(num_classes=num_classes, enable_variance=enable_variance)
+
+
+def label_and_sample_proposals(
+    proposal_boxes: torch.Tensor,  # (B, P, 4)
+    proposal_valid: torch.Tensor,  # (B, P)
+    gt: GroundTruth,  # batched (B, G)
+    generator: torch.Generator,
+    cfg: ROIHeadsConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gt boxes are appended to the proposals, matched at
+    ``iou_threshold`` (IoU masked to the valid slots) and sampled to
+    ``batch_size_per_image`` rows with ``positive_fraction`` foreground,
+    positives first. Returns (sampled_boxes (B, S, 4), gt_classes (B, S)
+    with background = ``num_classes``, sampled_gt_boxes (B, S, 4),
+    sampled_valid (B, S), sampled_is_fg (B, S))."""
+    boxes = torch.cat([proposal_boxes, gt.boxes], 1)  # (B, P+G, 4)
+    valid = torch.cat([proposal_valid, gt.valid], 1)
+    iou = torch.where(valid[:, None, :], pairwise_iou(gt.boxes, boxes), 0.0)  # (B, G, P+G)
+    matched_idx, matched_labels = match(iou, gt.valid, [cfg.iou_threshold], [0, 1])
+
+    has_gt = gt.valid.any(-1, keepdim=True)
+    fg = (matched_labels == 1) & valid & has_gt
+    bg = (matched_labels == 0) & valid
+    labels = torch.where(fg, 1, torch.where(bg, 0, -1))
+    idx, is_pos, sampled_valid = sample_topk_indices(
+        labels, cfg.batch_size_per_image, cfg.positive_fraction, generator
+    )
+    sampled_matched = torch.gather(matched_idx, 1, idx)
+    gt_classes = torch.where(is_pos, torch.gather(gt.classes, 1, sampled_matched), cfg.num_classes)
+    gt_classes = torch.where(sampled_valid, gt_classes, cfg.num_classes)
+    return (take_rows(boxes, idx), gt_classes, take_rows(gt.boxes, sampled_matched),
+            sampled_valid, is_pos)
 
 
 def roi_heads_predict_from_pooled(

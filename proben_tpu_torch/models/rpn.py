@@ -1,6 +1,6 @@
-"""Region Proposal Network, inference half (counterpart of
-``proben_tpu/models/rpn.py``): the shared head and proposal selection,
-batched over images.
+"""Region Proposal Network (counterpart of ``proben_tpu/models/rpn.py``):
+the shared head, proposal selection and the training losses, batched over
+images.
 
 Objectness is flattened in (H, W, A) order and deltas kept in the head's
 (H*W, A*4) layout, as in the JAX package. Per-level top-k and the global
@@ -18,10 +18,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.box_transform import apply_deltas
+from ..ops.box_transform import apply_deltas, get_deltas
+from ..ops.matcher import match
 from ..ops.nms import nms_mask
+from ..ops.sampling import sample_topk_indices
 from ..ops.topk import topk_stable
-from ..structures.boxes import clip_boxes, nonempty_boxes
+from ..structures.boxes import clip_boxes, nonempty_boxes, pairwise_iou
+from .fast_rcnn import smooth_l1, take_rows
 from .layers import Conv, conv2d, init_conv
 
 Tensor = torch.Tensor
@@ -29,13 +32,20 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class RPNConfig:
-    """Static RPN inference hyperparameters (reference config/defaults.py
-    RPN section; the training fields come with the training slice)."""
+    """Static RPN hyperparameters (reference config/defaults.py RPN
+    section)."""
 
-    pre_nms_topk_test: int = 1000  # per level
-    post_nms_topk_test: int = 1000  # total
+    pre_nms_topk_train: int = 2000  # per level
+    pre_nms_topk_test: int = 1000
+    post_nms_topk_train: int = 1000  # total
+    post_nms_topk_test: int = 1000
     nms_thresh: float = 0.7
     min_box_side_len: float = 0.0
+    batch_size_per_image: int = 256
+    positive_fraction: float = 0.5
+    iou_thresholds: Tuple[float, float] = (0.3, 0.7)
+    smooth_l1_beta: float = 0.0
+    loss_weight: float = 1.0
 
 
 class RPNHead(nn.Module):
@@ -129,3 +139,58 @@ def find_top_proposals(
     final_idx = torch.where(final_valid, final_idx, 0)
     boxes = torch.gather(all_boxes, 1, final_idx[..., None].expand(-1, -1, 4))
     return boxes, torch.where(final_valid, final_scores, 0.0), final_valid
+
+
+def label_anchors_idx(
+    anchors: Tensor,  # (R, 4) all levels concatenated
+    gt_boxes: Tensor,  # (B, G, 4)
+    gt_valid: Tensor,  # (B, G)
+    iou_thresholds: Tuple[float, float] = (0.3, 0.7),
+) -> Tuple[Tensor, Tensor]:
+    """Per-anchor labels (1 fg, 0 bg, -1 ignore) and matched gt index, both
+    (B, R), with low-quality matches forced positive."""
+    iou = pairwise_iou(gt_boxes, anchors)  # (B, G, R)
+    matched_idx, labels = match(
+        iou, gt_valid, list(iou_thresholds), [0, -1, 1], allow_low_quality_matches=True
+    )
+    return labels.to(torch.int32), matched_idx
+
+
+def rpn_losses(
+    logits: Sequence[Tensor],  # per level (B, HWA)
+    deltas: Sequence[Tensor],  # per level (B, HW, A*4)
+    anchors: Sequence[Tensor],  # per level (HWA, 4)
+    gt_boxes: Tensor,  # (B, G, 4)
+    gt_valid: Tensor,  # (B, G)
+    generator: torch.Generator,
+    cfg: RPNConfig,
+) -> Dict[str, Tensor]:
+    """Per-image RPN losses, each (B,): objectness BCE over the sampled
+    anchors and smooth-L1 box regression over the sampled positives, both
+    normalized by ``batch_size_per_image``; the caller averages over
+    images. The anchors are sampled to a fixed index set, positives first,
+    so the targets are computed for the sampled rows only."""
+    cat_logits = torch.cat(list(logits), 1)
+    cat_deltas = torch.cat(list(deltas), 1)
+    cat_anchors = torch.cat(list(anchors), 0)
+    labels, matched_idx = label_anchors_idx(cat_anchors, gt_boxes, gt_valid, cfg.iou_thresholds)
+    normalizer = float(cfg.batch_size_per_image)
+    sel, pos_s, sampled_s = sample_topk_indices(
+        labels, cfg.batch_size_per_image, cfg.positive_fraction, generator
+    )
+
+    sel_logits = torch.gather(cat_logits, 1, sel)
+    targets = pos_s.to(sel_logits.dtype)
+    per_anchor = (sel_logits.clamp(min=0) - sel_logits * targets
+                  + torch.log1p(torch.exp(-sel_logits.abs())))
+    loss_cls = torch.where(sampled_s, per_anchor, 0.0).sum(-1) / normalizer
+
+    matched = take_rows(gt_boxes, torch.gather(matched_idx, 1, sel))
+    gt_deltas = get_deltas(cat_anchors[sel], matched)
+    diff = gather_deltas(cat_deltas, sel) - gt_deltas
+    per_coord = smooth_l1(diff, cfg.smooth_l1_beta)
+    loss_loc = torch.where(pos_s[..., None], per_coord, 0.0).sum((-2, -1)) / normalizer
+    return {
+        "loss_rpn_cls": loss_cls * cfg.loss_weight,
+        "loss_rpn_loc": loss_loc * cfg.loss_weight,
+    }

@@ -8,16 +8,16 @@ For every RoI the pooled output is
 where ``Wy`` (P, WIN) folds each output row's bilinear weights and the
 1/grid sample averaging into one dense row, so adaptive sampling
 (``sampling_ratio=0``) is exact at the same cost as any static ratio. These
-functions build the weights and origins that kernel K2
-(``ops/roi_align_cuda.py``) consumes, hold its plain version
-(``pool_from_windows``), and re-pool the rare out-of-window RoIs exactly
-against the whole level map. Same arithmetic, in the same order, as the JAX
-functions.
+functions build the weights and origins that kernels K2 and K3
+(``ops/roi_align_cuda.py``) consume, hold K2's pooling arithmetic
+(``pool_from_windows``) and K3's plain version (``roi_align_bwd_plain``),
+and re-pool the rare out-of-window RoIs exactly against the whole level map.
+Same arithmetic, in the same order, as the JAX functions.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -179,6 +179,56 @@ def pool_from_windows(windows: Tensor, wy: Tensor, wx: Tensor, out_dtype) -> Ten
     t1 = torch.einsum("kpy,kyxc->kpxc", wy.to(wdt).float(), windows.float())
     out = torch.einsum("kqx,kpxc->kpqc", wx.float(), t1)
     return out.to(out_dtype)
+
+
+def roi_align_bwd_plain(
+    g: Tensor,  # (R, P, P, C) cotangent of the windowed pooling, features' dtype
+    shapes: Sequence[Tuple[int, int, int, int]],  # per level (B, H_l, W_l, C)
+    lvl_idx: Tensor,  # (R,) int32
+    y0: Tensor,  # (R,) int32 window origins
+    x0: Tensor,
+    wy: Tensor,  # (R, P, WIN_Y) f32
+    wx: Tensor,  # (R, P, WIN_X) f32
+    rois_per_image: int,
+    chunk: int = 256,
+) -> List[Tensor]:
+    """Plain version of K3, the VJP of the windowed pooling:
+
+        dF_l[y0 + y, x0 + x, c] += sum_q wx[q, x] * u[y, q, c],
+        u[y, q, c] = sum_p wy[p, y] * g[p, q, c]
+
+    over every RoI ``chunk`` at a time, with the rounding of the JAX
+    backward paths: wy and wx rounded to g's dtype, u computed in f32 and
+    rounded to g's dtype, the scatter accumulated in f32 into zero-padded
+    level maps (``index_add_``, no autograd through a gather), then cut to
+    each level's true size and rounded. Returns per level (B, H_l, W_l, C)
+    in g's dtype."""
+    dt = g.dtype
+    dev = g.device
+    b, c = shapes[0][0], shapes[0][3]
+    r = g.shape[0]
+    pads = [padded_size(h, w) for _, h, w, _ in shapes]
+    per_image = torch.tensor([ph * pw for ph, pw in pads], device=dev)
+    level_off = torch.cumsum(b * per_image, 0) - b * per_image
+    pad_w = torch.tensor([pw for _, pw in pads], device=dev)
+    li = lvl_idx.long().clamp(0, len(shapes) - 1)
+    img = torch.arange(r, device=dev) // rois_per_image
+    base = level_off[li] + img * per_image[li] + y0.long() * pad_w[li] + x0.long()
+    rows = torch.arange(WIN_Y, device=dev)[None, :] * pad_w[li][:, None]
+    cols = torch.arange(WIN_X, device=dev)
+    flat = torch.zeros((b * sum(ph * pw for ph, pw in pads), c), dtype=torch.float32, device=dev)
+    for s in range(0, r, chunk):
+        e = min(s + chunk, r)
+        u = torch.einsum("npy,npqc->nyqc", wy[s:e].to(dt).float(), g[s:e].float()).to(dt)
+        contrib = torch.einsum("nqx,nyqc->nyxc", wx[s:e].to(dt).float(), u.float())
+        idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols  # (n, WIN_Y, WIN_X)
+        flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
+    out, off = [], 0
+    for (_, h, w, _), (ph, pw) in zip(shapes, pads):
+        level = flat[off:off + b * ph * pw].reshape(b, ph, pw, c)
+        out.append(level[:, :h, :w].to(dt).clone(memory_format=torch.contiguous_format))
+        off += b * ph * pw
+    return out
 
 
 def wholemap_roi_align(

@@ -1,18 +1,20 @@
-"""Multi-level RoIAlignV2 forward: kernel K2 (``csrc/roi_align_fwd.cu``),
-its plain version, and ``multilevel_roi_align`` around them.
+"""Multi-level RoIAlignV2: kernels K2 (forward, ``csrc/roi_align_fwd.cu``)
+and K3 (backward, ``csrc/roi_align_bwd.cu``), their plain versions, and
+``multilevel_roi_align`` around them.
 
-Counterpart of ``proben_tpu/ops/roi_align_pallas.py::multilevel_roi_align_pallas``:
-level assignment and window weights (``ops/roi_align.py``) -> the windowed
-pooling kernel -> exact whole-map re-pooling of out-of-window RoIs. Each RoI's
-pooled rows land at its own index, so callers need no permutation.
-``roi_align_fwd`` launches the kernel on CUDA tensors and runs
-``roi_align_fwd_plain`` only on CPU tensors.
+Counterpart of ``proben_tpu/ops/roi_align_pallas.py::multilevel_roi_align_pallas``
+and its training wrapper: level assignment and window weights
+(``ops/roi_align.py``) -> the windowed pooling (``WindowedRoIAlign``: K2
+forward, K3 backward) -> exact whole-map re-pooling of out-of-window RoIs.
+Each RoI's pooled rows land at its own index, so callers need no
+permutation. ``roi_align_fwd`` and ``roi_align_bwd`` launch their kernels on
+CUDA tensors and run the plain versions only on CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -25,19 +27,23 @@ from .roi_align import (
     pad_level,
     padded_size,
     pool_from_windows,
+    roi_align_bwd_plain,
     roi_level_assignment,
 )
 
 Tensor = torch.Tensor
 
-# launches of the CUDA kernel (never of the plain version)
-launches = 0
+# launches of the CUDA kernels (never of the plain versions)
+launches = 0  # K2
+bwd_launches = 0  # K3
 
 _ARGS = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 _SIG = {"roi_align_fwd_bf16": _ARGS, "roi_align_fwd_f32": _ARGS}
+_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+_BWD_SIG = {"roi_align_bwd_bf16": _BWD_ARGS, "roi_align_bwd_f32": _BWD_ARGS}
 _MAXP = 8
 
 
@@ -105,15 +111,7 @@ def roi_align_fwd(
     r, p = wy.shape[0], wy.shape[1]
     if r != b * rois_per_image or p > _MAXP:
         raise ValueError(f"roi_align_fwd: R={r} != B*K={b * rois_per_image} or P={p} > {_MAXP}")
-    for name, t, dt, shape in (
-        ("lvl_idx", lvl_idx, torch.int32, (r,)),
-        ("y0", y0, torch.int32, (r,)),
-        ("x0", x0, torch.int32, (r,)),
-        ("wy", wy, torch.float32, (r, p, WIN_Y)),
-        ("wx", wx, torch.float32, (r, p, WIN_X)),
-    ):
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != f0.device or not t.is_contiguous():
-            raise ValueError(f"roi_align_fwd: {name} must be a contiguous {dt} {shape} on {f0.device}")
+    _check_windows("roi_align_fwd", f0.device, r, p, lvl_idx, y0, x0, wy, wx)
     out = torch.empty((r, p, p, c), dtype=f0.dtype, device=f0.device)
     if r == 0:
         return out
@@ -134,6 +132,100 @@ def roi_align_fwd(
     global launches
     launches += 1
     return out
+
+
+def _check_windows(what, dev, r, p, lvl_idx, y0, x0, wy, wx):
+    for name, t, dt, shape in (
+        ("lvl_idx", lvl_idx, torch.int32, (r,)),
+        ("y0", y0, torch.int32, (r,)),
+        ("x0", x0, torch.int32, (r,)),
+        ("wy", wy, torch.float32, (r, p, WIN_Y)),
+        ("wx", wx, torch.float32, (r, p, WIN_X)),
+    ):
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} {shape} on {dev}")
+
+
+def roi_align_bwd(
+    g: Tensor,  # (R, P, P, C) cotangent, the features' dtype
+    shapes: Sequence[Tuple[int, int, int, int]],  # per level (B, H_l, W_l, C)
+    lvl_idx: Tensor,
+    y0: Tensor,
+    x0: Tensor,
+    wy: Tensor,
+    wx: Tensor,
+    rois_per_image: int,
+) -> List[Tensor]:
+    """The VJP of ``roi_align_fwd`` with respect to the features: one
+    (B, H_l, W_l, C) tensor per level in g's dtype. Launches K3 for CUDA
+    tensors, runs ``roi_align_bwd_plain`` for CPU tensors, raises on
+    anything else."""
+    if g.device.type == "cpu":
+        return roi_align_bwd_plain(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image)
+    if g.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd: unsupported device {g.device}")
+    if not 1 <= len(shapes) <= 4:
+        raise ValueError(f"roi_align_bwd: 1..4 levels, got {len(shapes)}")
+    if g.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"roi_align_bwd: g must be bf16 or f32, got {g.dtype}")
+    b, c = shapes[0][0], shapes[0][3]
+    if any(len(s) != 4 or s[0] != b or s[3] != c for s in shapes):
+        raise ValueError(f"roi_align_bwd: level shapes {list(shapes)} differ in batch or width")
+    r, p = wy.shape[0], wy.shape[1]
+    if (g.dim() != 4 or tuple(g.shape) != (r, p, p, c) or not g.is_contiguous()
+            or r != b * rois_per_image or p > _MAXP):
+        raise ValueError(f"roi_align_bwd: g must be a contiguous (R, P, P, C) = {(r, p, p, c)} "
+                         f"tensor with R = B*K = {b * rois_per_image} and P <= {_MAXP}, "
+                         f"got {tuple(g.shape)}")
+    _check_windows("roi_align_bwd", g.device, r, p, lvl_idx, y0, x0, wy, wx)
+    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=g.device)
+    accs = list(torch.split(acc, sizes))
+    outs = [torch.empty(s, dtype=g.dtype, device=g.device) for s in shapes]
+    pad = 4 - len(shapes)
+    hs = [s[1] for s in shapes] + [shapes[0][1]] * pad
+    ws = [s[2] for s in shapes] + [shapes[0][2]] * pad
+    lib = _build.load("roi_align_bwd", _BWD_SIG)
+    fn = lib.roi_align_bwd_bf16 if g.dtype == torch.bfloat16 else lib.roi_align_bwd_f32
+    threads = min(256, -(-c // 32) * 32)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(
+            g.data_ptr(), lvl_idx.data_ptr(), y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+            wx.data_ptr(), *[a.data_ptr() for a in accs + accs[:1] * pad],
+            *[o.data_ptr() for o in outs + outs[:1] * pad], *hs, *ws, len(shapes), b, c,
+            rois_per_image, r, p, threads, stream,
+        )
+    _build.check(code, "roi_align_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return outs
+
+
+class WindowedRoIAlign(torch.autograd.Function):
+    """The windowed pooling with its VJP. ``impl="kernel"``: forward
+    ``roi_align_fwd`` (K2), backward ``roi_align_bwd`` (K3); ``"plain"``:
+    both plain versions. Window inputs get no gradient: the proposals are
+    detached, as the JAX package returns zeros for the boxes. The backward
+    saves the window inputs only, never the output, so a caller may
+    overwrite rows of the output in place (``apply_oow_fallback``): autograd
+    then hands the backward a zero cotangent for exactly those rows."""
+
+    @staticmethod
+    def forward(ctx, impl, lvl_idx, y0, x0, wy, wx, rois_per_image, *features):
+        ctx.save_for_backward(lvl_idx, y0, x0, wy, wx)
+        ctx.impl = impl
+        ctx.rois_per_image = rois_per_image
+        ctx.shapes = [tuple(f.shape) for f in features]
+        pool = roi_align_fwd if impl == "kernel" else roi_align_fwd_plain
+        return pool(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+    @staticmethod
+    def backward(ctx, g):
+        lvl_idx, y0, x0, wy, wx = ctx.saved_tensors
+        bwd = roi_align_bwd if ctx.impl == "kernel" else roi_align_bwd_plain
+        dfs = bwd(g.contiguous(), ctx.shapes, lvl_idx, y0, x0, wy, wx, ctx.rois_per_image)
+        return (None,) * 7 + tuple(dfs)
 
 
 def window_inputs(
@@ -184,9 +276,10 @@ def multilevel_roi_align(
     fallback_capacity: int = 32,
     impl: str = "kernel",
 ) -> Tensor:
-    """Batched multi-level RoIAlignV2; (B, K, P, P, C) in the features' dtype.
-    ``impl="kernel"`` pools through ``roi_align_fwd`` (K2 on the card),
-    ``"plain"`` through ``roi_align_fwd_plain`` on any device."""
+    """Batched multi-level RoIAlignV2; (B, K, P, P, C) in the features' dtype,
+    differentiable with respect to the features. ``impl="kernel"`` pools
+    through K2 and differentiates through K3 on the card, ``"plain"``
+    through both plain versions on any device."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown roi_align impl {impl!r}")
     b, k, _ = boxes.shape
@@ -195,8 +288,7 @@ def multilevel_roi_align(
         features, boxes, strides, p, sampling_ratio, min_level, canonical_box_size,
         canonical_level, s_max,
     )
-    pool = roi_align_fwd if impl == "kernel" else roi_align_fwd_plain
-    pooled = pool(features, lvl_idx, y0, x0, wy, wx, k)
+    pooled = WindowedRoIAlign.apply(impl, lvl_idx, y0, x0, wy, wx, k, *features)
     pooled = pooled.reshape(b, k, p, p, -1)
     return apply_oow_fallback(
         pooled, oow.reshape(b, k), features, boxes, lvl_idx.reshape(b, k), strides, p,

@@ -4,6 +4,9 @@ Counterpart of ``proben_tpu/ops/stem_pallas.py::stem_pool_pallas``: the
 BasicStem (7x7/s2/pad-3 conv -> folded-BN affine -> ReLU -> 3x3/s2/pad-1
 max-pool) in one pass, writing only the pooled tensor. ``stem_pool`` launches
 the kernel on CUDA tensors and runs ``stem_pool_plain`` only on CPU tensors.
+``StemPool`` makes it differentiable as ``stem_pool_pallas``'s custom VJP
+does: the forward is the kernel, the backward recomputes through the plain
+composition (the TPU kernel has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -86,3 +89,24 @@ def stem_pool(
     global launches
     launches += 1
     return out
+
+
+class StemPool(torch.autograd.Function):
+    """``stem_pool`` with a gradient: K1 forward; the backward recomputes
+    ``stem_pool_plain`` on the saved inputs and differentiates it. Only a
+    trainable stem (``freeze_at == 0``) reaches the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        ctx.save_for_backward(x, w, scale, bias)
+        return stem_pool(x, w, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = stem_pool_plain(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)

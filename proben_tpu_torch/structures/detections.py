@@ -1,11 +1,12 @@
-"""Fixed-shape, masked detection container (counterpart of
-``proben_tpu/structures/detections.py:27``)."""
+"""Fixed-shape, masked detection and ground-truth containers (counterparts
+of ``proben_tpu/structures/detections.py:27,80``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -33,3 +34,33 @@ class Detections:
             for f in dataclasses.fields(self)
             for v in [getattr(self, f.name)]
         })
+
+
+@dataclasses.dataclass
+class GroundTruth:
+    """Padded ground-truth instances for one image, or a batch with a
+    leading axis on every field.
+
+    boxes (G, 4) XYXY in the model-input frame; classes (G,) int32; valid
+    (G,) bool.
+    """
+
+    boxes: torch.Tensor
+    classes: torch.Tensor
+    valid: torch.Tensor
+
+    @staticmethod
+    def from_numpy(boxes: np.ndarray, classes: np.ndarray, capacity: int) -> "GroundTruth":
+        """The first ``capacity`` instances, padded to ``capacity`` slots."""
+        g = min(len(boxes), capacity)
+        out_boxes = np.zeros((capacity, 4), np.float32)
+        out_classes = np.zeros((capacity,), np.int32)
+        out_valid = np.zeros((capacity,), bool)
+        out_boxes[:g] = np.asarray(boxes, np.float32)[:g]
+        out_classes[:g] = np.asarray(classes, np.int32)[:g]
+        out_valid[:g] = True
+        return GroundTruth(boxes=torch.from_numpy(out_boxes), classes=torch.from_numpy(out_classes),
+                           valid=torch.from_numpy(out_valid))
+
+    def to(self, device: Union[str, torch.device]) -> "GroundTruth":
+        return GroundTruth(self.boxes.to(device), self.classes.to(device), self.valid.to(device))

@@ -29,9 +29,12 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch
         import proben_tpu_torch.checkpoint
         import proben_tpu_torch.engine
+        import proben_tpu_torch.engine.train
         import proben_tpu_torch.models
         import proben_tpu_torch.ops.roi_align_cuda
         import proben_tpu_torch.ops.stem_cuda
+        import proben_tpu_torch.solver
+        import proben_tpu_torch.structures
         import chip_smoke
         print(sorted(set(foreign()) - before))
         """
@@ -44,8 +47,9 @@ def test_imports_load_no_jax_and_no_proben_tpu():
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
-    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.engine import Predictor, make_train_step
     from proben_tpu_torch.models import build_config, build_model
+    from proben_tpu_torch.solver import SolverConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = build_config(depth=50)
@@ -55,6 +59,9 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         Predictor(model, cfg)
     assert next(model.parameters()).device.type == "cpu"
+    # training runs where the model lives: its state's generator is on the CPU
+    init_state, _ = make_train_step(cfg, SolverConfig())
+    assert init_state(model, 0).generator.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -92,6 +92,91 @@ def test_roi_align_kernel_matches_plain(dtype):
     assert torch.isnan(got[[1, 33]]).all() and torch.isfinite(got[[0, 32]]).all()
 
 
+def _bwd_case(dtype, seed=1):
+    """K3's inputs: the K2 case's windows plus a seeded cotangent."""
+    feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype)
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(wy.shape[0], 7, 7, feats[0].shape[-1]).astype(np.float32))
+    return [tuple(f.shape) for f in feats], lvl, y0, x0, wy, wx, k, g.cuda().to(dtype)
+
+
+def _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g):
+    """The plain backward of |g| with |weights| in f32: the sum of the
+    magnitudes of every term, the scale of summation-order differences."""
+    return t_ra.roi_align_bwd_plain(g.float().abs(), shapes, lvl, y0, x0, wy.abs(), wx.abs(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_matches_plain(dtype):
+    """Tolerance: both sum the same products in f32 in other orders (atomics
+    in the kernel): 1e-5 of the sum of the terms' magnitudes. In bf16 the
+    f32 u may round to the neighbouring bf16 value (2^-8 of that sum) and
+    the result to the neighbouring one (one bf16 ulp, rtol 2^-7). NaN
+    windows (the NaN box) must match."""
+    _cuda()
+    shapes, lvl, y0, x0, wy, wx, k, g = _bwd_case(dtype)
+    before = roi_align_cuda.bwd_launches
+    got = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
+    ref = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)
+    mag = _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.bwd_launches == before + 1
+    bf = dtype == BF
+    for a, r, m, s in zip(got, ref, mag, shapes):
+        assert a.shape == s and a.dtype == dtype
+        a, r = a.float(), r.float()
+        assert torch.equal(torch.isnan(a), torch.isnan(r))
+        fin = ~torch.isnan(r)
+        bound = (2.0 ** -7 * r.abs() + 2.0 ** -8 * m) if bf else 1e-5 * m + 1e-6
+        assert ((a - r).abs()[fin] <= bound[fin]).all()
+    assert any(torch.isnan(a).any() for a in got) and all(torch.isfinite(a).any() for a in got)
+
+
+@pytest.mark.cuda
+def test_kernel_functions_pass_gradients():
+    """K1 (``StemPool``: kernel forward, plain recomputed backward) and
+    K2/K3 (``WindowedRoIAlign``) hand their inputs the plain composition's
+    gradients."""
+    _cuda()
+    x, w, scale, bias = [torch.from_numpy(a).cuda().to(BF) for a in _stem_inputs(1, 32, 48, 3)]
+    leaves = [t.clone().requires_grad_() for t in (w, scale, bias)]
+    out = stem_cuda.StemPool.apply(x, *leaves)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, g)
+    plain = [t.clone().requires_grad_() for t in (w, scale, bias)]
+    want = torch.autograd.grad(stem_cuda.stem_pool_plain(x, *plain), plain, g)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all() and a.float().abs().max() > 0
+        torch.testing.assert_close(a.float(), b.float(), rtol=0.05, atol=0.05 * float(b.float().abs().max()))
+
+    feats = [torch.rand(2, 64 >> i, 64 >> i, 32, device="cuda").requires_grad_() for i in range(4)]
+    boxes = torch.tensor([[[2.0, 3.0, 40.0, 30.0], [0.0, 0.0, 200.0, 180.0]]] * 2, device="cuda")
+    go = torch.randn(2, 2, 7, 7, 32, device="cuda")
+    grads = {}
+    for impl in ("kernel", "plain"):
+        out = roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, impl=impl)
+        grads[impl] = torch.autograd.grad(out, feats, go)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert sum(float(a.abs().sum()) > 0 for a in grads["kernel"]) >= 2
+
+
+def test_stem_function_backward_is_the_plain_gradient_cpu():
+    """On CPU tensors ``StemPool`` runs the plain version forward and
+    recomputes it in the backward: its gradients equal autograd through the
+    plain composition exactly, for each input that asks for one."""
+    x, w, scale, bias = [torch.from_numpy(a).to(BF) for a in _stem_inputs(1, 20, 28, 3)]
+    g = torch.from_numpy(np.random.RandomState(2).randn(1, 5, 7, 64).astype(np.float32)).to(BF)
+    leaves = [w.clone().requires_grad_(), scale.clone(), bias.clone().requires_grad_()]
+    got = torch.autograd.grad(stem_cuda.StemPool.apply(x, *leaves), [leaves[0], leaves[2]], g)
+    plain = [w.clone().requires_grad_(), scale.clone(), bias.clone().requires_grad_()]
+    want = torch.autograd.grad(stem_cuda.stem_pool_plain(x, *plain), [plain[0], plain[2]], g)
+    for a, b in zip(got, want):
+        assert a.float().abs().max() > 0
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_stem_wrapper_rejects_unsupported_input():
     x = torch.zeros(1, 32, 32, 3, dtype=BF)
     w = torch.zeros(7, 7, 3, 64, dtype=BF)
@@ -107,10 +192,19 @@ def test_roi_align_wrapper_rejects_unsupported_input():
         roi_align_cuda.roi_align_fwd(f, z, z, z, torch.zeros(1, 7, 56), torch.zeros(1, 7, 64), 1)
 
 
+def test_roi_align_bwd_wrapper_rejects_unsupported_input():
+    z = torch.zeros(2, dtype=torch.int32, device="meta")
+    wy, wx = torch.zeros(2, 7, 56, device="meta"), torch.zeros(2, 7, 64, device="meta")
+    g = torch.zeros(2, 7, 7, 4, device="meta")
+    shapes = [(1, 8, 8, 4)]
+    with pytest.raises(ValueError, match="device"):
+        roi_align_cuda.roi_align_bwd(g, shapes, z, z, z, wy, wx, 2)
+
+
 def test_cpu_wrappers_run_the_plain_versions():
     """On CPU tensors the wrappers compute the plain versions and launch
     nothing."""
-    before = (stem_cuda.launches, roi_align_cuda.launches)
+    before = (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches)
     args = [torch.from_numpy(a) for a in _stem_inputs(1, 16, 24, 3)]
     torch.testing.assert_close(stem_cuda.stem_pool(*args), stem_cuda.stem_pool_plain(*args))
     feats = [torch.rand(1, 16 >> i, 16 >> i, 8) for i in range(4)]
@@ -118,4 +212,10 @@ def test_cpu_wrappers_run_the_plain_versions():
     a = roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, impl="kernel")
     b = roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, impl="plain")
     torch.testing.assert_close(a, b)
-    assert (stem_cuda.launches, roi_align_cuda.launches) == before
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(feats, boxes, STRIDES)
+    g = torch.rand(2, 7, 7, 8)
+    shapes = [tuple(f.shape) for f in feats]
+    for d, e in zip(roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, 2),
+                    t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, 2)):
+        torch.testing.assert_close(d, e)
+    assert (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches) == before
