@@ -67,18 +67,23 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, in ms."""
+    """Time of one call of ``fn()`` in ms: ``reps`` calls back to back in 5
+    groups, CUDA events around each group, the median of the groups' means.
+    Back to back, the host time of one call overlaps the device work of the
+    one before, so a short kernel is not charged its wrapper's Python."""
     for _ in range(warmup):
         fn()
+    n = max(1, reps // 5)
     times = []
-    for _ in range(reps):
+    for _ in range(5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / n)
     return float(np.median(times))
 
 
@@ -179,7 +184,8 @@ def stem_phase(model):
         gflop=flops / 1e9, mbytes=nbytes / 1e6,
     )
     log(f"K1 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, library {library_ms:.4g} ms, "
-        f"bound {results['bound_ms']:.4g} ms ({results['bound_by']})")
+        f"bound {results['bound_ms']:.4g} ms ({results['bound_by']}), "
+        f"{ms / results['bound_ms']:.1f}x bound")
     return results
 
 
@@ -311,7 +317,8 @@ def roi_phase(model, images, sizes):
     if not bool((finite_rows | nan_box).all()):
         raise AssertionError("K2: non-finite pooled rows for finite boxes")
     log(f"K2 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {max(t_ops, t_bytes):.4g} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / max(t_ops, t_bytes):.1f}x bound; "
+        f"errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
     return dict(
         name="roi_align_fwd", route="cuda", source="proben_tpu_torch/csrc/roi_align_fwd.cu",
         replaces="proben_tpu/ops/roi_align_pallas.py:532", max_abs_err=max(err, err_h),
@@ -458,7 +465,8 @@ def bwd_phase(model, batch):
     err_h = check_bwd(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes bf16", windows)
     err32 = check_bwd(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes f32", windows)
     log(f"K3 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {max(t_ops, t_bytes):.4g} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / max(t_ops, t_bytes):.1f}x bound; "
+        f"errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
     return dict(
         name="roi_align_bwd", route="cuda", source="proben_tpu_torch/csrc/roi_align_bwd.cu",
         replaces="proben_tpu/ops/roi_align_bwd_pallas.py:350", max_abs_err=max(err, err_h),

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes plain C entry points and compiles on first
 use into its own shared library for ``sm_90a``, under ``build/proben_tpu_torch``
 at the repository root (git-ignored). Libraries are keyed by a hash of the
-source and flags, so an edited source rebuilds. Every entry point returns
-``cudaGetLastError()`` after its launch; :func:`check` raises on a non-zero
-code, so a refused launch never passes silently.
+source, every local header in ``csrc/`` and every flag, so an edited source
+or header, or a changed flag or include path, rebuilds. Every entry point
+returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
+non-zero code, so a refused launch never passes silently.
 """
 
 from __future__ import annotations
@@ -46,9 +47,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, each header
+    in ``csrc/`` (any source may include it) and the flags."""
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu"] + sorted(
+            p for p in CSRC.iterdir() if p.suffix in (".cuh", ".h", ".hpp")):
+        h.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> List[Path]:

@@ -39,7 +39,7 @@ bwd_launches = 0  # K3
 
 _ARGS = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 _SIG = {"roi_align_fwd_bf16": _ARGS, "roi_align_fwd_f32": _ARGS}
 _BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
@@ -113,12 +113,11 @@ def roi_align_fwd(
         raise ValueError(f"roi_align_fwd: R={r} != B*K={b * rois_per_image} or P={p} > {_MAXP}")
     _check_windows("roi_align_fwd", f0.device, r, p, lvl_idx, y0, x0, wy, wx)
     out = torch.empty((r, p, p, c), dtype=f0.dtype, device=f0.device)
-    if r == 0:
+    if out.numel() == 0:
         return out
     levels: List[Tensor] = list(features) + [f0] * (4 - len(features))
     lib = _build.load("roi_align_fwd", _SIG)
     fn = lib.roi_align_fwd_bf16 if f0.dtype == torch.bfloat16 else lib.roi_align_fwd_f32
-    threads = min(256, -(-c // 32) * 32)
     with torch.cuda.device(f0.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
@@ -126,7 +125,7 @@ def roi_align_fwd(
             *[f.shape[1] for f in levels], *[f.shape[2] for f in levels],
             len(features), c, rois_per_image,
             lvl_idx.data_ptr(), y0.data_ptr(), x0.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-            out.data_ptr(), r, p, threads, stream,
+            out.data_ptr(), r, p, stream,
         )
     _build.check(code, "roi_align_fwd")
     global launches

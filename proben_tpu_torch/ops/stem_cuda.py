@@ -4,6 +4,10 @@ Counterpart of ``proben_tpu/ops/stem_pallas.py::stem_pool_pallas``: the
 BasicStem (7x7/s2/pad-3 conv -> folded-BN affine -> ReLU -> 3x3/s2/pad-1
 max-pool) in one pass, writing only the pooled tensor. ``stem_pool`` launches
 the kernel on CUDA tensors and runs ``stem_pool_plain`` only on CPU tensors.
+The kernel computes the conv as an implicit GEMM on the tensor cores over a
+space-to-depth regrouping; ``space_to_depth_input``, ``pack_stem_weights``
+and ``stem_conv_s2d`` build its operands and compute the conv from them on
+any device, so the index mapping is testable without a card.
 ``StemPool`` makes it differentiable as ``stem_pool_pallas``'s custom VJP
 does: the forward is the kernel, the backward recomputes through the plain
 composition (the TPU kernel has no backward kernel either).
@@ -36,6 +40,47 @@ def stem_out_hw(h: int, w: int):
     """Pooled (H, W) after the stride-2 conv and the stride-2 pool."""
     hs, ws = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     return (hs - 1) // 2 + 1, (ws - 1) // 2 + 1
+
+
+def stem_cp(c: int) -> int:
+    """Channels per 2x2 sub-pixel in the kernel's space-to-depth layout."""
+    return 4 if c <= 4 else 8
+
+
+def pack_stem_weights(w: torch.Tensor) -> torch.Tensor:
+    """K1's B operand: (7, 7, C, 64) HWIO -> (64, 16 * 4 * CP) rows,
+    ``w'[o, a, b, dy, dx, c] = w[2a+dy-1, 2b+dx-1, c, o]``, zero where an
+    index is -1 or c >= C. The 7x7 kernel gets one zero tap in front of each
+    axis, and ky' = 2a + dy, kx' = 2b + dx split it into 4x4 taps of 2x2
+    sub-pixels."""
+    c = w.shape[2]
+    cp = stem_cp(c)
+    wp = F.pad(w, (0, 0, 0, cp - c, 1, 0, 1, 0))  # (8, 8, CP, 64)
+    wp = wp.reshape(4, 2, 4, 2, cp, 64)  # a, dy, b, dx, c, o
+    return wp.permute(5, 0, 2, 1, 3, 4).reshape(64, 16 * 4 * cp).contiguous()
+
+
+def space_to_depth_input(x: torch.Tensor) -> torch.Tensor:
+    """K1's A operand: (N, H, W, C) -> X' (N, Hs + 3, Ws + 3, 4 * CP),
+    ``X'[u, v, (dy, dx, c)] = x[2u+dy-4, 2v+dx-4, c]`` (zero outside). The
+    kernel builds the same layout tile by tile in shared memory."""
+    n, h, w, c = x.shape
+    cp = stem_cp(c)
+    hs, ws = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = F.pad(x, (0, cp - c, 4, 2 * ws + 2 - w, 4, 2 * hs + 2 - h))  # 2(Hs+3) x 2(Ws+3)
+    xp = xp.reshape(n, hs + 3, 2, ws + 3, 2, cp)
+    return xp.permute(0, 1, 3, 2, 4, 5).reshape(n, hs + 3, ws + 3, 4 * cp)
+
+
+def stem_conv_s2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 7x7/s2/pad-3 conv computed from K1's operands, as the kernel's
+    GEMM does: a 4x4 stride-1 valid conv of ``space_to_depth_input(x)``
+    with ``pack_stem_weights(w)``. (N, H, W, C) x (7, 7, C, 64) -> (N, Hs,
+    Ws, 64) NHWC, in x's dtype."""
+    cp = stem_cp(x.shape[-1])
+    xs = space_to_depth_input(x).permute(0, 3, 1, 2)
+    wp = pack_stem_weights(w).reshape(64, 4, 4, 4 * cp).permute(0, 3, 1, 2)
+    return F.conv2d(xs, wp).permute(0, 2, 3, 1)
 
 
 def stem_pool_plain(
@@ -80,9 +125,10 @@ def stem_pool(
         return out
     lib = _build.load("stem", _SIG)
     with torch.cuda.device(x.device):
+        wpk = pack_stem_weights(w)
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.stem_pool_bf16(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            x.data_ptr(), wpk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), n, h, wd, c, hs, ws, hp, wp, stream,
         )
     _build.check(code, "stem_pool")

@@ -30,6 +30,7 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.checkpoint
         import proben_tpu_torch.engine
         import proben_tpu_torch.engine.train
+        import proben_tpu_torch.kernel_probe
         import proben_tpu_torch.models
         import proben_tpu_torch.ops.roi_align_cuda
         import proben_tpu_torch.ops.stem_cuda

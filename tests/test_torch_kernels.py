@@ -35,7 +35,13 @@ def _stem_inputs(n, h, w, c, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 32, 256, 3), (1, 48, 256, 4), (1, 30, 98, 4), (1, 7, 9, 8)])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 256, 3), (1, 48, 256, 4), (1, 30, 98, 4), (1, 7, 9, 8),
+    # the kernel's 7 x 8 pooled tile: exactly one tile, one row and column
+    # past it, one short of it, two tiles and one past; C = 1 and 2 (padded
+    # to 4), 5 and 8 (to 8)
+    (1, 28, 32, 3), (1, 29, 33, 1), (2, 23, 27, 2), (1, 57, 65, 5), (1, 64, 96, 8),
+])
 def test_stem_kernel_matches_plain(shape):
     """Tolerance: the conv's f32 accumulation order differs from cuDNN's, so
     a bf16 conv output may round one ulp apart; through the bf16 affine that
@@ -51,9 +57,18 @@ def test_stem_kernel_matches_plain(shape):
     torch.testing.assert_close(got, ref, rtol=2.0 ** -6, atol=0.05)
 
 
-def _roi_case(dtype):
+# boxes that stress the kernels: degenerate, non-finite, at and beyond the
+# map's edges, out of window
+HAZARDS = [
+    [0.0, 0.0, 0.0, 0.0], [10.0, 10.0, 10.5, 200.0], [np.inf] * 4, [-np.inf] * 4,
+    [100.0, np.nan, 200.0, 150.0], [250.0, 250.0, 256.0, 256.0], [-50.0, -40.0, 30.0, 20.0],
+    [200.0, 100.0, 400.0, 300.0], [5.0, 100.0, 250.0, 110.0],
+]
+
+
+def _roi_case(dtype, c=48, k=32, hazards=False):
     rng = np.random.RandomState(0)
-    b, k, base, c = 2, 32, 64, 48
+    b, base = 2, 64
     feats = [torch.from_numpy(rng.rand(b, base >> i, base >> i, c).astype(np.float32)).cuda().to(dtype)
              for i in range(4)]
     xy = rng.rand(b, k, 2) * 150
@@ -63,6 +78,8 @@ def _roi_case(dtype):
     boxes[:, 1] = np.nan
     boxes[:, 2] = [100.0, 2.0, 104.3, 254.1]  # out of window
     boxes[:, 3] = [0.0, 0.0, 256.0, 256.0]
+    if hazards:
+        boxes[:, 4:4 + len(HAZARDS)] = HAZARDS
     flat = torch.from_numpy(boxes.reshape(-1, 4)).cuda()
     hw = [(f.shape[1], f.shape[2]) for f in feats]
     pads = [t_ra.padded_size(*s) for s in hw]
@@ -90,6 +107,26 @@ def test_roi_align_kernel_matches_plain(dtype):
     rtol = 2.0 ** -7 if dtype == BF else 1e-5
     torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5, equal_nan=True)
     assert torch.isnan(got[[1, 33]]).all() and torch.isfinite(got[[0, 32]]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c", [
+    (torch.bfloat16, 256), (torch.float32, 256),  # the main path's width: 16-byte lanes
+    (torch.bfloat16, 20), (torch.float32, 6),  # not a multiple of the vector width
+])
+def test_roi_align_kernel_wide_and_ragged_channels(dtype, c):
+    """80 RoIs (one CTA each) with hazard boxes, at C = 256 and at widths the
+    16-byte path does not take. Tolerance as in
+    ``test_roi_align_kernel_matches_plain``."""
+    _cuda()
+    feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype, c=c, k=40, hazards=True)
+    got = roi_align_cuda.roi_align_fwd(feats, lvl, y0, x0, wy, wx, k).float()
+    ref = roi_align_cuda.roi_align_fwd_plain(feats, lvl, y0, x0, wy, wx, k).float()
+    torch.cuda.synchronize()
+    assert got.shape == (80, 7, 7, c)
+    rtol = 2.0 ** -7 if dtype == BF else 1e-5
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5, equal_nan=True)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.isnan(got).any()
 
 
 def _bwd_case(dtype, seed=1):

@@ -69,3 +69,22 @@ def test_apply_stem_kernel_route_equals_plain_route():
     a = apply_stem(stem, xc, BF, "kernel")
     b = apply_stem(stem, xc, BF, "plain")
     np.testing.assert_array_equal(a.float().numpy(), b.float().numpy())
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("h,w", [(13, 17), (32, 64), (7, 9)])
+def test_kernel_regrouping_is_the_7x7_conv(c, h, w):
+    """K1's operands (space-to-depth input, packed 4x4-tap weights) give the
+    7x7/s2/pad-3 conv: the kernel's index mapping, checked without a card.
+    f32 on both sides; only the summation order differs (rtol 1e-5)."""
+    rng = np.random.RandomState(c)
+    x = torch.from_numpy(rng.randn(2, h, w, c).astype(np.float32))
+    wt = torch.from_numpy(rng.randn(7, 7, c, 64).astype(np.float32))
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), stride=2,
+                                      padding=3).permute(0, 2, 3, 1)
+    got = stem_cuda.stem_conv_s2d(x, wt)
+    cp = stem_cuda.stem_cp(c)
+    assert stem_cuda.pack_stem_weights(wt).shape == (64, 16 * 4 * cp)
+    assert stem_cuda.space_to_depth_input(x).shape == (2, (h + 1) // 2 + 3, (w + 1) // 2 + 3, 4 * cp)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
