@@ -23,7 +23,8 @@ Phases, each raising on a miss (exit code != 0, no result line):
 5. K3 against its plain version at the training path's shapes (the FPN maps
    of the model, the 8 x 512 RoIs ``label_and_sample_proposals`` samples
    for bench.py's training batch, a seeded bf16 cotangent), then with
-   hazard boxes mixed in, in bf16 and f32 (``check_bwd``);
+   hazard boxes mixed in, in bf16 and f32 (``check_bwd``), and two K3
+   calls bitwise equal on each;
 6. training slice: ``make_train_step`` on bench.py's training batch (100 gt
    boxes per image, FREEZE_AT 2, the FLIR solver), the same model updated
    in place: K3 as the only difference (same forward, K3 or its plain
@@ -366,11 +367,12 @@ def hazard_windows(shapes, boxes, lvl_idx, y0, x0, k):
 
 def check_bwd(g, shapes, lvl_idx, y0, x0, wy, wx, k, label, hazards=None):
     """K3 against its plain version on identical inputs. Tolerance: both add
-    the same f32 products in other orders (atomics in the kernel), bounded
-    by 1e-5 of the sum of the terms' magnitudes (the plain backward of |g|
-    with |weights|). In bf16 the f32 u may round to the neighbouring bf16
-    value (at most 2^-8 of that sum) and the result to the neighbouring
-    value (one bf16 ulp). NaN positions must agree, and every entry outside
+    the same f32 products, the kernel in a fixed order (RoI order per
+    entry), the plain version in its einsums' and ``index_add_``'s; the
+    gap is bounded by 1e-5 of the sum of the terms' magnitudes (the plain
+    backward of |g| with |weights|). In bf16 the f32 u may round to the
+    neighbouring bf16 value (at most 2^-8 of that sum) and the result to
+    the neighbouring value (one bf16 ulp). NaN positions must agree, and every entry outside
     the hazard boxes' windows must be finite."""
     from proben_tpu_torch.ops import roi_align_cuda
     from proben_tpu_torch.ops.roi_align import roi_align_bwd_plain
@@ -400,6 +402,17 @@ def check_bwd(g, shapes, lvl_idx, y0, x0, wy, wx, k, label, hazards=None):
     if bad:
         raise AssertionError(f"K3 {label}: {bad} entries beyond tolerance")
     return err
+
+
+def bitwise_repeatable(g, shapes, lvl_idx, y0, x0, wy, wx, k) -> bool:
+    """Whether two K3 calls on the same inputs give the same bits (NaNs
+    included): the kernel sums every entry in one fixed order."""
+    from proben_tpu_torch.ops import roi_align_cuda
+
+    a = roi_align_cuda.roi_align_bwd(g, shapes, lvl_idx, y0, x0, wy, wx, k)
+    b = roi_align_cuda.roi_align_bwd(g, shapes, lvl_idx, y0, x0, wy, wx, k)
+    bits = torch.int16 if g.element_size() == 2 else torch.int32
+    return all(torch.equal(x.view(bits), y.view(bits)) for x, y in zip(a, b))
 
 
 def sampled_rois(model, batch, seed=0):
@@ -442,6 +455,14 @@ def bwd_phase(model, batch):
     err = check_bwd(g, shapes, lvl, y0, x0, wy, wx, k, "main-path RoIs bf16")
     log(f"K3 main path: {b * k} RoIs, {int(oow.sum())} out of window; level histogram "
         f"{torch.bincount(lvl.long(), minlength=4).tolist()}")
+    # device memory one K3 call allocates (outputs and scratch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
+    alloc_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    df_mb = sum(s[0] * s[1] * s[2] * s[3] for s in shapes) * g.element_size() / 1e6
+    log(f"K3 allocates {alloc_mb:.1f} MB per call (dF {df_mb:.1f} MB)")
     ms = cuda_ms(lambda: roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k), 30)
     plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k), 5)
     # bytes: the cotangent, weights and origins read once, every dF written
@@ -464,6 +485,12 @@ def bwd_phase(model, batch):
     windows = hazard_windows(shapes, hz.reshape(-1, 4), lvl_h, y0_h, x0_h, k)
     err_h = check_bwd(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes bf16", windows)
     err32 = check_bwd(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes f32", windows)
+    repeat = {"main path bf16": bitwise_repeatable(g, shapes, lvl, y0, x0, wy, wx, k),
+              "hazards bf16": bitwise_repeatable(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k),
+              "hazards f32": bitwise_repeatable(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k)}
+    log(f"K3 two calls bitwise equal: {repeat}")
+    if not all(repeat.values()):
+        raise AssertionError(f"K3 is not deterministic: {repeat}")
     log(f"K3 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {max(t_ops, t_bytes):.4g} ms "
         f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / max(t_ops, t_bytes):.1f}x bound; "
         f"errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
@@ -472,7 +499,8 @@ def bwd_phase(model, batch):
         replaces="proben_tpu/ops/roi_align_bwd_pallas.py:350", max_abs_err=max(err, err_h),
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
-        gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err_f32=err32,
+        gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err_f32=err32, deterministic=True,
+        alloc_mb=alloc_mb,
     )
 
 
@@ -746,8 +774,9 @@ def train_phase(model, batch, steps=8, warmup=2):
     difference, then train img/s with K3 and with the plain backward.
     Tolerance of the K3-only check: the losses must be bit-identical (the
     forward is the same); each module group's gradient may differ by 1e-2
-    relative L2 (K3 rounds each dF entry once, from an f32 sum whose order
-    the atomics change: at most one bf16 ulp, 2^-8 relative, per entry)."""
+    relative L2 (K3 rounds each dF entry once, from an f32 sum taken in
+    another order than the plain version's: at most one bf16 ulp, 2^-8
+    relative, per entry)."""
     from proben_tpu_torch.engine.train import losses_and_grads, make_train_step, trainable_mask
     from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
     from proben_tpu_torch.solver import SolverConfig
@@ -950,11 +979,13 @@ def main() -> int:
         print(json.dumps({"kernel": d["name"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
                           "library_ms": d["library_ms"], "bound_ms": d["bound_ms"],
                           "bound_by": d["bound_by"], "gflop": d["gflop"], "mbytes": d["mbytes"],
-                          "launches": d["launches"], "max_abs_err": d["max_abs_err"]}))
+                          "launches": d["launches"], "max_abs_err": d["max_abs_err"],
+                          **{k: d[k] for k in ("deterministic", "alloc_mb") if k in d}}))
     print(json.dumps({"slice": {**slice_stats, "card": card}}))
     print(json.dumps({"train": {**train_stats, "launches_per_step": train_launches, "card": card,
                                 "seconds": time.time() - t0}}))
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (k1, k2, k3)]}), flush=True)
+    print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic",) if k in d}
+                                  for d in (k1, k2, k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -42,9 +42,18 @@ _ARGS = (
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 _SIG = {"roi_align_fwd_bf16": _ARGS, "roi_align_fwd_f32": _ARGS}
-_BWD_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+_BWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 _BWD_SIG = {"roi_align_bwd_bf16": _BWD_ARGS, "roi_align_bwd_f32": _BWD_ARGS}
 _MAXP = 8
+
+
+def bwd_scratch_words(r: int, b: int, shapes) -> int:
+    """4-byte words of K3's scratch (``csrc/roi_align_bwd.cu``): per RoI its
+    transposed weights and spans; per tile its RoI list (room for every RoI
+    of its image) and its length, for tiles of at least 8 x 8."""
+    tiles = sum(-(-s[1] // 8) * -(-s[2] // 8) for s in shapes)  # per image
+    return ((WIN_Y + WIN_X) * _MAXP + 4 + tiles) * r + b * tiles
 
 
 def roi_align_fwd_plain(
@@ -177,23 +186,21 @@ def roi_align_bwd(
                          f"tensor with R = B*K = {b * rois_per_image} and P <= {_MAXP}, "
                          f"got {tuple(g.shape)}")
     _check_windows("roi_align_bwd", g.device, r, p, lvl_idx, y0, x0, wy, wx)
-    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=g.device)
-    accs = list(torch.split(acc, sizes))
+    # every dF element is written once: no accumulator, no zero-fill
+    scratch = torch.empty(bwd_scratch_words(r, b, shapes), dtype=torch.int32, device=g.device)
     outs = [torch.empty(s, dtype=g.dtype, device=g.device) for s in shapes]
     pad = 4 - len(shapes)
     hs = [s[1] for s in shapes] + [shapes[0][1]] * pad
     ws = [s[2] for s in shapes] + [shapes[0][2]] * pad
     lib = _build.load("roi_align_bwd", _BWD_SIG)
     fn = lib.roi_align_bwd_bf16 if g.dtype == torch.bfloat16 else lib.roi_align_bwd_f32
-    threads = min(256, -(-c // 32) * 32)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             g.data_ptr(), lvl_idx.data_ptr(), y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
-            wx.data_ptr(), *[a.data_ptr() for a in accs + accs[:1] * pad],
-            *[o.data_ptr() for o in outs + outs[:1] * pad], *hs, *ws, len(shapes), b, c,
-            rois_per_image, r, p, threads, stream,
+            wx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            *[o.data_ptr() for o in outs + outs[:1] * pad],
+            *hs, *ws, len(shapes), b, c, rois_per_image, r, p, stream,
         )
     _build.check(code, "roi_align_bwd")
     global bwd_launches

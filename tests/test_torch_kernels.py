@@ -129,9 +129,9 @@ def test_roi_align_kernel_wide_and_ragged_channels(dtype, c):
     assert torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.isnan(got).any()
 
 
-def _bwd_case(dtype, seed=1):
+def _bwd_case(dtype, seed=1, **kw):
     """K3's inputs: the K2 case's windows plus a seeded cotangent."""
-    feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype)
+    feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype, **kw)
     rng = np.random.RandomState(seed)
     g = torch.from_numpy(rng.randn(wy.shape[0], 7, 7, feats[0].shape[-1]).astype(np.float32))
     return [tuple(f.shape) for f in feats], lvl, y0, x0, wy, wx, k, g.cuda().to(dtype)
@@ -146,11 +146,12 @@ def _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_roi_align_bwd_kernel_matches_plain(dtype):
-    """Tolerance: both sum the same products in f32 in other orders (atomics
-    in the kernel): 1e-5 of the sum of the terms' magnitudes. In bf16 the
-    f32 u may round to the neighbouring bf16 value (2^-8 of that sum) and
-    the result to the neighbouring one (one bf16 ulp, rtol 2^-7). NaN
-    windows (the NaN box) must match."""
+    """Tolerance: both sum the same products in f32, the kernel in a fixed
+    order (RoI order per element, q order per RoI), the plain version in
+    its einsums' and ``index_add_``'s: 1e-5 of the sum of the terms'
+    magnitudes. In bf16 the f32 u may round to the neighbouring bf16 value
+    (2^-8 of that sum) and the result to the neighbouring one (one bf16
+    ulp, rtol 2^-7). NaN windows (the NaN box) must match."""
     _cuda()
     shapes, lvl, y0, x0, wy, wx, k, g = _bwd_case(dtype)
     before = roi_align_cuda.bwd_launches
@@ -168,6 +169,89 @@ def test_roi_align_bwd_kernel_matches_plain(dtype):
         bound = (2.0 ** -7 * r.abs() + 2.0 ** -8 * m) if bf else 1e-5 * m + 1e-6
         assert ((a - r).abs()[fin] <= bound[fin]).all()
     assert any(torch.isnan(a).any() for a in got) and all(torch.isfinite(a).any() for a in got)
+
+
+def _bwd_windows(shapes, boxes, dtype, seed=2):
+    """K3's inputs for (B, K, 4) image-space boxes on levels of the given
+    (B, H, W, C) shapes (strides 4, 8, ...), with a seeded cotangent."""
+    feats = [torch.empty(s, device="cuda") for s in shapes]
+    bx = torch.from_numpy(np.asarray(boxes, np.float32)).cuda()
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(feats, bx, STRIDES[:len(shapes)])
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(wy.shape[0], 7, 7, shapes[0][-1]).astype(np.float32))
+    return shapes, lvl, y0, x0, wy, wx, bx.shape[1], g.cuda().to(dtype)
+
+
+def _bwd_scattered(shapes, k, seed=3):
+    """k boxes of 8-60 px anywhere on the first level's map."""
+    rng = np.random.RandomState(seed)
+    b, h, w = shapes[0][:3]
+    xy = rng.rand(b, k, 2) * [4 * w - 8, 4 * h - 8]
+    wh = rng.rand(b, k, 2) * 52 + 8
+    return np.concatenate([xy, xy + wh], -1)
+
+
+def _bwd_inputs(case):
+    if case.startswith("c="):  # channel widths: 1 and 8 below the 16-byte chunk, 512 the concat
+        return _bwd_case(BF, c=int(case[2:]), k=40, hazards=True)
+    if case.startswith("hazards"):
+        return _bwd_case(BF if case.endswith("bf16") else torch.float32, c=64, k=40, hazards=True)
+    if case == "dense tile":
+        # 512 identical boxes and 512 scattered over one 16x16 tile of p2
+        rng = np.random.RandomState(4)
+        xy = 64 + rng.rand(2, 512, 2) * 40
+        scattered = np.concatenate([xy, xy + 8 + rng.rand(2, 512, 2) * 16], -1)
+        same = np.broadcast_to(np.array([70.0, 66.0, 118.0, 121.0]), (2, 512, 4))
+        shapes = [(2, 64 >> i, 80 >> i, 32) for i in range(4)]
+        return _bwd_windows(shapes, np.concatenate([same, scattered], 1), BF)
+    if case == "ragged one level":
+        shapes = [(2, 13, 19, 24)]
+        return _bwd_windows(shapes, _bwd_scattered(shapes, 24), BF)
+    assert case == "ragged four levels"
+    shapes = [(2, 37, 45, 24), (2, 19, 23, 24), (2, 10, 12, 24), (2, 5, 6, 24)]
+    boxes = _bwd_scattered(shapes, 48)
+    boxes[:, :8] = [[0.0, 0.0, 300.0, 260.0], [10.0, 5.0, 620.0, 600.0]] * 4  # p4 / p5
+    return _bwd_windows(shapes, boxes, BF)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "dense tile", "c=1", "c=8", "c=256", "c=512", "ragged one level", "ragged four levels",
+    "hazards bf16", "hazards f32",
+])
+def test_roi_align_bwd_kernel_cases(case):
+    """K3 on the shapes its tiling has to get right: dense tiles (1024 RoIs
+    of an image on one 16x16 region of p2, four rounds of candidates),
+    widths below, at and above the 64-channel chunk, level maps that are
+    not tile multiples, one and four levels, hazard boxes (NaN windows).
+    Two calls give bitwise-equal results (fixed summation order), each call
+    adds one launch. Tolerance as in
+    ``test_roi_align_bwd_kernel_matches_plain``."""
+    _cuda()
+    shapes, lvl, y0, x0, wy, wx, k, g = _bwd_inputs(case)
+    before = roi_align_cuda.bwd_launches
+    got = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
+    assert roi_align_cuda.bwd_launches == before + 1
+    again = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
+    assert roi_align_cuda.bwd_launches == before + 2
+    ref = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)
+    mag = _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g)
+    torch.cuda.synchronize()
+    bf = g.dtype == BF
+    for a, a2, r, m, s in zip(got, again, ref, mag, shapes):
+        assert a.shape == s and a.dtype == g.dtype
+        assert torch.equal(_bits(a), _bits(a2))
+        a, r = a.float(), r.float()
+        assert torch.equal(torch.isnan(a), torch.isnan(r))
+        fin = ~torch.isnan(r)
+        bound = (2.0 ** -7 * r.abs() + 2.0 ** -8 * m) if bf else 1e-5 * m + 1e-6
+        assert ((a - r).abs()[fin] <= bound[fin]).all()
+    assert any(float(a.float().abs().nan_to_num().sum()) > 0 for a in got)
+    assert any(torch.isnan(a.float()).any() for a in got) == case.startswith(("hazards", "c="))
 
 
 @pytest.mark.cuda

@@ -170,3 +170,81 @@ def test_nan_box_gives_nan_only_in_its_window():
             assert win.all() and int(nan.sum()) == win.numel()
         else:
             assert not nan.any()
+
+
+def _tiled_backward(g, shapes, lvl_idx, y0, x0, wy, wx, k, tile):
+    """K3's decomposition (``csrc/roi_align_bwd.cu``) emulated with torch:
+    per RoI the spans of its nonzero rounded weights (its whole window when
+    a weight is not finite) in level coordinates, clipped to the true map;
+    per (image, level, tile) the RoIs whose spans touch the tile, in RoI
+    order; per tile an f32 accumulator that adds each listed RoI's
+    contribution over the tile and its span, rounded once. The
+    contributions are the plain version's own einsums, so a difference can
+    only come from the decomposition."""
+    dt, num_levels = g.dtype, len(shapes)
+    wyr, wxr = wy.to(dt).float(), wx.to(dt).float()
+    u = torch.einsum("npy,npqc->nyqc", wyr, g.float()).to(dt)
+    contrib = torch.einsum("nqx,nyqc->nyxc", wxr, u.float())
+    bad = ~(torch.isfinite(wyr).all(dim=(1, 2)) & torch.isfinite(wxr).all(dim=(1, 2)))
+    spans = []
+    for r in range(g.shape[0]):
+        l = min(max(int(lvl_idx[r]), 0), num_levels - 1)
+        h, w = shapes[l][1:3]
+        ys = torch.arange(t_ra.WIN_Y) if bad[r] else (wyr[r] != 0).any(0).nonzero().flatten()
+        xs = torch.arange(t_ra.WIN_X) if bad[r] else (wxr[r] != 0).any(0).nonzero().flatten()
+        if not len(ys) or not len(xs):
+            spans.append(None)
+            continue
+        oy, ox = int(y0[r]), int(x0[r])
+        ylo, yhi = max(oy + int(ys.min()), 0), min(oy + int(ys.max()), h - 1)
+        xlo, xhi = max(ox + int(xs.min()), 0), min(ox + int(xs.max()), w - 1)
+        spans.append((l, ylo, yhi, xlo, xhi) if ylo <= yhi and xlo <= xhi else None)
+    ty_, tx_ = tile
+    out = []
+    for l, (b, h, w, c) in enumerate(shapes):
+        level = torch.empty((b, h, w, c), dtype=dt)
+        for img in range(b):
+            for ty in range(0, h, ty_):
+                for tx in range(0, w, tx_):
+                    y1, x1 = min(ty + ty_, h) - 1, min(tx + tx_, w) - 1
+                    acc = torch.zeros((y1 - ty + 1, x1 - tx + 1, c))
+                    for r in range(img * k, (img + 1) * k):
+                        s = spans[r]
+                        if s is None or s[0] != l or s[1] > y1 or s[2] < ty or s[3] > x1 or s[4] < tx:
+                            continue
+                        ya, yb, xa, xb = max(s[1], ty), min(s[2], y1), max(s[3], tx), min(s[4], x1)
+                        oy, ox = int(y0[r]), int(x0[r])
+                        acc[ya - ty:yb - ty + 1, xa - tx:xb - tx + 1] += (
+                            contrib[r, ya - oy:yb - oy + 1, xa - ox:xb - ox + 1])
+                    level[img, ty:y1 + 1, tx:x1 + 1] = acc.to(dt)
+        out.append(level)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [(8, 16), (16, 16), (8, 8)])
+def test_tiled_decomposition_is_the_plain_backward(dtype, tile):
+    """K3's output-stationary decomposition gives the plain backward
+    exactly: RoIs crossing tile edges (and tiles past the map's ragged
+    edge), windows reaching past the true map into the padding, a NaN box,
+    RoIs on all four levels. In RoI order each entry is the same f32 sum as
+    ``index_add_``'s, so the match is exact, NaN for NaN."""
+    feats, boxes, _ = _inputs(5)
+    boxes[0, :4] = [[0.0, 0.0, 250.0, 300.0], [10.0, 20.0, 200.0, 180.0],
+                    [20.0, 5.0, 250.0, 318.0], [-100.0, -90.0, 400.0, 420.0]]  # p3..p5
+    boxes[1, :2] = [[200.0, 280.0, 256.0, 320.0], [230.0, 150.0, 256.0, 210.0]]  # at the map's edge
+    boxes[1, 2] = np.nan
+    boxes[0, 4] = [100.0, np.nan, 200.0, 150.0]  # NaN wy, finite wx: NaN over the whole window
+    fs = [torch.from_numpy(f) for f in feats]
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(fs, torch.from_numpy(boxes), STRIDES)
+    assert set(lvl.tolist()) == {0, 1, 2, 3}
+    rng = np.random.RandomState(6)
+    g = torch.from_numpy(rng.randn(B * K, P, P, C).astype(np.float32)).to(dtype)
+    shapes = [tuple(f.shape) for f in fs]
+    want = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, K)
+    got = _tiled_backward(g, shapes, lvl, y0, x0, wy, wx, K, tile)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(want[int(lvl[K + 2])]).any()
+    # windows reach past the true map: the padded level would hold more
+    assert any(int(y0[r]) + t_ra.WIN_Y > shapes[int(lvl[r])][1] for r in range(B * K))
