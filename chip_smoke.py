@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root; needs one card
     python3 chip_smoke.py --profile  # also per-stage breakdowns and profiler tables
+                                     # (single-modality and middle fusion)
 
 Phases, each raising on a miss (exit code != 0, no result line):
 
@@ -33,7 +34,20 @@ Phases, each raising on a miss (exit code != 0, no result line):
    counter read around it (K1, K2 and K3 once each), train img/s with K3
    and with the plain backward, finite losses on every step, frozen
    parameters unchanged, every trainable tensor moved;
-7. one JSON line per kernel, one for each slice, one listing every kernel;
+7. early fusion (BGRT): a calibrated R101 with a 4-channel stem through
+   ``Predictor`` (K1 at C = 4, K2 at C = 256), held to the plain path as in
+   phase 4;
+8. middle fusion (BGRTTT, ``faster_rcnn_R_101_FLIR_middle_fusion.yaml``):
+   two R101-FPNs, FREEZE_AT 3. Inference as in phase 4 (K1 twice and K2
+   once per batch; each stream's FPN maps compared); K2 and K3 at C = 512
+   on the model's own concatenated maps and RoIs (phases 3 and 5's checks,
+   times and bounds); training as in phase 6 (K1 twice, K2 and K3 once per
+   step; both backbones' frozen parameters unchanged);
+9. ProbEn late fusion: two calibrated R101 BGR detectors with the variance
+   head, their padded detections fused on the card by every (score, box)
+   method against the port's numpy reference, with TF32 off and on;
+10. one JSON line per kernel, one for each slice and fusion mode, one
+   listing every kernel (launches per path, the C = 512 readings);
    the last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -334,10 +348,21 @@ def roi_phase(model, images, sizes):
 # ---------------------------------------------------------------------------
 
 
-def train_batch():
+def fused(image, channels):
+    """A 3-channel image batch widened to ``channels``: BGRT adds the mean
+    of the three as the thermal channel; BGRTTT adds the reversed channels
+    as the thermal stream (bench.py's middle-fusion stage)."""
+    if channels == 3:
+        return image
+    if channels == 4:
+        return np.concatenate([image, image.mean(-1, keepdims=True)], -1)
+    return np.concatenate([image, image[..., ::-1]], -1)
+
+
+def train_batch(channels=3):
     """bench.py --train's batch: 100 gt boxes per image drawn first, then
-    the structured images, from ``np.random.RandomState(0)``; true size
-    800x1000 on the 800x1024 canvas."""
+    the structured images, from ``np.random.RandomState(0)`` (widened by
+    ``fused``); true size 800x1000 on the 800x1024 canvas."""
     from proben_tpu_torch.structures import GroundTruth
 
     rng = np.random.RandomState(0)
@@ -348,7 +373,7 @@ def train_batch():
     classes = rng.randint(0, 3, (BATCH, g)).astype(np.int32)
     gt = GroundTruth(torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)),
                      torch.from_numpy(classes), torch.ones(BATCH, g, dtype=torch.bool))
-    return {"image": torch.from_numpy(image).cuda(),
+    return {"image": torch.from_numpy(np.ascontiguousarray(fused(image, channels))).cuda(),
             "image_size": torch.tensor([TRUE_HW] * BATCH, dtype=torch.int32, device="cuda"),
             "gt": gt.to("cuda")}
 
@@ -580,16 +605,20 @@ def match_fraction(a, b, iou_min=0.95, score_tol=0.02):
 
 
 def feature_gap(model, cfg_a, cfg_b, images):
-    """Relative L2 difference of the p2..p6 maps of two configurations."""
+    """Relative L2 difference of the p2..p6 maps of two configurations, per
+    stream for middle fusion (the concat's RGB and thermal halves)."""
     from proben_tpu_torch.models import rcnn
 
     with torch.inference_mode():
         fa = rcnn.extract_features(model, cfg_a, rcnn.preprocess(cfg_a, images))
         fb = rcnn.extract_features(model, cfg_b, rcnn.preprocess(cfg_b, images))
-    return {k: float((fa[k].float() - fb[k].float()).norm() / fb[k].float().norm()) for k in fa}
+    c = cfg_a.fpn_channels
+    streams = {"rgb ": slice(0, c), "thermal ": slice(c, 2 * c)} if cfg_a.dual else {"": slice(None)}
+    return {s + k: float((fa[k][:, sl].float() - fb[k][:, sl].float()).norm() / fb[k][:, sl].float().norm())
+            for s, sl in streams.items() for k in fa}
 
 
-def slice_phase(model, images_list, sizes):
+def slice_phase(model, images_list, sizes, expect, hi=16.0):
     """The main path, then its agreement with the plain versions. Tolerance:
     bf16 rounding alone (the plain path in bf16 against the plain path in
     f32) moves the p5/p6 maps of this random R101 by ~1% and changes which
@@ -600,14 +629,15 @@ def slice_phase(model, images_list, sizes):
     ways; (2) with both kernels, every FPN map may differ from the plain
     path's by at most 1.5x what bf16 rounding moves it (a wiring fault
     gives O(1)); (3) the whole-path detections must match at least as well
-    as the f32 control, less 5 points."""
+    as the f32 control, less 5 points. ``expect``: the launches of each
+    kernel in one batch; ``hi``: the top of the background-bias bracket."""
     from proben_tpu_torch.engine import Predictor
     from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
 
     cfg = model.cfg
     calibrate_rpn(model, images_list[0])
     pred = Predictor(model, cfg)
-    bias, n_dets = calibrate(model, pred, images_list[0], sizes)
+    bias, n_dets = calibrate(model, pred, images_list[0], sizes, hi=hi)
     log(f"calibration: background bias {bias:.4g} -> {n_dets:.1f} dets/img")
     batch = {"image": images_list[0], "image_size": sizes, "orig_size": sizes,
              "image_id": list(range(BATCH))}
@@ -615,9 +645,9 @@ def slice_phase(model, images_list, sizes):
     roi_align_cuda.launches = 0
     out_k = pred.predict_batch(batch)
     launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches}
-    log(f"main path launches: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    log(f"{cfg.input_format} inference launches: {launches}")
+    if launches != expect:
+        raise AssertionError(f"kernel launches per batch {launches}, expected {expect}")
     for r in out_k:
         if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
             raise AssertionError("non-finite detections")
@@ -659,18 +689,23 @@ def slice_phase(model, images_list, sizes):
     for name, p in (("kernels", pred), ("plain", plain)):
         run(p, 2)
         iters = 12
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         run(p, iters)
         b.record()
         torch.cuda.synchronize()
         rates[name] = BATCH * iters / (a.elapsed_time(b) / 1e3)
-    log(f"throughput: {rates['kernels']:.2f} img/s with kernels, {rates['plain']:.2f} img/s plain")
+        if name == "kernels":  # the kernel path's own peak (model, inputs, one batch in flight)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"throughput: {rates['kernels']:.2f} img/s with kernels, {rates['plain']:.2f} img/s plain; "
+        f"peak memory {peak:.2f} GB")
     return launches, dict(dets_per_img=dets_k, dets_per_img_plain=dets_p, matched_k2=m_k2,
                           matched=m_all, matched_bf16_f32=m_32,
                           fpn_gap=gap_k, fpn_gap_bf16_f32=gap_32,
                           img_s=rates["kernels"], img_s_plain=rates["plain"],
-                          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                          max_memory_gb=peak)
 
 
 def stage_times(model, images, sizes, reps=5):
@@ -736,12 +771,13 @@ def profile_phase(pred, images, sizes):
 # configs/FLIR-Detection/faster_rcnn_R_101_FLIR.yaml over Base-RCNN-FPN's solver
 FLIR_SOLVER = dict(base_lr=0.02, momentum=0.9, weight_decay=1e-4, weight_decay_bias=1e-4,
                    warmup_factor=1e-3, warmup_iters=1000, steps=(210000, 250000), max_iter=270000)
-GRAD_GROUPS = ("backbone.res3", "backbone.res4", "backbone.res5", "fpn", "rpn_head", "roi.box_head",
-               "roi.output")
 
 
 def group_of(name: str) -> str:
-    return next(g for g in GRAD_GROUPS if name.startswith(g + "."))
+    """Module group of a parameter: a backbone's stage, an FPN, the RPN
+    head, the box head or the output layers."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] in ("backbone", "backbone_2", "roi") else parts[0]
 
 
 def grad_gaps(a, b):
@@ -769,14 +805,15 @@ class plain_backward:
         self.module.roi_align_bwd = self.kernel
 
 
-def train_phase(model, batch, steps=8, warmup=2):
+def train_phase(model, batch, expect, steps=8, warmup=2):
     """The training slice through ``make_train_step``, then K3 as the only
     difference, then train img/s with K3 and with the plain backward.
     Tolerance of the K3-only check: the losses must be bit-identical (the
     forward is the same); each module group's gradient may differ by 1e-2
     relative L2 (K3 rounds each dF entry once, from an f32 sum taken in
     another order than the plain version's: at most one bf16 ulp, 2^-8
-    relative, per entry)."""
+    relative, per entry). ``expect``: the launches of each kernel in one
+    step."""
     from proben_tpu_torch.engine.train import losses_and_grads, make_train_step, trainable_mask
     from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
     from proben_tpu_torch.solver import SolverConfig
@@ -788,6 +825,7 @@ def train_phase(model, batch, steps=8, warmup=2):
     params = dict(model.named_parameters())
     frozen = {n: p.detach().clone() for n, p in params.items() if not p.requires_grad}
     start = {n: p.detach().clone() for n, p in params.items() if p.requires_grad}
+    groups = sorted({group_of(n) for n in start})
     torch.cuda.reset_peak_memory_stats()
 
     # K3 as the only difference: one step's losses and gradients, same seed
@@ -807,12 +845,12 @@ def train_phase(model, batch, steps=8, warmup=2):
         norms[group_of(n)] = norms.get(group_of(n), 0.0) + float(gr.float().pow(2).sum())
     log(f"K3-only: losses bit-identical {same} ({ {k: float(v) for k, v in lk.items()} })")
     log("K3-only gradient gap per group (rel L2, K3 vs plain / plain vs plain): " + ", ".join(
-        f"{k} {gaps[k]:.3g}/{control[k]:.3g}" for k in GRAD_GROUPS))
+        f"{k} {gaps[k]:.3g}/{control[k]:.3g}" for k in groups))
     if not same:
         raise AssertionError("K3 and plain-backward runs give different losses")
-    if any(not norms[k] > 0 or not np.isfinite(norms[k]) for k in GRAD_GROUPS):
+    if any(not norms[k] > 0 or not np.isfinite(norms[k]) for k in groups):
         raise AssertionError(f"a trainable module group gets no gradient: {norms}")
-    if any(not gaps[k] <= 1e-2 for k in GRAD_GROUPS):
+    if any(not gaps[k] <= 1e-2 for k in groups):
         raise AssertionError(f"K3 gradients differ from the plain backward's: {gaps}")
     del runs, gk, gp, gp2
 
@@ -821,9 +859,9 @@ def train_phase(model, batch, steps=8, warmup=2):
     state, m = train_step(state, batch)
     launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
                 "roi_align_bwd": roi_align_cuda.bwd_launches}
-    log(f"training step launches: {launches}")
-    if any(v != 1 for v in launches.values()):
-        raise AssertionError(f"each kernel must launch once per training step: {launches}")
+    log(f"{cfg.input_format} training step launches: {launches}")
+    if launches != expect:
+        raise AssertionError(f"kernel launches per training step {launches}, expected {expect}")
     metrics = [m]
 
     def timed(n):
@@ -923,6 +961,88 @@ def train_profile(model, batch):
                                   max_name_column_width=60))
 
 
+# ---------------------------------------------------------------------------
+# ProbEn late fusion of two single-modality detectors
+# ---------------------------------------------------------------------------
+
+def check_fusion(dets, label):
+    """``fuse_detections_torch`` on the card, batched over the images,
+    against the port's numpy ``fuse_detections`` per image on the same valid
+    detections (in f64), for every (score, box) method. Tolerance (that of
+    tests/test_proben_fusion.py): same count and classes, scores to rtol
+    2e-4 / atol 2e-5, boxes to rtol 2e-4 / atol 2e-3 px."""
+    from proben_tpu_torch.fusion import fuse_detections, fuse_detections_torch
+    from proben_tpu_torch.fusion.proben_torch import BOX_METHODS, SCORE_METHODS
+
+    args = [torch.cat([getattr(d, f) for d in dets], 1)
+            for f in ("boxes", "scores", "classes", "probs", "variance", "valid")]
+    host = [a.cpu().numpy() for a in args]
+    n = args[0].shape[1]
+    out = {}
+    for sm, bm in [(sm, bm) for sm in SCORE_METHODS for bm in BOX_METHODS]:
+        got = [t.cpu().numpy() for t in fuse_detections_torch(*args, score_method=sm, box_method=bm,
+                                                              topk=n)]
+        err_s = err_b = 0.0
+        fused = 0
+        for i in range(args[0].shape[0]):
+            b, sc, c, p, var, v = (h[i] for h in host)
+            f64 = lambda a: a[v].astype(np.float64)  # noqa: E731
+            nb, ns, nc = fuse_detections(f64(b), f64(sc), c[v], f64(p), f64(var), sm, bm)
+            m = int(got[3][i].sum())
+            if m != len(ns) or not np.array_equal(got[2][i][:m], nc):
+                raise AssertionError(f"ProbEn {label} {sm}/{bm} image {i}: {m} fused detections "
+                                     f"vs {len(ns)}, or their classes differ")
+            np.testing.assert_allclose(got[1][i][:m], ns, rtol=2e-4, atol=2e-5,
+                                       err_msg=f"ProbEn {label} {sm}/{bm} scores")
+            np.testing.assert_allclose(got[0][i][:m], nb, rtol=2e-4, atol=2e-3,
+                                       err_msg=f"ProbEn {label} {sm}/{bm} boxes")
+            err_s = max(err_s, float(np.abs(got[1][i][:m] - ns).max(initial=0.0)))
+            err_b = max(err_b, float(np.abs(got[0][i][:m] - nb).max(initial=0.0)))
+            fused += m
+        out[f"{sm}/{bm}"] = {"fused_per_img": fused / args[0].shape[0], "max_abs_err_score": err_s,
+                             "max_abs_err_box": err_b}
+    log(f"ProbEn {label}: all 12 methods agree with the numpy reference; fused dets/img " + ", ".join(
+        f"{k} {v['fused_per_img']:.1f}" for k, v in out.items()))
+    return args, out
+
+
+def proben_phase(images, sizes):
+    """Two calibrated R101 BGR detectors with the variance head (the
+    ``faster_rcnn_R_101_FLIR_gnll.yaml`` model), the "thermal" one on the
+    images with reversed channels and the "RGB" one on the images as they
+    are; their padded detections (100 + 100 per image) fused on the card by
+    every method, with TF32 off and then on, then ms per batch-of-8 call."""
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.fusion import fuse_detections_torch
+    from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
+
+    cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16",
+                       enable_gaussian_nll=True)
+    dets, per_img = [], {}
+    for name, seed, ims in (("thermal", 2, [im.flip(-1) for im in images]), ("rgb", 3, images)):
+        model = build_model(cfg, params=random_affines(init_rcnn(seed, cfg), seed))
+        calibrate_rpn(model, ims[0])
+        pred = Predictor(model, cfg)
+        bias, n = calibrate(model, pred, ims[0], sizes)
+        log(f"ProbEn {name} model: background bias {bias:.4g} -> {n:.1f} dets/img")
+        dets.append(pred.infer(ims[0], sizes, sizes))
+        per_img[name] = n
+        del model, pred
+    results = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        args, results["tf32 on" if tf32 else "tf32 off"] = check_fusion(dets, "TF32 " + ("on" if tf32 else "off"))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    n = args[0].shape[1]
+    ms = {}
+    for method in results["tf32 off"]:
+        sm, bm = method.split("/")
+        ms[method] = cuda_ms(lambda: fuse_detections_torch(*args, score_method=sm, box_method=bm,
+                                                           topk=n), 10)
+    log("ProbEn ms per batch-of-8 call: " + ", ".join(f"{k} {v:.3g}" for k, v in ms.items()))
+    return dict(dets_per_img=per_img, detections_per_img_padded=n, methods=results, ms=ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -952,26 +1072,66 @@ def main() -> int:
     # residual branch of the R101 carries signal
     model = build_model(cfg, params=random_affines(init_rcnn(0, cfg), 0))
     rng = np.random.RandomState(0)
-    images = [torch.from_numpy(a).cuda() for a in structured_images(rng, 2, BATCH, H, W, 3)]
+    base = structured_images(rng, 2, BATCH, H, W, 3)
+    images = [torch.from_numpy(a).cuda() for a in base]
     sizes = torch.tensor([TRUE_HW] * BATCH, dtype=torch.int32, device="cuda")
 
+    from proben_tpu_torch.engine import Predictor
+
     profiling = "--profile" in sys.argv[1:]
+    once = {"stem_pool": 1, "roi_align_fwd": 1}
     k1 = stem_phase(model)
-    launches, slice_stats = slice_phase(model, images, sizes)
+    launches, slice_stats = slice_phase(model, images, sizes, once)
     k2 = roi_phase(model, images[0], sizes)  # the calibrated model's proposals
     if profiling:
-        from proben_tpu_torch.engine import Predictor
-
         profile_phase(Predictor(model, cfg), images, sizes)
     # training reuses the calibrated model and updates it in place
     batch = train_batch()
     k3 = bwd_phase(model, batch)
-    train_launches, train_stats = train_phase(model, batch)
+    train_launches, train_stats = train_phase(model, batch, {**once, "roi_align_bwd": 1})
     if profiling:
         train_profile(model, batch)
-    k1["launches"] = launches["stem_pool"]
-    k2["launches"] = launches["roi_align_fwd"]
-    k3["launches"] = train_launches["roi_align_bwd"]
+    del model, batch
+
+    # early fusion: BGRT, one R101 with a 4-channel stem (K1 at C = 4)
+    ef_cfg = build_config(depth=101, input_format="BGRT", num_classes=3, compute_dtype="bfloat16",
+                          pixel_mean=(103.530, 116.280, 123.675, 135.438), pixel_std=(1.0,) * 4,
+                          freeze_at=3)
+    model = build_model(ef_cfg, params=random_affines(init_rcnn(4, ef_cfg), 4))
+    ef_images = [torch.from_numpy(fused(a, 4)).cuda() for a in base]
+    ef_launches, ef_stats = slice_phase(model, ef_images, sizes, once, hi=32.0)
+    del model, ef_images
+
+    # middle fusion: BGRTTT, two R101-FPNs (configs/FLIR-Detection/
+    # faster_rcnn_R_101_FLIR_middle_fusion.yaml); K1 once per stream, K2 and
+    # K3 at C = 512 on the concatenated maps
+    mf_cfg = build_config(depth=101, input_format="BGRTTT", num_classes=3, compute_dtype="bfloat16",
+                          pixel_mean=(103.530, 116.280, 123.675) + (135.438,) * 3, freeze_at=3)
+    model = build_model(mf_cfg, params=random_affines(init_rcnn(1, mf_cfg), 1))
+    mf_images = [torch.from_numpy(np.ascontiguousarray(fused(a, 6))).cuda() for a in base]
+    twice = {"stem_pool": 2, "roi_align_fwd": 1}
+    mf_launches, mf_stats = slice_phase(model, mf_images, sizes, twice, hi=32.0)
+    k2_512 = roi_phase(model, mf_images[0], sizes)
+    if profiling:
+        profile_phase(Predictor(model, mf_cfg), mf_images, sizes)
+    batch = train_batch(6)
+    k3_512 = bwd_phase(model, batch)
+    mf_train_launches, mf_train_stats = train_phase(model, batch, {**twice, "roi_align_bwd": 1})
+    if profiling:
+        train_profile(model, batch)
+    del model, batch, mf_images
+
+    proben_stats = proben_phase(images, sizes)
+
+    paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
+             "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches}
+    for d in (k1, k2, k3):
+        d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
+        d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
+    for d, wide in ((k2, k2_512), (k3, k3_512)):
+        d["c512"] = {k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                          "max_abs_err_f32", "gflop", "mbytes", "alloc_mb")
+                     if k in wide}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -980,12 +1140,16 @@ def main() -> int:
                           "library_ms": d["library_ms"], "bound_ms": d["bound_ms"],
                           "bound_by": d["bound_by"], "gflop": d["gflop"], "mbytes": d["mbytes"],
                           "launches": d["launches"], "max_abs_err": d["max_abs_err"],
-                          **{k: d[k] for k in ("deterministic", "alloc_mb") if k in d}}))
+                          **{k: d[k] for k in ("deterministic", "alloc_mb", "c512") if k in d}}))
     print(json.dumps({"slice": {**slice_stats, "card": card}}))
-    print(json.dumps({"train": {**train_stats, "launches_per_step": train_launches, "card": card,
-                                "seconds": time.time() - t0}}))
-    print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic",) if k in d}
-                                  for d in (k1, k2, k3)]}), flush=True)
+    print(json.dumps({"train": {**train_stats, "launches_per_step": train_launches, "card": card}}))
+    print(json.dumps({"early_fusion": {**ef_stats, "launches_per_batch": ef_launches, "card": card}}))
+    print(json.dumps({"middle_fusion": {**mf_stats, "launches_per_batch": mf_launches, "card": card}}))
+    print(json.dumps({"middle_fusion_train": {**mf_train_stats, "launches_per_step": mf_train_launches,
+                                              "card": card}}))
+    print(json.dumps({"late_fusion": {**proben_stats, "card": card, "seconds": time.time() - t0}}))
+    print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512")
+                                   if k in d} for d in (k1, k2, k3)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

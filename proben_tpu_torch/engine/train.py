@@ -34,10 +34,13 @@ class TrainState:
 
 
 def trainable_mask(model: RCNN, freeze_at: int) -> Dict[str, bool]:
-    """Trainable flag per parameter name: the backbone frozen at
-    ``freeze_at``, everything else trainable."""
+    """Trainable flag per parameter name: the backbone (and the BGRTTT
+    thermal ``backbone_2``) frozen at ``freeze_at``, everything else
+    trainable (JAX ``engine/defaults.py::build_trainable_mask``)."""
     mask = {name: True for name, _ in model.named_parameters()}
-    mask.update({f"backbone.{k}": v for k, v in freeze_mask(model.backbone, freeze_at).items()})
+    for bb in ("backbone", "backbone_2"):
+        if hasattr(model, bb):
+            mask.update({f"{bb}.{k}": v for k, v in freeze_mask(getattr(model, bb), freeze_at).items()})
     return mask
 
 

@@ -99,6 +99,12 @@ def linear(x: Tensor, lin: Linear) -> Tensor:
     return out
 
 
+def max_pool(x: Tensor, window: int, stride: int, padding: int = 0) -> Tensor:
+    """Max pooling of an NCHW map, torch-style symmetric padding with -inf
+    (JAX ``layers.max_pool``, NHWC there)."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
 # ---------------------------------------------------------------------------
 # random initialisation (JAX parameter layout, numpy)
 # ---------------------------------------------------------------------------

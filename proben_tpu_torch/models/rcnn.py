@@ -1,9 +1,11 @@
 """GeneralizedRCNN inference and training losses (counterpart of
 ``proben_tpu/models/rcnn.py``).
 
-Single-backbone input formats: ``BGR`` (3-channel; thermal-only or RGB-only
-runs feed that image) and ``BGRT`` (4-channel early fusion). The dual-backbone
-``BGRTTT`` middle fusion is not part of this package yet.
+Input formats: ``BGR`` (3-channel; thermal-only or RGB-only runs feed that
+image), ``BGRT`` (4-channel early fusion: one backbone with a 4-channel stem)
+and ``BGRTTT`` (middle fusion: the 6-channel input split into an RGB and a
+thermal stream, each through its own ResNet-FPN, the per-level maps
+concatenated along C, RGB first, before the RPN and the RoI heads).
 
 Public tensors keep the JAX layout: images (N, H, W, C) raw 0..255, pooled
 RoI features (N, K, P, P, C), batched ``Detections``. Internally feature
@@ -27,6 +29,8 @@ from .anchors import multilevel_anchors
 from .box_head import apply_box_head, apply_output_layers, init_box_head, init_output_layers
 from .fast_rcnn import FastRCNNConfig, fast_rcnn_losses
 from .fpn import FPN, FPN_STRIDES, apply_fpn, init_fpn
+from .gaussian_blur import gaussian_blur
+from .layers import max_pool
 from .resnet import STAGE_OUT_CHANNELS, ResNet, apply_resnet, init_resnet
 from .roi_heads import (
     ROIHeads,
@@ -54,7 +58,7 @@ class ModelConfig:
     """Static model hyperparameters (the MODEL.* keys the ProbEn path uses)."""
 
     depth: int = 50
-    input_format: str = "BGR"  # BGR | BGRT
+    input_format: str = "BGR"  # BGR | BGRT | BGRTTT
     num_classes: int = 3
     pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -66,19 +70,28 @@ class ModelConfig:
     # versions on CPU tensors); "plain": the PyTorch compositions everywhere
     roi_align_impl: str = "kernel"
     stem_impl: str = "kernel"
+    # BGRTTT at inference: the thermal stream through ``backbone``/``fpn``
+    # (the reference's eval-time quirk, for bug-parity experiments)
+    middle_fusion_inference_shares_backbone: bool = False
+    # BGRTTT training-only ablations (reference MODEL.BLUR_RGB / MAX_POOL_RGB)
+    blur_rgb: bool = False
+    max_pool_rgb: bool = False
     rpn: RPNConfig = dataclasses.field(default_factory=RPNConfig)
     roi: ROIHeadsConfig = dataclasses.field(default_factory=ROIHeadsConfig)
     rcnn: FastRCNNConfig = dataclasses.field(default_factory=FastRCNNConfig)
 
-    def __post_init__(self):
-        if self.input_format not in ("BGR", "BGRT"):
-            raise NotImplementedError(
-                f"input_format {self.input_format!r}: only single-backbone BGR/BGRT are ported"
-            )
-
     @property
     def num_in_channels(self) -> int:
-        return {"BGR": 3, "BGRT": 4}[self.input_format]
+        return {"BGR": 3, "BGRT": 4, "BGRTTT": 6}[self.input_format]
+
+    @property
+    def dual(self) -> bool:
+        """Middle fusion: two 3-channel backbones."""
+        return self.input_format == "BGRTTT"
+
+    @property
+    def head_in_channels(self) -> int:
+        return self.fpn_channels * (2 if self.dual else 1)
 
     @property
     def dtype(self) -> Optional[torch.dtype]:
@@ -106,11 +119,14 @@ class RCNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = ResNet(cfg.depth, in_channels=cfg.num_in_channels)
+        self.backbone = ResNet(cfg.depth, in_channels=3 if cfg.dual else cfg.num_in_channels)
         self.fpn = FPN(STAGE_OUT_CHANNELS, cfg.fpn_channels)
-        self.rpn_head = RPNHead(cfg.fpn_channels, len(ANCHOR_ASPECT_RATIOS))
-        self.roi = ROIHeads(cfg.fpn_channels, cfg.roi.pooler_resolution, cfg.num_classes,
+        self.rpn_head = RPNHead(cfg.head_in_channels, len(ANCHOR_ASPECT_RATIOS))
+        self.roi = ROIHeads(cfg.head_in_channels, cfg.roi.pooler_resolution, cfg.num_classes,
                             cfg.enable_gaussian_nll)
+        if cfg.dual:
+            self.backbone_2 = ResNet(cfg.depth, in_channels=3)
+            self.fpn_2 = FPN(STAGE_OUT_CHANNELS, cfg.fpn_channels)
 
 
 def init_rcnn(seed: int, cfg: ModelConfig) -> Dict:
@@ -118,16 +134,20 @@ def init_rcnn(seed: int, cfg: ModelConfig) -> Dict:
     ``proben_tpu``'s layout (the same distribution families as its
     ``init_rcnn``; the draws differ). Load it with ``build_model``."""
     rng = np.random.default_rng(seed)
-    return {
-        "backbone": init_resnet(rng, cfg.depth, in_channels=cfg.num_in_channels),
+    params = {
+        "backbone": init_resnet(rng, cfg.depth, in_channels=3 if cfg.dual else cfg.num_in_channels),
         "fpn": init_fpn(rng, STAGE_OUT_CHANNELS, cfg.fpn_channels),
-        "rpn_head": init_rpn_head(rng, cfg.fpn_channels, len(ANCHOR_ASPECT_RATIOS)),
+        "rpn_head": init_rpn_head(rng, cfg.head_in_channels, len(ANCHOR_ASPECT_RATIOS)),
         "roi": {
-            "box_head": init_box_head(rng, cfg.fpn_channels, cfg.roi.pooler_resolution),
+            "box_head": init_box_head(rng, cfg.head_in_channels, cfg.roi.pooler_resolution),
             "output": init_output_layers(rng, num_classes=cfg.num_classes,
                                          enable_variance=cfg.enable_gaussian_nll),
         },
     }
+    if cfg.dual:
+        params["backbone_2"] = init_resnet(rng, cfg.depth, in_channels=3)
+        params["fpn_2"] = init_fpn(rng, STAGE_OUT_CHANNELS, cfg.fpn_channels)
+    return params
 
 
 def random_affines(params: Dict, seed: int) -> Dict:
@@ -178,25 +198,51 @@ def build_model(
 
 def preprocess(cfg: ModelConfig, images: torch.Tensor) -> torch.Tensor:
     """Normalize raw (N, H, W, C) images (0..255, BGR[+T]) -> f32 (N, H, W, C).
-    Config vectors shorter than C are padded with their last entry."""
+    Config vectors shorter than C are padded with their last entry. BGRTTT
+    uses the reference's split normalizers: RGB channels ``pixel_mean[:3]``,
+    thermal channels ``pixel_mean[3:6]``, both the shared ``pixel_std[:3]``."""
 
     def fit(vals):
         vals = list(vals)
         vals = vals + [vals[-1]] * (cfg.num_in_channels - len(vals))
         return torch.tensor(vals[: cfg.num_in_channels], dtype=torch.float32, device=images.device)
 
-    return (images.to(torch.float32) - fit(cfg.pixel_mean)) / fit(cfg.pixel_std)
+    std = list(cfg.pixel_std[:3]) * 2 if cfg.dual else cfg.pixel_std
+    return (images.to(torch.float32) - fit(cfg.pixel_mean)) / fit(std)
+
+
+def _stream(backbone: ResNet, fpn: FPN, cfg: ModelConfig, images: torch.Tensor,
+            training: bool) -> Dict[str, torch.Tensor]:
+    x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+    feats = apply_resnet(backbone, x, dtype=cfg.dtype, stem_impl=cfg.stem_impl,
+                         freeze_at=cfg.freeze_at if training else 0)
+    return apply_fpn(fpn, feats, dtype=cfg.dtype)
 
 
 def extract_features(
     model: RCNN, cfg: ModelConfig, images: torch.Tensor, training: bool = False
 ) -> Dict[str, torch.Tensor]:
     """Backbone + FPN on normalized (N, H, W, C) images; NCHW channels_last
-    maps p2..p6. ``training`` freezes the backbone at ``cfg.freeze_at``."""
-    x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-    feats = apply_resnet(model.backbone, x, dtype=cfg.dtype, stem_impl=cfg.stem_impl,
-                         freeze_at=cfg.freeze_at if training else 0)
-    return apply_fpn(model.fpn, feats, dtype=cfg.dtype)
+    maps p2..p6. ``training`` freezes the backbone(s) at ``cfg.freeze_at``.
+
+    BGRTTT: channels 0-2 through ``backbone``/``fpn``, 3-5 through
+    ``backbone_2``/``fpn_2`` (or ``backbone``/``fpn`` at inference with
+    ``middle_fusion_inference_shares_backbone``), each stream with its own
+    stem launch; in training the RGB maps may be blurred (p2-p4) and then
+    max-pooled (every level); each level is the concat of the two streams
+    along C, RGB first, still channels_last."""
+    if not cfg.dual:
+        return _stream(model.backbone, model.fpn, cfg, images, training)
+    shared = not training and cfg.middle_fusion_inference_shares_backbone
+    f_rgb = _stream(model.backbone, model.fpn, cfg, images[..., :3], training)
+    f_t = _stream(model.backbone if shared else model.backbone_2,
+                  model.fpn if shared else model.fpn_2, cfg, images[..., 3:], training)
+    if training and cfg.blur_rgb:
+        for k in ("p2", "p3", "p4"):
+            f_rgb[k] = gaussian_blur(f_rgb[k], (5, 5), (3.0, 3.0))
+    if training and cfg.max_pool_rgb:
+        f_rgb = {k: max_pool(v, 3, 1, padding=1) for k, v in f_rgb.items()}
+    return {k: torch.cat([f_rgb[k], f_t[k]], dim=1) for k in f_rgb}
 
 
 def anchors_for(features: Dict[str, torch.Tensor]) -> List[torch.Tensor]:

@@ -30,8 +30,12 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.checkpoint
         import proben_tpu_torch.engine
         import proben_tpu_torch.engine.train
+        import proben_tpu_torch.fusion
+        import proben_tpu_torch.fusion.proben_numpy
+        import proben_tpu_torch.fusion.proben_torch
         import proben_tpu_torch.kernel_probe
         import proben_tpu_torch.models
+        import proben_tpu_torch.models.gaussian_blur
         import proben_tpu_torch.ops.roi_align_cuda
         import proben_tpu_torch.ops.stem_cuda
         import proben_tpu_torch.solver
@@ -63,6 +67,25 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     # training runs where the model lives: its state's generator is on the CPU
     init_state, _ = make_train_step(cfg, SolverConfig())
     assert init_state(model, 0).generator.device.type == "cpu"
+
+
+def test_fused_entry_points_raise_without_cuda(monkeypatch):
+    """Middle (BGRTTT) and early (BGRT) fusion models, their predictors and
+    their training state follow the same device rule."""
+    from proben_tpu_torch.engine import Predictor, make_train_step, trainable_mask
+    from proben_tpu_torch.models import build_config, build_model
+    from proben_tpu_torch.solver import SolverConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fmt in ("BGRTTT", "BGRT"):
+        cfg = build_config(depth=50, input_format=fmt, freeze_at=3)
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(cfg)
+        model = build_model(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="cuda"):
+            Predictor(model, cfg)
+        init_state, _ = make_train_step(cfg, SolverConfig(), trainable_mask(model, cfg.freeze_at))
+        assert init_state(model, 0).generator.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

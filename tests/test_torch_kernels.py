@@ -112,11 +112,12 @@ def test_roi_align_kernel_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,c", [
     (torch.bfloat16, 256), (torch.float32, 256),  # the main path's width: 16-byte lanes
+    (torch.bfloat16, 512), (torch.float32, 512),  # middle fusion's concatenated streams
     (torch.bfloat16, 20), (torch.float32, 6),  # not a multiple of the vector width
 ])
 def test_roi_align_kernel_wide_and_ragged_channels(dtype, c):
-    """80 RoIs (one CTA each) with hazard boxes, at C = 256 and at widths the
-    16-byte path does not take. Tolerance as in
+    """80 RoIs (one CTA each) with hazard boxes, at C = 256 and 512 and at
+    widths the 16-byte path does not take. Tolerance as in
     ``test_roi_align_kernel_matches_plain``."""
     _cuda()
     feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype, c=c, k=40, hazards=True)
@@ -193,7 +194,8 @@ def _bwd_scattered(shapes, k, seed=3):
 
 def _bwd_inputs(case):
     if case.startswith("c="):  # channel widths: 1 and 8 below the 16-byte chunk, 512 the concat
-        return _bwd_case(BF, c=int(case[2:]), k=40, hazards=True)
+        width, _, dtype = case[2:].partition(" ")
+        return _bwd_case(torch.float32 if dtype == "f32" else BF, c=int(width), k=40, hazards=True)
     if case.startswith("hazards"):
         return _bwd_case(BF if case.endswith("bf16") else torch.float32, c=64, k=40, hazards=True)
     if case == "dense tile":
@@ -220,7 +222,7 @@ def _bits(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    "dense tile", "c=1", "c=8", "c=256", "c=512", "ragged one level", "ragged four levels",
+    "dense tile", "c=1", "c=8", "c=256", "c=512", "c=512 f32", "ragged one level", "ragged four levels",
     "hazards bf16", "hazards f32",
 ])
 def test_roi_align_bwd_kernel_cases(case):
