@@ -9,7 +9,8 @@ Phases, each raising on a miss (exit code != 0, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the main paths (K1 stem, K2 RoIAlign forward, K3
-   RoIAlign backward) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
+   RoIAlign backward, ``image_io``: nvJPEG decode and the compose + resize
+   + pad kernel) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a``, one process per source, in parallel;
 3. K1 and K2 against their plain PyTorch versions on the card, at the
    inference path's shapes and on hazard inputs, with the tolerance stated
@@ -46,9 +47,22 @@ Phases, each raising on a miss (exit code != 0, no result line):
 9. ProbEn late fusion: two calibrated R101 BGR detectors with the variance
    head, their padded detections fused on the card by every (score, box)
    method against the port's numpy reference, with TF32 off and on;
-10. one JSON line per kernel, one for each slice and fusion mode, one
-   listing every kernel (launches per path, the C = 512 readings);
-   the last line is ``{"ok": true, "device": {...}}``.
+10. the FLIR evaluation entry point (``flir_phase``): a synthetic FLIR val
+   tree of 32 pairs (thermal 640x512 single-component, RGB 1800x1600
+   colour 4:2:0) encoded with nvJPEG into a temporary directory; the
+   ``image_io`` kernel against its plain version for BGR, BGRT and BGRTTT
+   on the same decoded pixels, and nvJPEG's decode against the encoded
+   source (and cv2 where installed); ``save_predictions`` and
+   ``evaluate_map`` for thermal_only and middle_fusion from
+   ``faster_rcnn_R_101_FLIR.yaml`` and the middle-fusion YAML (R101, bf16,
+   batch 8), the app's detections against ``Predictor.predict_batch`` on
+   the same mapped batch, launches counted over the app's run;
+   ``run_proben`` over the two saved JSONs; the ground truth as
+   detections scoring AP 100; eval img/s end to end and model-only;
+11. one JSON line per kernel, one for each slice and fusion mode, one for
+   the FLIR evaluation, one listing every kernel (launches per path, the
+   C = 512, C = 4 and C = 6 readings); the last line is
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
@@ -1043,6 +1057,393 @@ def proben_phase(images, sizes):
     return dict(dets_per_img=per_img, detections_per_img_padded=n, methods=results, ms=ms)
 
 
+# ---------------------------------------------------------------------------
+# FLIR evaluation: the app's entry points on a synthetic FLIR val tree
+# ---------------------------------------------------------------------------
+
+FLIR_T_HW, FLIR_RGB_HW = (512, 640), (1600, 1800)  # FLIR ADAS thermal / RGB (H, W)
+FLIR_CLASSES = ("person", "bicycle", "car")
+
+
+def flir_scene(gen, h, w, boxes, channels, sy, sx):
+    """A background gradient with noise and a bright textured block per
+    box (boxes in thermal-frame pixels, drawn scaled by ``sy``, ``sx``),
+    uint8 (h, w, c) on the card. In colour each channel has its own
+    background (B a gradient along x, G flat, R a gradient along y), so a
+    decode in the wrong channel order is off by ~30 levels on average."""
+    x = torch.linspace(40.0, 110.0, w, device="cuda")[None, :].expand(h, w)
+    if channels == 1:
+        bg = x[..., None]
+    else:
+        y = torch.linspace(170.0, 60.0, h, device="cuda")[:, None].expand(h, w)
+        bg = torch.stack([x, torch.full_like(x, 90.0), y], -1)
+    img = bg + 2.0 * torch.randn(h, w, channels, generator=gen, device="cuda")
+    for x0, y0, bw, bh in boxes:
+        ys, xs = int(y0 * sy), int(x0 * sx)
+        ye, xe = int((y0 + bh) * sy), int((x0 + bw) * sx)
+        level = 130.0 + 100.0 * torch.rand(channels, generator=gen, device="cuda")
+        stripes = 12.0 * torch.sin(torch.arange(ye - ys, device="cuda") / (3.0 * sy))[:, None, None]
+        img[ys:ye, xs:xe] = level + stripes
+    return img.round().clamp(0, 255).to(torch.uint8).contiguous()
+
+
+def write_flir_tree(codec, root, n=32, seed=0):
+    """A FLIR-shaped val tree: ``thermal_8_bit/FLIR_%05d.jpeg`` (640x512,
+    single-component), ``RGB/FLIR_%05d.jpg`` (1800x1600, colour 4:2:0),
+    both encoded with nvJPEG at quality 90, and the COCO json with 3
+    categories and 1-6 boxes per image. Returns the json path, the first
+    pair's source pixels and the mean file size of each kind in bytes."""
+    from proben_tpu_torch.apps.flir import VAL_JSON_NAME
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    os.makedirs(os.path.join(root, "thermal_8_bit"), exist_ok=True)
+    os.makedirs(os.path.join(root, "RGB"), exist_ok=True)
+    images, annotations, first, sizes = [], [], None, {"thermal": [], "rgb": []}
+    th, tw = FLIR_T_HW
+    for i in range(n):
+        boxes = []
+        for _ in range(rng.randint(1, 7)):
+            bw, bh = rng.randint(16, 120), rng.randint(24, 160)
+            boxes.append((float(rng.randint(0, tw - bw)), float(rng.randint(0, th - bh)), float(bw),
+                          float(bh)))
+        thermal = flir_scene(gen, th, tw, boxes, 1, 1.0, 1.0)
+        rgb = flir_scene(gen, *FLIR_RGB_HW, boxes, 3, FLIR_RGB_HW[0] / th, FLIR_RGB_HW[1] / tw)
+        name = f"FLIR_{i:05d}"
+        for kind, path, img in (("thermal", f"thermal_8_bit/{name}.jpeg", thermal),
+                                ("rgb", f"RGB/{name}.jpg", rgb)):
+            data = codec.encode(img, quality=90)
+            sizes[kind].append(len(data))
+            with open(os.path.join(root, path), "wb") as f:
+                f.write(data)
+        if first is None:
+            first = (thermal, rgb)
+        images.append({"id": i + 1, "file_name": f"{name}.jpeg", "height": th, "width": tw})
+        for x0, y0, bw, bh in boxes:
+            annotations.append({"id": len(annotations) + 1, "image_id": i + 1,
+                                "category_id": int(rng.randint(1, 4)), "bbox": [x0, y0, bw, bh],
+                                "area": bw * bh, "iscrowd": 0})
+    cats = [{"id": i + 1, "name": c} for i, c in enumerate(FLIR_CLASSES)]
+    json_path = os.path.join(root, VAL_JSON_NAME)
+    with open(json_path, "w") as f:
+        json.dump({"images": images, "annotations": annotations, "categories": cats}, f)
+    return json_path, first, {k: float(np.mean(v)) for k, v in sizes.items()}
+
+
+def host_ms(fn, reps=5):
+    """Median host wall time of ``fn()`` in ms, each call ending in a
+    synchronize (for work with a host part, such as nvJPEG's Huffman
+    decode)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def rgb_rows_read(rh, th):
+    """The RGB rows under a nonzero weight of the uint8 resize from ``rh``
+    to ``th`` rows (cv2's fixed-point taps): the only rows the compose
+    needs (1024 of 1600 at the FLIR sizes). Along x the taps are < 32 bytes
+    apart, so every sector of a needed row is read."""
+    from proben_tpu_torch.native import io
+
+    y0, y1, b0, b1 = io._fixed_taps(th, rh, False, "cpu")
+    return len(set(y0[b0 != 0].tolist()) | set(y1[b1 != 0].tolist()))
+
+
+def check_loader(codec, root, dicts):
+    """The ``image_io`` kernel against ``compose_resize_pad_plain`` on the
+    same decoded pixels of 8 pairs, for BGR, BGRT and BGRTTT, then timed.
+    Tolerance: both run the same float operations in the same order, each
+    rounded (the kernel's intrinsics admit no FMA contraction), and the same
+    integer arithmetic for the RGB image's uint8 resize, so they should
+    agree bit for bit; 1e-3 (far below one of the 0..255 levels) is
+    allowed. Also: a single-component thermal JPEG must give three equal
+    channels."""
+    from proben_tpu_torch.data.detection_utils import derive_rgb_path
+    from proben_tpu_torch.data.transforms import resize_shortest_edge_size
+    from proben_tpu_torch.native import io
+
+    paths = [d["file_name"] for d in dicts[:BATCH]]
+    blobs = {p: open(p, "rb").read() for p in paths + [derive_rgb_path(p) for p in paths]}
+    thermal = [codec.decode(blobs[p]) for p in paths]
+    rgb = [codec.decode(blobs[derive_rgb_path(p)]) for p in paths]
+    torch.cuda.synchronize()
+    if any(t.shape[2] != 1 for t in thermal) or any(r.shape[2] != 3 for r in rgb):
+        raise AssertionError("thermal JPEGs must decode to one channel and RGB ones to three")
+    sizes = [resize_shortest_edge_size(*t.shape[:2], 800, 1333) for t in thermal]
+    out = {}
+    for fmt in ("BGR", "BGRT", "BGRTTT"):
+        r = None if fmt == "BGR" else rgb
+        got = io.compose_resize_pad(thermal, r, fmt, sizes, (H, W))
+        ref = io.compose_resize_pad_plain(thermal, r, fmt, sizes, (H, W))
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        t = got[..., -3:]  # BGR and BGRTTT: the three thermal channels
+        if fmt != "BGRT" and not (torch.equal(t[..., 0], t[..., 1]) and torch.equal(t[..., 0], t[..., 2])):
+            raise AssertionError(f"image_io {fmt}: grayscale thermal channels differ")
+        if err > 1e-3 or not torch.isfinite(got).all():
+            raise AssertionError(f"image_io {fmt}: kernel vs plain max |err| {err}")
+        ms = cuda_ms(lambda: io.compose_resize_pad(thermal, r, fmt, sizes, (H, W)), 30)
+        plain_ms = cuda_ms(lambda: io.compose_resize_pad_plain(thermal, r, fmt, sizes, (H, W)), 5)
+        nbytes = got.numel() * 4 + sum(x.numel() for x in thermal) + (
+            sum(rgb_rows_read(x.shape[0], t.shape[0]) * x.shape[1] * x.shape[2]
+                for x, t in zip(rgb, thermal)) if r is not None else 0)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                   mbytes=nbytes / 1e6, library_ms=None)
+        if fmt == "BGR":  # the nearest single PyTorch call: a bilinear resize of the stacked batch
+            x = torch.stack(thermal).permute(0, 3, 1, 2).float().expand(-1, 3, -1, -1)
+            row["library_ms"] = cuda_ms(lambda: F.interpolate(
+                x, size=sizes[0], mode="bilinear", align_corners=False), 30)
+        out[fmt] = row
+        log(f"image_io {fmt}: max_abs_err {err:.3g}, kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, "
+            f"bound {bound:.4g} ms ({nbytes / 1e6:.1f} MB), {ms / bound:.1f}x bound")
+    return out, blobs, paths
+
+
+def decoder_gap(codec, first, root):
+    """nvJPEG's decode of the first pair against the pixels that were
+    encoded (mean and max |diff|, JPEG quality 90), and against cv2's decode
+    where cv2 is installed. Limits: against the source a mean of 5 levels
+    (the scenes' per-pixel noise does not survive quantisation and the RGB's
+    4:2:0 subsampling, ~1-2.5 levels); the RGB decode in B and R swapped
+    must be off by more than 20 (the scene's channels differ, so the check
+    has the power to see a wrong channel order); against cv2 a mean of 0.1
+    (thermal) and 1.0 (RGB: the chroma upsampling differs at colour edges)."""
+    import importlib
+
+    src_t, src_rgb = first
+    got_t = codec.decode(open(os.path.join(root, "thermal_8_bit/FLIR_00000.jpeg"), "rb").read())
+    got_rgb = codec.decode(open(os.path.join(root, "RGB/FLIR_00000.jpg"), "rb").read())
+    torch.cuda.synchronize()
+    gap = {}
+    for name, a, b in (("thermal", got_t, src_t), ("rgb", got_rgb, src_rgb),
+                       ("rgb_swapped", got_rgb.flip(-1), src_rgb)):
+        d = (a.float() - b.float()).abs()
+        gap[f"{name}_vs_source_mean"] = float(d.mean())
+        gap[f"{name}_vs_source_max"] = float(d.max())
+    limits = {"thermal_vs_source_mean": 5.0, "rgb_vs_source_mean": 5.0}
+    try:
+        cv2 = importlib.import_module("cv2")
+    except ImportError:
+        gap["cv2"] = "not installed"
+    else:
+        for name, a, p in (("thermal", got_t, "thermal_8_bit/FLIR_00000.jpeg"),
+                           ("rgb", got_rgb, "RGB/FLIR_00000.jpg")):
+            ref = torch.from_numpy(cv2.imread(os.path.join(root, p))).cuda().float()
+            d = (a.float().expand_as(ref) - ref).abs()
+            gap[f"{name}_vs_cv2_mean"], gap[f"{name}_vs_cv2_max"] = float(d.mean()), float(d.max())
+        limits.update(thermal_vs_cv2_mean=0.1, rgb_vs_cv2_mean=1.0)
+    log(f"decoder gap: {gap}; limits {limits}")
+    if any(gap[k] > v for k, v in limits.items()):
+        raise AssertionError(f"nvJPEG decode beyond its limits {limits}: {gap}")
+    if gap["rgb_swapped_vs_source_mean"] <= 20.0:
+        raise AssertionError(f"the RGB scene cannot tell a channel swap: {gap}")
+    gap["limits"] = limits
+    return gap
+
+
+class TimingRecords:
+    """Collects the dict that ``inference_on_dataset`` logs with its timing."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.records.append(r.args[-1]) if isinstance(
+            r.args, tuple) and r.args and isinstance(r.args[-1], dict) else None
+        self.logger = logging.getLogger("proben_tpu_torch.evaluation.evaluator")
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def flir_model(cfg, seed, batch):
+    """The config's model with random affines, RPN and head calibrated on a
+    mapped batch of the tree (as ``slice_phase`` does); its parameters as
+    the numpy pytree the app takes."""
+    from proben_tpu_torch.checkpoint import state_dict_to_jax
+    from proben_tpu_torch.config import model_config_from_cfg
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.models import build_model, init_rcnn, random_affines
+
+    mcfg = model_config_from_cfg(cfg)
+    model = build_model(mcfg, params=random_affines(init_rcnn(seed, mcfg), seed))
+    calibrate_rpn(model, batch["image"])
+    bias, n = calibrate(model, Predictor(model, mcfg), batch["image"], batch["image_size"], hi=32.0)
+    log(f"FLIR {cfg.INPUT.FORMAT} model: background bias {bias:.4g} -> {n:.1f} dets/img")
+    params = state_dict_to_jax({k: v.cpu() for k, v in model.state_dict().items()})
+    return model, mcfg, params
+
+
+def flir_phase(card):
+    """The FLIR evaluation entry point end to end on a synthetic val tree
+    (32 pairs at the FLIR sizes): loader checks, then ``save_predictions``
+    and ``evaluate_map`` for thermal_only and middle_fusion from the YAML
+    configs (R101, bf16, batch 8, 800x1024), their end-to-end rate over the
+    whole split, ``run_proben`` over the two saved JSONs, and the ground
+    truth fed back as detections (AP = 100). The tree's file sizes follow
+    from its synthetic scenes, so the decode and end-to-end rates hold for
+    this tree, not for the real FLIR files."""
+    import tempfile
+
+    from proben_tpu_torch.apps import flir
+    from proben_tpu_torch.config import get_cfg, mapper_config_from_cfg
+    from proben_tpu_torch.data import (DatasetCatalog, DatasetMapper, build_test_loader, collate,
+                                       derive_rgb_path)
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.evaluation import COCODataset, FLIREvaluator, inference_on_dataset
+    from proben_tpu_torch.native import io
+    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+
+    stats = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="flir_val_") as root, io.JpegCodec() as codec:
+        t = time.time()
+        json_path, first, stats["jpeg_bytes"] = write_flir_tree(codec, root)
+        log(f"FLIR tree: 32 pairs written in {time.time() - t:.1f} s, mean file size "
+            f"{stats['jpeg_bytes']}")
+        flir.register_flir("FLIR_val", root)
+        dicts = DatasetCatalog.get("FLIR_val")
+        kernels, blobs, paths = check_loader(codec, root, dicts)
+        stats["decoder_gap"] = decoder_gap(codec, first, root)
+        stats["decode_ms_per_image"] = {
+            "thermal": host_ms(lambda: codec.decode(blobs[paths[0]])),
+            "rgb": host_ms(lambda: codec.decode(blobs[derive_rgb_path(paths[0])])),
+        }
+        log(f"nvJPEG decode ms per image: {stats['decode_ms_per_image']}")
+
+        out_dir = os.path.join(root, "out")
+        saved = []
+        timing = TimingRecords()
+        try:
+            for method, yaml_name, seed, expect_k1 in (
+                    ("thermal_only", "faster_rcnn_R_101_FLIR.yaml", 11, 1),
+                    ("middle_fusion", "faster_rcnn_R_101_FLIR_middle_fusion.yaml", 12, 2)):
+                cfg = get_cfg()
+                cfg.merge_from_file(os.path.join(HERE, "configs", "FLIR-Detection", yaml_name))
+                mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+                batch = collate(mapper.map_batch(dicts[:BATCH]))
+                mapper.close()
+                model, mcfg, params = flir_model(cfg, seed, batch)
+                direct = Predictor(model, mcfg).predict_batch(batch)
+                t = time.time()
+                path = flir.save_predictions(method, root, "", out_dir, batch_size=BATCH, cfg=cfg,
+                                             params=params)
+                save_s = time.time() - t
+                saved.append(path)
+                with open(path) as f:
+                    app = json.load(f)
+                for i, rec in enumerate(direct):  # the app's first batch vs predict_batch
+                    if len(app["boxes"][i]) != len(rec["boxes"]) or not (
+                            np.array_equal(np.asarray(app["classes"][i]), rec["classes"])
+                            and np.allclose(np.asarray(app["boxes"][i]).reshape(-1, 4), rec["boxes"],
+                                            atol=1e-4)
+                            and np.allclose(app["scores"][i], rec["scores"], atol=1e-6)):
+                        raise AssertionError(f"FLIR {method}: the app's detections of image {i} "
+                                             "differ from Predictor.predict_batch's")
+                stem_cuda.launches = roi_align_cuda.launches = io.launches = 0
+                timing.records.clear()
+                results = flir.evaluate_map(method, root, "", out_dir, batch_size=BATCH, cfg=cfg,
+                                            params=params)
+                launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
+                            "image_io": io.launches}
+                n_batches = -(-len(dicts) // BATCH)
+                expect = {"stem_pool": expect_k1 * n_batches, "roi_align_fwd": n_batches,
+                          "image_io": n_batches}
+                log(f"FLIR {method}: launches {launches} over {n_batches} batches; "
+                    f"bbox AP {results['bbox']['AP']:.3f}")
+                if launches != expect:
+                    raise AssertionError(f"FLIR {method}: launches {launches}, expected {expect}")
+                if not np.isfinite(results["bbox"]["AP"]) or len(timing.records) != 1:
+                    raise AssertionError(f"FLIR {method}: no mAP or no timing record")
+                # end to end over the whole split, warm: evaluate_map's body
+                # (loader, predict_batch, evaluator, evaluate()) on one set of
+                # images, all 32 with no batch excluded, run three times
+                pred = Predictor(model, mcfg)
+                timing.records.clear()
+                for _ in range(3):
+                    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+                    try:
+                        inference_on_dataset(pred, build_test_loader(dicts, mapper, batch_size=BATCH),
+                                             FLIREvaluator(json_path, output_dir=out_dir), warmup=0)
+                    finally:
+                        mapper.close()
+                def total_s(r):
+                    return r["load_s"] + r["infer_s"] + r["process_s"] + r["evaluate_s"]
+
+                runs = sorted(timing.records, key=total_s, reverse=True)
+                if len(runs) != 3 or any(r["images"] != len(dicts) for r in runs):
+                    raise AssertionError(f"FLIR {method}: timing records {runs}")
+                rates = [r["images"] / total_s(r) for r in runs]
+                tm, e2e = runs[1], rates[1]
+                # model only: the mapped batch through Predictor.infer, pipelined
+                for _ in range(2):
+                    pred.infer(batch["image"], batch["image_size"], batch["orig_size"])
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(8):
+                    pred.infer(batch["image"], batch["image_size"], batch["orig_size"])
+                b.record()
+                torch.cuda.synchronize()
+                model_img_s = BATCH * 8 / (a.elapsed_time(b) / 1e3)
+                stats[method] = dict(
+                    eval_img_s=e2e, eval_img_s_min_max=[rates[0], rates[2]], model_img_s=model_img_s,
+                    timing=tm, eval_window_s=sum(total_s(r) for r in runs),
+                    share_outside_infer=1.0 - tm["infer_s"] / total_s(tm),
+                    save_predictions_s=save_s,
+                    launches=launches, batches=n_batches,
+                    launches_per_batch={k: v // n_batches for k, v in launches.items()},
+                    bbox=results["bbox"], dets_per_img=float(np.mean([len(r["scores"]) for r in direct])))
+                log(f"FLIR {method}: eval {e2e:.2f} img/s end to end, median of 3 warm runs over "
+                    f"the {len(dicts)} images (min {rates[0]:.2f}, max {rates[2]:.2f}; median run: load "
+                    f"{tm['load_s']:.3f} s, infer {tm['infer_s']:.3f} s, process "
+                    f"{tm['process_s']:.3f} s, evaluate {tm['evaluate_s']:.3f} s), model only "
+                    f"{model_img_s:.2f} img/s")
+                del model, pred, batch
+        finally:
+            timing.close()
+
+        t = time.time()
+        fused = flir.run_proben(root, out_dir, "probEn", "v-avg", out_dir, det_files=saved)
+        stats["proben_ms_per_image"] = (time.time() - t) * 1e3 / len(dicts)
+        if not np.isfinite(fused["bbox"]["AP"]):
+            raise AssertionError("ProbEn over the saved JSONs gave no mAP")
+        stats["proben_bbox_AP"] = fused["bbox"]["AP"]
+
+        # the ground truth as detections: AP must be 100
+        coco = COCODataset(json_path)
+        ev = FLIREvaluator(coco)
+        contig = coco.contiguous_category_mapping()
+        for img_id in coco.image_ids:
+            anns = coco.img_to_anns[img_id]
+            xywh = np.array([a["bbox"] for a in anns], float).reshape(-1, 4)
+            ev.process(img_id, np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], 1),
+                       np.ones(len(anns)), np.array([contig[a["category_id"]] for a in anns]))
+        oracle = ev.evaluate()["bbox"]
+        log(f"FLIR ground-truth oracle: AP {oracle['AP']}, AP50 {oracle['AP50']}")
+        if abs(oracle["AP"] - 100.0) > 1e-6:
+            raise AssertionError(f"ground truth as detections gives AP {oracle['AP']}, not 100")
+        stats["oracle_AP"] = oracle["AP"]
+    row = kernels["BGR"]
+    kernel = dict(name="image_io", route="cuda", source="proben_tpu_torch/csrc/image_io.cu",
+                  replaces="native/proben_io.cpp:226", **row,
+                  c6={k: kernels["BGRTTT"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                                        "mbytes")},
+                  c4={k: kernels["BGRT"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                                      "mbytes")})
+    stats["image_io"] = kernels
+    return kernel, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1064,7 +1465,7 @@ def main() -> int:
     from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
 
     tb = time.time()
-    _build.build(["stem", "roi_align_fwd", "roi_align_bwd"])
+    _build.build(["stem", "roi_align_fwd", "roi_align_bwd", "image_io"])
     log(f"build: {time.time() - tb:.1f} s")
 
     cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
@@ -1122,9 +1523,13 @@ def main() -> int:
     del model, batch, mf_images
 
     proben_stats = proben_phase(images, sizes)
+    del images
+    k_io, flir_stats = flir_phase(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
-             "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches}
+             "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
+             "flir_thermal_only_eval (4 batches)": flir_stats["thermal_only"]["launches"],
+             "flir_middle_fusion_eval (4 batches)": flir_stats["middle_fusion"]["launches"]}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -1147,9 +1552,14 @@ def main() -> int:
     print(json.dumps({"middle_fusion": {**mf_stats, "launches_per_batch": mf_launches, "card": card}}))
     print(json.dumps({"middle_fusion_train": {**mf_train_stats, "launches_per_step": mf_train_launches,
                                               "card": card}}))
-    print(json.dumps({"late_fusion": {**proben_stats, "card": card, "seconds": time.time() - t0}}))
-    print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512")
-                                   if k in d} for d in (k1, k2, k3)]}), flush=True)
+    print(json.dumps({"late_fusion": {**proben_stats, "card": card}}))
+    print(json.dumps({"flir_eval": {**flir_stats, "seconds": time.time() - t0}}))
+    k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
+    k_io["launches_per_path"] = {f"flir_{m}_eval (4 batches)": flir_stats[m]["launches"]["image_io"]
+                                 for m in ("thermal_only", "middle_fusion")}
+    print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
+                                                             "c4", "c6")
+                                   if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes plain C entry points and compiles on first
 use into its own shared library for ``sm_90a``, under ``build/proben_tpu_torch``
 at the repository root (git-ignored). Libraries are keyed by a hash of the
-source, every local header in ``csrc/`` and every flag, so an edited source
-or header, or a changed flag or include path, rebuilds. Every entry point
+source, every local header in ``csrc/`` and every flag (the common ones and a
+library's own libraries, ``LINK_LIBS``), so an edited source or header, or
+a changed flag or include path, rebuilds. Every entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
 non-zero code, so a refused launch never passes silently.
 """
@@ -27,6 +28,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# libraries a source links against, beyond the CUDA runtime
+LINK_LIBS = {"image_io": ("nvjpeg",)}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -46,11 +50,21 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def link_flags(name: str) -> List[str]:
+    """``-l`` flags of ``csrc/<name>.cu``'s libraries, with the toolkit's
+    library directory as the run path, so the loader finds them there."""
+    libs = LINK_LIBS.get(name, ())
+    if not libs:
+        return []
+    lib_dir = Path(nvcc()).resolve().parent.parent / "lib64"
+    return [f"-l{lib}" for lib in libs] + ["-Xlinker", f"-rpath={lib_dir}"]
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by the source, each header
     in ``csrc/`` (any source may include it) and the flags."""
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(LINK_LIBS.get(name, ()))).encode())
     for path in [CSRC / f"{name}.cu"] + sorted(
             p for p in CSRC.iterdir() if p.suffix in (".cuh", ".h", ".hpp")):
         h.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
@@ -68,7 +82,7 @@ def build(names: Iterable[str]) -> List[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *link_flags(name)]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -1,0 +1,281 @@
+"""FLIR ADAS workflows (counterpart of ``proben_tpu/apps/flir.py``): the
+fusion methods' config wiring, prediction saving, mAP evaluation, and ProbEn
+late fusion of saved predictions.
+
+    python -m proben_tpu_torch.apps.flir save   --dataset_path D --fusion_method M --outfolder O
+    python -m proben_tpu_torch.apps.flir map    --dataset_path D --fusion_method M
+    python -m proben_tpu_torch.apps.flir proben --dataset_path D --prediction_path O \\
+        --score_fusion probEn --box_fusion v-avg
+
+(the arguments of ``demo/FLIR/demo_FLIR_save_predictions.py``,
+``demo_mAP_FLIR.py`` and ``demo_probEn.py``; ``--device cpu`` runs the plain
+versions on the CPU, and the images are then read with cv2). On the card,
+the images are decoded with nvJPEG and composed, resized and padded by the
+``image_io`` kernel, and the model runs the stem and RoIAlign kernels.
+
+``model_path`` "" gives the port's random init from seed 0; ``params`` takes
+a numpy pytree in ``proben_tpu``'s layout. Loading detectron2 ``.pth``/
+``.pkl`` files and checkpoint directories, and ``train_flir``, come with the
+checkpoint and trainer slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..config import CfgNode, get_cfg, mapper_config_from_cfg, model_config_from_cfg
+from ..data import DatasetCatalog, DatasetMapper, build_test_loader, register_coco_instances
+from ..engine import Predictor
+from ..evaluation import FLIREvaluator, inference_on_dataset
+from ..fusion import fuse_multi_model
+from ..models import build_model, init_rcnn
+
+logger = logging.getLogger(__name__)
+
+VAL_JSON_NAME = "FLIR_thermal_RGBT_pairs_val.json"
+TRAIN_JSON_NAME = "FLIR_thermal_RGBT_pairs_train.json"
+
+THERMAL_MEAN = 135.438
+
+Device = Union[str, torch.device]
+
+
+def build_flir_cfg(method: str, num_classes: int = 3, gnll: bool = True) -> CfgNode:
+    """Per-fusion-method config (reference ``demo_FLIR_save_predictions.py:53-76``
+    and ``demo_train_FLIR.py:48-91`` cfg mutations)."""
+    cfg = get_cfg()
+    cfg.MODEL.RESNETS.DEPTH = 101
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = num_classes
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.5
+    cfg.MODEL.ROI_HEADS.ENABLE_GAUSSIANNLLOSS = gnll
+    cfg.MODEL.ROI_BOX_HEAD.OUTPUT_LOGITS = True
+    cfg.MODEL.BACKBONE.FREEZE_AT = 3
+    cfg.INPUT.PAD_SHAPE = (800, 1024)  # FLIR 640x512 -> 800x1000 -> pad
+    if method in ("thermal_only", "rgb_only"):
+        pass  # 3-channel BGR
+    elif method == "early_fusion":
+        cfg.INPUT.FORMAT = "BGRT"
+        cfg.INPUT.NUM_IN_CHANNELS = 4
+        cfg.MODEL.PIXEL_MEAN = [103.530, 116.280, 123.675, THERMAL_MEAN]
+        cfg.MODEL.PIXEL_STD = [1.0, 1.0, 1.0, 1.0]
+    elif method == "middle_fusion":
+        cfg.INPUT.FORMAT = "BGRTTT"
+        cfg.INPUT.NUM_IN_CHANNELS = 6
+        cfg.MODEL.PIXEL_MEAN = [103.530, 116.280, 123.675] + [THERMAL_MEAN] * 3
+        cfg.MODEL.PIXEL_STD = [1.0, 1.0, 1.0, 1.0, 1.0, 1.0]
+    else:
+        raise ValueError(f"unknown fusion method {method}")
+    return cfg
+
+
+def register_flir(dataset_name: str, dataset_path: str, split_json: str = VAL_JSON_NAME):
+    json_path = os.path.join(dataset_path, split_json)
+    image_root = os.path.join(dataset_path, "thermal_8_bit")
+    if dataset_name in DatasetCatalog.list():
+        DatasetCatalog.remove(dataset_name)
+    register_coco_instances(dataset_name, {}, json_path, image_root)
+    return json_path
+
+
+def load_params(cfg: CfgNode, model_path: str) -> Dict:
+    """The numpy parameter pytree for ``cfg``: ``model_path`` "" gives the
+    port's random init from seed 0."""
+    if model_path:
+        raise NotImplementedError(
+            f"loading {model_path!r}: detectron2 .pth/.pkl files and checkpoint directories "
+            "come with the checkpoint slice (ROADMAP 12e); pass params= or model_path=''")
+    return init_rcnn(0, model_config_from_cfg(cfg))
+
+
+def _predictor(cfg: CfgNode, model_path: str, params, device: Device) -> Predictor:
+    if params is None:
+        params = load_params(cfg, model_path)
+    model_cfg = model_config_from_cfg(cfg)
+    return Predictor(build_model(model_cfg, params=params, device=device), model_cfg, device)
+
+
+def save_predictions(
+    method: str,
+    dataset_path: str,
+    model_path: str,
+    out_folder: str,
+    dataset_name: str = "FLIR_val",
+    batch_size: int = 4,
+    cfg: Optional[CfgNode] = None,
+    params=None,
+    device: Device = "cuda",
+) -> str:
+    """Run the predictor over the val split; dump the reference's JSON schema.
+    Returns the output path ``val_<method>_predictions.json``."""
+    cfg = cfg or build_flir_cfg(method)
+    register_flir(dataset_name, dataset_path)
+    dicts = DatasetCatalog.get(dataset_name)
+    predictor = _predictor(cfg, model_path, params, device)
+
+    out: Dict[str, list] = {k: [] for k in
+                            ("image", "boxes", "scores", "classes", "class_logits",
+                             "probs", "vars", "image_id")}
+    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False, device=device)
+    try:
+        for batch in build_test_loader(dicts, mapper, batch_size=batch_size):
+            for rec, fname in zip(predictor.predict_batch(batch), batch["file_name"]):
+                keep = rec["classes"] <= 2  # reference filters classes <= 2
+                out["image"].append(os.path.basename(fname))
+                out["boxes"].append(rec["boxes"][keep].tolist())
+                out["scores"].append(rec["scores"][keep].tolist())
+                out["classes"].append(rec["classes"][keep].tolist())
+                out["class_logits"].append(rec.get("class_logits", rec["scores"][:, None])[keep].tolist())
+                out["probs"].append(rec.get("probs", rec["scores"][:, None])[keep].tolist())
+                out["vars"].append(
+                    rec["vars"][keep].tolist() if "vars" in rec else [[1.0]] * int(keep.sum())
+                )
+                out["image_id"].append(int(rec["image_id"]))
+    finally:
+        mapper.close()
+
+    os.makedirs(out_folder, exist_ok=True)
+    out_path = os.path.join(out_folder, f"val_{method}_predictions.json")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    logger.info("saved predictions: %s", out_path)
+    return out_path
+
+
+def evaluate_map(
+    method: str,
+    dataset_path: str,
+    model_path: str,
+    out_folder: str = "out",
+    dataset_name: str = "FLIR_val",
+    batch_size: int = 4,
+    cfg: Optional[CfgNode] = None,
+    params=None,
+    device: Device = "cuda",
+) -> Dict:
+    """``demo_mAP_FLIR.py``: one-shot inference_on_dataset with FLIREvaluator."""
+    cfg = cfg or build_flir_cfg(method)
+    json_path = register_flir(dataset_name, dataset_path)
+    dicts = DatasetCatalog.get(dataset_name)
+    predictor = _predictor(cfg, model_path, params, device)
+    evaluator = FLIREvaluator(json_path, output_dir=out_folder)
+    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False, device=device)
+    try:
+        loader = build_test_loader(dicts, mapper, batch_size=batch_size)
+        return inference_on_dataset(predictor, loader, evaluator)
+    finally:
+        mapper.close()
+
+
+def _model_dets_for_image(det_json: Dict, i: int) -> Dict[str, np.ndarray]:
+    return {
+        "boxes": np.asarray(det_json["boxes"][i], float).reshape(-1, 4),
+        "scores": np.asarray(det_json["scores"][i], float).reshape(-1),
+        "classes": np.asarray(det_json["classes"][i]).reshape(-1),
+        "probs": np.asarray(det_json["probs"][i], float).reshape(
+            len(det_json["boxes"][i]), -1
+        )
+        if len(det_json["boxes"][i])
+        else np.zeros((0, 3)),
+        "vars": np.asarray(det_json["vars"][i], float).reshape(-1)
+        if det_json.get("vars") is not None
+        else None,
+    }
+
+
+def apply_late_fusion_and_evaluate(
+    evaluator: FLIREvaluator,
+    detections: Sequence[Dict],
+    score_fusion: str,
+    box_fusion: str,
+    class_offset=(640.0, 512.0),
+) -> Dict:
+    """``demo_probEn.py:198`` — per-image multi-model fusion (numpy, on the
+    host) + mAP.
+
+    ``detections``: 2-3 loaded prediction JSONs (the saver's schema). Image
+    order follows the second model's list, like the reference. One INFO
+    record on this module's logger gives the fusion's seconds per image.
+    """
+    evaluator.reset()
+    n_images = len(detections[1]["image"]) if len(detections) > 1 else len(detections[0]["image"])
+    start = time.time()
+    for i in range(n_images):
+        per_model = [_model_dets_for_image(d, i) for d in detections]
+        boxes, scores, classes = fuse_multi_model(
+            per_model, score_fusion, box_fusion, thresh=0.5, class_offset=class_offset
+        )
+        if len(boxes) == 0:
+            continue
+        image_id = detections[1]["image_id"][i] if len(detections) > 1 else detections[0]["image_id"][i]
+        evaluator.process(image_id, boxes, scores, classes)
+    elapsed = (time.time() - start) / max(n_images, 1)
+    logger.info("late fusion: %.5f s/img average", elapsed)
+    return evaluator.evaluate()
+
+
+def run_proben(
+    dataset_path: str,
+    prediction_path: str,
+    score_fusion: str = "probEn",
+    box_fusion: str = "v-avg",
+    out_folder: str = "out",
+    dataset_name: str = "FLIR_val",
+    det_files: Optional[Sequence[str]] = None,
+) -> Dict:
+    """``demo_probEn.py`` main: load 2-3 prediction JSONs, fuse, evaluate."""
+    if det_files is None:
+        det_files = [
+            os.path.join(prediction_path, "val_thermal_only_predictions.json"),
+            os.path.join(prediction_path, "val_early_fusion_predictions.json"),
+            os.path.join(prediction_path, "val_middle_fusion_predictions.json"),
+        ]
+    det_files = [f for f in det_files if os.path.exists(f)]
+    if len(det_files) < 2:
+        raise FileNotFoundError(f"need >=2 prediction files, found {det_files}")
+    detections = []
+    for path in det_files:
+        with open(path) as f:
+            detections.append(json.load(f))
+    json_path = os.path.join(dataset_path, VAL_JSON_NAME)
+    evaluator = FLIREvaluator(json_path, output_dir=out_folder)
+    return apply_late_fusion_and_evaluate(
+        evaluator, detections, score_fusion, box_fusion
+    )
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    from ..utils.logger import setup_logger
+    from ..utils.opt import config_parser
+
+    parser = argparse.ArgumentParser(
+        prog="python -m proben_tpu_torch.apps.flir",
+        description="save: prediction JSON of one method; map: its FLIR mAP; "
+                    "proben: ProbEn late fusion of saved JSONs and its mAP")
+    parser.add_argument("command", choices=("save", "map", "proben"))
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    known, rest = parser.parse_known_args(argv)
+    args = config_parser(rest)
+    setup_logger()
+    if known.command == "proben":
+        results = run_proben(args.dataset_path, args.prediction_path, args.score_fusion,
+                             args.box_fusion, args.outfolder, args.dataset_name)
+    elif known.command == "save":
+        results = save_predictions(args.fusion_method, args.dataset_path, args.model_path,
+                                   args.outfolder, args.dataset_name, device=known.device)
+    else:
+        results = evaluate_map(args.fusion_method, args.dataset_path, args.model_path,
+                               args.outfolder, args.dataset_name, device=known.device)
+    print(results)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-from .boxes import box_area, clip_boxes, nonempty_boxes, pairwise_iou
+from .boxes import BoxMode, box_area, clip_boxes, convert_box_mode, nonempty_boxes, pairwise_iou
 from .detections import Detections, GroundTruth
 
-__all__ = ["Detections", "GroundTruth", "box_area", "clip_boxes", "nonempty_boxes", "pairwise_iou"]
+__all__ = ["BoxMode", "Detections", "GroundTruth", "box_area", "clip_boxes", "convert_box_mode",
+           "nonempty_boxes", "pairwise_iou"]

@@ -5,12 +5,38 @@ also takes leading batch dimensions."""
 
 from __future__ import annotations
 
+import enum
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 Size = Union[int, float, Tensor]
+
+
+class BoxMode(enum.IntEnum):
+    """Coordinate conventions (``proben_tpu/structures/boxes.py:21``)."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+    XYXY_REL = 2
+    XYWH_REL = 3
+
+
+def convert_box_mode(box, from_mode: BoxMode, to_mode: BoxMode):
+    """Convert (..., 4) boxes, numpy arrays or tensors, between XYXY_ABS and
+    XYWH_ABS (the modes the pipeline uses)."""
+    if from_mode == to_mode:
+        return box
+    stack = torch.stack if torch.is_tensor(box) else np.stack
+    if from_mode == BoxMode.XYWH_ABS and to_mode == BoxMode.XYXY_ABS:
+        x, y, w, h = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+        return stack([x, y, x + w, y + h], -1)
+    if from_mode == BoxMode.XYXY_ABS and to_mode == BoxMode.XYWH_ABS:
+        x1, y1, x2, y2 = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+        return stack([x1, y1, x2 - x1, y2 - y1], -1)
+    raise NotImplementedError(f"conversion {from_mode} -> {to_mode}")
 
 
 def box_area(boxes: Tensor) -> Tensor:

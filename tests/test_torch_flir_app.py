@@ -1,0 +1,214 @@
+"""The port's FLIR app (``proben_tpu_torch/apps/flir.py``) against
+``proben_tpu.apps.flir`` on the CPU: save predictions, evaluate mAP, ProbEn
+late fusion of the saved JSONs, on a synthetic FLIR-shaped tree (written
+with ``cv2.imwrite``: single-component thermal, colour RGB) with the tiny
+configuration of ``tests/test_flir_app.py`` (R50, 192x224 canvas, 3 images)
+and the same numpy parameters in both packages (JAX's ``init_rcnn``).
+
+Tolerances: the prediction JSONs hold the same keys, image order, ids,
+counts and classes (detections paired by class and box, since tied scores
+may list in either order); boxes to 2e-3 px, scores and probabilities to 1e-4,
+logits to 1e-3 and variances to rtol 1e-3 (the same f32 model in other
+summation orders; the variance is an exp of a head output, whose relative
+error is that output's absolute one). The evaluators and the late fusion
+are the same numpy code on the same inputs: their results are equal
+(NaN where JAX has NaN).
+"""
+
+import json
+import os
+
+import cv2
+import jax
+import numpy as np
+import pytest
+
+from proben_tpu.apps import flir as jax_flir
+from proben_tpu.config import model_config_from_cfg as jax_model_config_from_cfg
+from proben_tpu.evaluation import FLIREvaluator as JaxFLIREvaluator
+from proben_tpu.models import init_rcnn as jax_init_rcnn
+from proben_tpu_torch.apps import flir
+from proben_tpu_torch.evaluation import FLIREvaluator
+
+METHODS = ("thermal_only", "early_fusion")
+SCORE, BOX = ("avg", "max", "probEn"), ("avg", "s-avg", "v-avg", "argmax")
+
+
+@pytest.fixture(scope="module")
+def flir_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("flir_app")
+    (root / "thermal_8_bit").mkdir()
+    (root / "RGB").mkdir()
+    rng = np.random.RandomState(0)
+    images, annotations = [], []
+    for i in range(3):
+        name = f"FLIR_{i:05d}"
+        cv2.imwrite(str(root / "thermal_8_bit" / f"{name}.jpeg"),
+                    cv2.GaussianBlur(rng.randint(0, 255, (128, 160), np.uint8), (5, 5), 2))
+        cv2.imwrite(str(root / "RGB" / f"{name}.jpg"), rng.randint(0, 255, (256, 320, 3), np.uint8))
+        images.append({"id": i + 1, "file_name": f"{name}.jpeg", "height": 128, "width": 160})
+        for j in range(2):
+            annotations.append({"id": 2 * i + j + 1, "image_id": i + 1, "category_id": 1 + (i + j) % 3,
+                                "bbox": [20.0 + 40 * j, 20.0, 60.0, 50.0], "area": 3000.0,
+                                "iscrowd": 0})
+    js = {"images": images, "annotations": annotations,
+          "categories": [{"id": 1, "name": "person"}, {"id": 2, "name": "bicycle"},
+                         {"id": 3, "name": "car"}]}
+    (root / flir.VAL_JSON_NAME).write_text(json.dumps(js))
+    return str(root)
+
+
+def _tiny_cfg(mod, method):
+    """``tests/test_flir_app.py::_tiny_cfg`` for either package."""
+    cfg = mod.build_flir_cfg(method)
+    cfg.MODEL.RESNETS.DEPTH = 50
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0  # random weights: keep some dets
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 64
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 32
+    cfg.TEST.DETECTIONS_PER_IMAGE = 5
+    cfg.INPUT.PAD_SHAPE = (192, 224)
+    cfg.INPUT.MIN_SIZE_TEST = 160
+    cfg.INPUT.MAX_SIZE_TEST = 224
+    cfg.MODEL.ROI_ALIGN_IMPL = "gather"  # the JAX path's CPU speed; the port maps it to "plain"
+    return cfg
+
+
+def _params(method):
+    cfg = _tiny_cfg(jax_flir, method)
+    key = jax.random.PRNGKey(METHODS.index(method) + 7)
+    return jax.tree_util.tree_map(np.asarray, jax_init_rcnn(key, jax_model_config_from_cfg(cfg)))
+
+
+@pytest.fixture(scope="module")
+def saved(flir_root, tmp_path_factory):
+    out = {"jax": str(tmp_path_factory.mktemp("out_jax")), "torch": str(tmp_path_factory.mktemp("out_t"))}
+    files = {"jax": [], "torch": []}
+    for method in METHODS:
+        params = _params(method)
+        files["jax"].append(jax_flir.save_predictions(
+            method, flir_root, "", out["jax"], batch_size=2, cfg=_tiny_cfg(jax_flir, method),
+            params=params))
+        files["torch"].append(flir.save_predictions(
+            method, flir_root, "", out["torch"], batch_size=2, cfg=_tiny_cfg(flir, method),
+            params=params, device="cpu"))
+    return out, files
+
+
+@pytest.mark.parametrize("m", range(len(METHODS)), ids=METHODS)
+def test_save_predictions_matches_jax(saved, m):
+    _, files = saved
+    assert os.path.basename(files["torch"][m]) == os.path.basename(files["jax"][m])
+    with open(files["jax"][m]) as f:
+        want = json.load(f)
+    with open(files["torch"][m]) as f:
+        got = json.load(f)
+    assert set(got) == set(want) == {"image", "boxes", "scores", "classes", "class_logits", "probs",
+                                     "vars", "image_id"}
+    assert got["image"] == want["image"] and got["image_id"] == want["image_id"] == [1, 2, 3]
+    assert sum(len(b) for b in got["boxes"]) > 0
+    for i in range(3):
+        assert sorted(got["classes"][i]) == sorted(want["classes"][i]), i
+        for k, j in _pairs(got, want, i):
+            for key, tol in (("boxes", dict(atol=2e-3)), ("scores", dict(atol=1e-4)),
+                             ("probs", dict(atol=1e-4)), ("class_logits", dict(atol=1e-3)),
+                             ("vars", dict(rtol=1e-3))):
+                np.testing.assert_allclose(np.asarray(got[key][i][k], float),
+                                           np.asarray(want[key][i][j], float),
+                                           err_msg=f"{key} image {i}", **tol)
+
+
+def _pairs(got, want, i):
+    """(port index, JAX index) of each detection of image ``i``: the port's
+    detection of the same class with the nearest box. Scores that tie (the
+    random early-fusion head saturates at 1.0) may list tied detections in
+    either order."""
+    gb = np.asarray(got["boxes"][i], float).reshape(-1, 4)
+    wb = np.asarray(want["boxes"][i], float).reshape(-1, 4)
+    assert len(gb) == len(wb), i
+    free, pairs = set(range(len(gb))), []
+    for j, (box, cls) in enumerate(zip(wb, want["classes"][i])):
+        k = min((k for k in free if got["classes"][i][k] == cls), key=lambda k: np.abs(gb[k] - box).max())
+        free.remove(k)
+        pairs.append((k, j))
+    return pairs
+
+
+def _equal_results(a, b):
+    assert a.keys() == b.keys()
+    for task in a:
+        assert a[task].keys() == b[task].keys()
+        for k, v in a[task].items():
+            assert (np.isnan(v) and np.isnan(b[task][k])) or v == b[task][k], (task, k, v, b[task][k])
+
+
+@pytest.mark.parametrize("sm", SCORE)
+@pytest.mark.parametrize("bm", BOX)
+def test_run_proben_matches_jax(flir_root, saved, sm, bm):
+    """Every (score, box) method over the same JSON files: equal results."""
+    out, files = saved
+    want = jax_flir.run_proben(flir_root, out["jax"], sm, bm, out["jax"], det_files=files["jax"])
+    got = flir.run_proben(flir_root, out["jax"], sm, bm, out["torch"], det_files=files["jax"])
+    _equal_results(got, want)
+
+
+def test_flir_evaluator_matches_jax(flir_root, saved):
+    """The same detections (the saved JSON, with the classes the evaluator
+    remaps and drops mixed in) give equal results and results files."""
+    out, files = saved
+    with open(files["jax"][0]) as f:
+        dets = json.load(f)
+    json_path = os.path.join(flir_root, flir.VAL_JSON_NAME)
+    evs = [JaxFLIREvaluator(json_path, output_dir=out["jax"]), FLIREvaluator(json_path, output_dir=out["torch"])]
+    for ev in evs:
+        for i, image_id in enumerate(dets["image_id"]):
+            boxes = np.asarray(dets["boxes"][i], float).reshape(-1, 4)
+            classes = np.asarray(dets["classes"][i], int)
+            ev.process(image_id, boxes, dets["scores"][i], np.where(np.arange(len(classes)) % 4 == 3, 7, classes))
+            ev.process(image_id, boxes[:1] + 3.0, [0.9], [16])  # valid class, no category: dropped
+    want, got = (ev.evaluate() for ev in evs)
+    _equal_results(got, want)
+    with open(os.path.join(out["jax"], "coco_instances_results.json")) as f:
+        a = json.load(f)
+    with open(os.path.join(out["torch"], "coco_instances_results.json")) as f:
+        assert json.load(f) == a
+
+
+def test_evaluate_map_matches_jax_and_ground_truth_scores_100(flir_root, tmp_path):
+    """``evaluate_map`` of the tiny thermal model in both packages (the
+    detections agree to the tolerances above, so the mAP of 3 images
+    agrees to the points a near-tie can move), and the ground truth fed
+    back as detections gives AP = 100."""
+    params = _params("thermal_only")
+    want = jax_flir.evaluate_map("thermal_only", flir_root, "", str(tmp_path / "j"), batch_size=2,
+                                 cfg=_tiny_cfg(jax_flir, "thermal_only"), params=params)
+    got = flir.evaluate_map("thermal_only", flir_root, "", str(tmp_path / "t"), batch_size=2,
+                            cfg=_tiny_cfg(flir, "thermal_only"), params=params, device="cpu")
+    assert got["bbox"].keys() == want["bbox"].keys()
+    for k, v in want["bbox"].items():
+        assert np.isnan(v) == np.isnan(got["bbox"][k]) and (np.isnan(v) or abs(v - got["bbox"][k]) < 1e-3), k
+    ev = FLIREvaluator(os.path.join(flir_root, flir.VAL_JSON_NAME))
+    for img_id, anns in ev.coco.img_to_anns.items():
+        xywh = np.array([a["bbox"] for a in anns])
+        ev.process(img_id, np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], 1),
+                   np.ones(len(anns)), np.array([a["category_id"] - 1 for a in anns]))
+    assert ev.evaluate()["bbox"]["AP"] == 100.0
+
+
+def test_command_line_proben_and_load_params(flir_root, saved, capsys, monkeypatch):
+    out, files = saved
+    res = flir.main(["proben", "--dataset_path", flir_root, "--prediction_path", out["torch"],
+                     "--score_fusion", "max", "--box_fusion", "argmax", "--outfolder", out["torch"]])
+    _equal_results(res, flir.run_proben(flir_root, out["torch"], "max", "argmax", out["torch"]))
+    assert "'bbox'" in capsys.readouterr().out
+    cfg = _tiny_cfg(flir, "thermal_only")
+    assert set(flir.load_params(cfg, "")) == {"backbone", "fpn", "rpn_head", "roi"}
+    with pytest.raises(NotImplementedError, match="12e"):
+        flir.load_params(cfg, "model_final.pth")
+    with pytest.raises(FileNotFoundError, match=">=2"):
+        flir.run_proben(flir_root, out["torch"], det_files=files["torch"][:1])
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        flir.save_predictions("thermal_only", flir_root, "", out["torch"], cfg=cfg,
+                              params=_params("thermal_only"))

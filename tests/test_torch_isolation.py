@@ -1,8 +1,11 @@
 """``proben_tpu_torch`` and ``chip_smoke`` stand alone: importing them loads
-neither JAX nor any module of ``proben_tpu``, and the entry points refuse to
-run on the CPU unless asked to."""
+neither JAX nor any module of ``proben_tpu`` (nor cv2, PyYAML or Pillow, which
+the card's machine need not have), no source imports them outside the
+CPU-only branches, and the entry points refuse to run on the CPU unless
+asked to."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -40,6 +43,13 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.ops.stem_cuda
         import proben_tpu_torch.solver
         import proben_tpu_torch.structures
+        import proben_tpu_torch.apps.flir
+        import proben_tpu_torch.config
+        import proben_tpu_torch.data
+        import proben_tpu_torch.evaluation
+        import proben_tpu_torch.native
+        import proben_tpu_torch.utils.logger
+        import proben_tpu_torch.utils.opt
         import chip_smoke
         print(sorted(set(foreign()) - before))
         """
@@ -49,6 +59,53 @@ def test_imports_load_no_jax_and_no_proben_tpu():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_imports_load_no_cv2_yaml_or_pil():
+    """The runtime slice (config, data, evaluation, native IO, the FLIR app)
+    and the model, ops and training modules load none of cv2, PyYAML or
+    Pillow: the card's machine may lack them."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import proben_tpu_torch.apps.flir
+        import proben_tpu_torch.config
+        import proben_tpu_torch.data
+        import proben_tpu_torch.engine.train
+        import proben_tpu_torch.evaluation
+        import proben_tpu_torch.models
+        import proben_tpu_torch.native
+        import proben_tpu_torch.ops.roi_align_cuda
+        import proben_tpu_torch.ops.stem_cuda
+        import chip_smoke
+        print(sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "yaml", "PIL")))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+# cv2 only inside the CPU branches that read and resize with it, as the JAX
+# package does; matplotlib only where the PR-curve plot is asked for
+ALLOWED_IMPORTS = {
+    ("proben_tpu_torch/data/detection_utils.py", "cv2"),
+    ("proben_tpu_torch/data/transforms.py", "cv2"),
+    ("proben_tpu_torch/evaluation/flir.py", "matplotlib"),
+}
+
+
+def test_sources_import_no_jax_proben_tpu_cv2_yaml_or_pil():
+    pattern = re.compile(r"^\s*(?:import|from)\s+(jax|proben_tpu\b|cv2|yaml|PIL|matplotlib)")
+    found = set()
+    for path in sorted(ROOT.glob("proben_tpu_torch/**/*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            m = pattern.match(line)
+            if m:
+                found.add((str(path.relative_to(ROOT)), m.group(1)))
+    assert found == ALLOWED_IMPORTS, found ^ ALLOWED_IMPORTS
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):

@@ -342,3 +342,171 @@ def test_cpu_wrappers_run_the_plain_versions():
                     t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, 2)):
         torch.testing.assert_close(d, e)
     assert (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# image_io: nvJPEG decode/encode and the compose + resize + pad kernel
+# ---------------------------------------------------------------------------
+
+
+def _u8(rng, h, w, c):
+    """uint8 (h, w, c): 16x16 blocks of random brightness, a smooth colour
+    tint and a little noise (what 4:2:0 JPEG keeps well)."""
+    x = np.kron(rng.rand(h // 16 + 2, w // 16 + 2, 1), np.ones((16, 16, 1)))[:h, :w]
+    tint = np.linspace(0, 30, w)[None, :, None] * rng.rand(1, 1, c)
+    return np.clip(x * 150 + tint + rng.randn(h, w, c) * 2 + 40, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["BGR", "BGRT", "BGRTTT"])
+def test_image_io_kernel_matches_plain(fmt):
+    """Batch of 3 with its own sizes (upscale, downscale, equal size), gray
+    and colour thermal images, an RGB image smaller than its thermal frame.
+    The kernel's float operations are rounded one by one in the plain
+    version's order and its uint8 resize is integer arithmetic: bit for
+    bit."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(0)
+    thermal = [_u8(rng, 48, 64, 1), _u8(rng, 50, 40, 3), _u8(rng, 33, 47, 1)]
+    rgb = [_u8(rng, 160, 180, 3), _u8(rng, 20, 24, 3), _u8(rng, 33, 47, 1)]
+    sizes = [(80, 100), (30, 24), (33, 47)]
+    t = [torch.from_numpy(a).cuda() for a in thermal]
+    r = None if fmt == "BGR" else [torch.from_numpy(a).cuda() for a in rgb]
+    before = io.launches
+    got = io.compose_resize_pad(t, r, fmt, sizes, (96, 112))
+    ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (96, 112))
+    torch.cuda.synchronize()
+    assert io.launches == before + 1
+    assert got.shape == (3, 96, 112, io.FORMATS[fmt][1])
+    assert torch.equal(got, ref)
+    assert not got[1, 30:].any() and not got[1, :, 24:].any()
+
+
+@pytest.mark.cuda
+def test_image_io_kernel_splits_large_batches():
+    """More images than one launch's parameters hold (40): two launches,
+    the same canvas as the plain version."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(3)
+    t = [torch.from_numpy(_u8(rng, 12, 16, 1)).cuda() for _ in range(41)]
+    r = [torch.from_numpy(_u8(rng, 20, 24, 3)).cuda() for _ in range(41)]
+    sizes = [(15, 20)] * 40 + [(12, 16)]
+    before = io.launches
+    got = io.compose_resize_pad(t, r, "BGRT", sizes, (16, 20))
+    ref = io.compose_resize_pad_plain(t, r, "BGRT", sizes, (16, 20))
+    torch.cuda.synchronize()
+    assert io.launches == before + 2
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_jpeg_codec_round_trip_and_grayscale():
+    """nvJPEG encodes and decodes: grayscale files decode to one channel,
+    colour ones to BGR; ``info`` reads the header. Tolerance: at quality 95
+    these images come back within a mean of 3 levels (libjpeg: 1.1 gray,
+    1.6 colour); a decode in the wrong channel order or layout is off by
+    tens."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(1)
+    gray = torch.from_numpy(_u8(rng, 64, 80, 1)).cuda()
+    color = torch.from_numpy(_u8(rng, 96, 120, 3)).cuda()
+    with io.JpegCodec() as codec:
+        for src in (gray, color):
+            data = codec.encode(src, quality=95)
+            assert data[:2] == b"\xff\xd8", data[:4]
+            assert codec.info(data) == tuple(src.shape), (codec.info(data), src.shape)
+            out = codec.decode(data)
+            torch.cuda.synchronize()
+            assert out.shape == src.shape and out.dtype == torch.uint8, (out.shape, out.dtype)
+            gap = float((out.float() - src.float()).abs().mean())
+            assert gap < 3.0, (src.shape, gap)
+
+
+@pytest.mark.cuda
+def test_jpeg_decodes_on_a_busy_stream_equal_lone_decodes():
+    """Consecutive decodes on one nvJPEG state while the stream is still
+    busy (a large matmul queued before them) give the same pixels, bit for
+    bit, as decodes made one at a time on an idle stream: each decode
+    returns only once the stream has passed it."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(4)
+    x = torch.randn(8192, 8192, device="cuda")
+    with io.JpegCodec() as codec:
+        files = [codec.encode(torch.from_numpy(_u8(rng, 600, 700, 3)).cuda()) for _ in range(6)]
+        ref = []
+        for data in files:
+            ref.append(codec.decode(data))
+            torch.cuda.synchronize()
+        for _ in range(3):
+            x @ x
+            got = [codec.decode(data) for data in files]
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_load_batch_reads_files(tmp_path):
+    """``load_batch`` on files written by the codec: a fused batch of two
+    pairs gives the canvas of the decoded pixels, one launch."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(2)
+    with io.JpegCodec() as codec:
+        tp, rp = [], []
+        for i in range(2):
+            for kind, shape, paths in (("t", (40, 50, 1), tp), ("r", (90, 100, 3), rp)):
+                p = tmp_path / f"{kind}{i}.jpg"
+                p.write_bytes(codec.encode(torch.from_numpy(_u8(rng, *shape)).cuda()))
+                paths.append(str(p))
+        before = io.launches
+        images, sizes, orig = io.load_batch(codec, tp, rp, "BGRTTT", lambda h, w: (2 * h, 2 * w),
+                                            (80, 104))
+        thermal = [codec.decode(open(p, "rb").read()) for p in tp]
+        rgb = [codec.decode(open(p, "rb").read()) for p in rp]
+        ref = io.compose_resize_pad_plain(thermal, rgb, "BGRTTT", [(80, 100)] * 2, (80, 104))
+        torch.cuda.synchronize()
+    assert io.launches == before + 1
+    assert sizes.tolist() == [[80, 100]] * 2 and orig.tolist() == [[40, 50]] * 2
+    assert torch.equal(images, ref)
+
+
+def test_image_io_wrapper_rejects_unsupported_input():
+    from proben_tpu_torch.native import io
+
+    t = [torch.zeros(8, 8, 1, dtype=torch.uint8)]
+    with pytest.raises(ValueError, match="input_format"):
+        io.compose_resize_pad(t, None, "RGB", [(8, 8)], (8, 8))
+    with pytest.raises(ValueError, match="rgb"):
+        io.compose_resize_pad(t, None, "BGRT", [(8, 8)], (8, 8))
+    with pytest.raises(ValueError, match="pad_shape"):
+        io.compose_resize_pad(t, None, "BGR", [(9, 8)], (8, 8))
+    with pytest.raises(ValueError, match="uint8"):
+        io.compose_resize_pad([torch.zeros(8, 8, 1)], None, "BGR", [(8, 8)], (8, 8))
+    before = io.launches
+    out = io.compose_resize_pad(t, None, "BGR", [(4, 4)], (8, 8))  # CPU: the plain version
+    assert io.launches == before and out.shape == (1, 8, 8, 3)
+
+
+def test_image_io_library_key_follows_its_link_libraries(tmp_path, monkeypatch):
+    """A source's own link libraries (nvJPEG for ``image_io``) are part of
+    its build key; they need no compiler to compute."""
+    from proben_tpu_torch import _build
+
+    assert _build.LINK_LIBS["image_io"] == ("nvjpeg",)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text("// k\n")
+    first = _build.library_path("k")
+    monkeypatch.setattr(_build, "LINK_LIBS", {"k": ("nvjpeg",)})
+    assert _build.library_path("k") != first
+    monkeypatch.setattr(_build, "LINK_LIBS", {})
+    assert _build.library_path("k") == first
+    assert _build.link_flags("k") == []
