@@ -59,10 +59,27 @@ Phases, each raising on a miss (exit code != 0, no result line):
    the same mapped batch, launches counted over the app's run;
    ``run_proben`` over the two saved JSONs; the ground truth as
    detections scoring AP 100; eval img/s end to end and model-only;
-11. one JSON line per kernel, one for each slice and fusion mode, one for
-   the FLIR evaluation, one listing every kernel (launches per path, the
-   C = 512, C = 4 and C = 6 readings); the last line is
-   ``{"ok": true, "device": {...}}``.
+11. KAIST evaluation from detectron2 checkpoints (``kaist_phase``): a
+   synthetic KAIST test tree of 32 frames (visible and lwir 640x512 colour
+   JPEGs from nvJPEG, half in the day sets 06-08 and half in the night
+   sets 09-11, the annotation JSON and the split file) in a temporary
+   directory; ``image_io`` at scale 1 (KAIST's equal frame sizes) as the
+   identity; for thermal_only, rgb_only and middle_fusion
+   (``build_kaist_cfg``: R101, 1 class, the variance head) a calibrated
+   model written as a detectron2 ``.pth`` and ``.pkl``, loaded back by
+   ``load_params`` (equal to each other bit for bit, to the source to 1e-6
+   relative), ``predict_split`` at batch 8 (det txt and variance npz;
+   launches counted; the app's detections against
+   ``Predictor.predict_batch`` on the same mapped batch; the txt read back
+   equal to the results), LAMR all/day/night; the ground truth as
+   detections scoring LAMR 0; ``run_kaist_proben`` over the three; a
+   ``CheckpointManager`` best-model round trip (equal tensors, identical
+   detections); eval img/s end to end (median of 3 warm runs over the 32
+   frames), model only, ``load_params`` and checkpoint save/restore ms;
+12. one JSON line per kernel, one for each slice and fusion mode, one for
+   the FLIR and one for the KAIST evaluation, one listing every kernel
+   (launches per path, the C = 512, C = 4 and C = 6 readings); the last
+   line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
@@ -1280,7 +1297,7 @@ def flir_model(cfg, seed, batch):
     model = build_model(mcfg, params=random_affines(init_rcnn(seed, mcfg), seed))
     calibrate_rpn(model, batch["image"])
     bias, n = calibrate(model, Predictor(model, mcfg), batch["image"], batch["image_size"], hi=32.0)
-    log(f"FLIR {cfg.INPUT.FORMAT} model: background bias {bias:.4g} -> {n:.1f} dets/img")
+    log(f"{cfg.INPUT.FORMAT} model, {mcfg.num_classes} classes: background bias {bias:.4g} -> {n:.1f} dets/img")
     params = state_dict_to_jax({k: v.cpu() for k, v in model.state_dict().items()})
     return model, mcfg, params
 
@@ -1444,6 +1461,389 @@ def flir_phase(card):
     return kernel, stats
 
 
+# ---------------------------------------------------------------------------
+# KAIST evaluation: detectron2 checkpoints in, LAMR out
+# ---------------------------------------------------------------------------
+
+KAIST_HW = (512, 640)  # KAIST visible and lwir frames (H, W)
+BN_EPS = 1e-5
+
+
+def d2_state_dict(params, pooler_resolution=7):
+    """detectron2 names and layouts of a parameter pytree (numpy, the JAX
+    package's layout): the inverse of ``checkpoint/torch_import.py``. Convs
+    HWIO -> OIHW, linears (in, out) -> (out, in) with fc1's rows put back in
+    torch's NCHW flatten order, each folded affine written as a BatchNorm
+    with mean 0 and variance 1 - eps (folding it again may move a value by
+    one float32 ulp)."""
+    sd = {}
+
+    def conv(key, p):
+        sd[f"{key}.weight"] = np.array(np.transpose(p["w"], (3, 2, 0, 1)), order="C")
+        if "b" in p:
+            sd[f"{key}.bias"] = np.array(p["b"])
+
+    def norm(key, p):
+        c = p["scale"].shape[0]
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = np.array(p["scale"]), np.array(p["bias"])
+        sd[f"{key}.running_mean"] = np.zeros(c, np.float32)
+        sd[f"{key}.running_var"] = np.full(c, 1.0 - BN_EPS, np.float32)
+
+    def linear(key, p, nchw_rows=False):
+        w = np.asarray(p["w"])
+        if nchw_rows:  # (P, P, C) rows -> (C, P, P) rows
+            c = w.shape[0] // (pooler_resolution * pooler_resolution)
+            w = w.reshape(pooler_resolution, pooler_resolution, c, -1).transpose(2, 0, 1, 3).reshape(w.shape)
+        sd[f"{key}.weight"] = np.array(w.T, order="C")
+        sd[f"{key}.bias"] = np.array(p["b"])
+
+    def resnet(prefix, bb):
+        conv(f"{prefix}.stem.conv1", bb["stem"]["conv1"])
+        norm(f"{prefix}.stem.conv1.norm", bb["stem"]["norm1"])
+        for stage in ("res2", "res3", "res4", "res5"):
+            for b, blk in enumerate(bb[stage]):
+                base = f"{prefix}.{stage}.{b}"
+                for i in (1, 2, 3):
+                    conv(f"{base}.conv{i}", blk[f"conv{i}"])
+                    norm(f"{base}.conv{i}.norm", blk[f"norm{i}"])
+                if "shortcut" in blk:
+                    conv(f"{base}.shortcut", blk["shortcut"])
+                    norm(f"{base}.shortcut.norm", blk["shortcut_norm"])
+
+    def fpn(prefix, f):
+        for i, (lat, out) in enumerate(zip(f["lateral"], f["output"])):
+            conv(f"{prefix}.fpn_lateral{i + 2}", lat)
+            conv(f"{prefix}.fpn_output{i + 2}", out)
+
+    resnet("backbone.bottom_up", params["backbone"])
+    fpn("backbone", params["fpn"])
+    if "backbone_2" in params:
+        resnet("backbone_2.bottom_up", params["backbone_2"])
+        fpn("backbone_2", params["fpn_2"])
+    for name, key in (("conv", "conv"), ("objectness", "objectness_logits"), ("deltas", "anchor_deltas")):
+        conv(f"proposal_generator.rpn_head.{key}", params["rpn_head"][name])
+    for i, fc in enumerate(params["roi"]["box_head"]["fcs"]):
+        linear(f"roi_heads.box_head.fc{i + 1}", fc, nchw_rows=i == 0)
+    for name, p in params["roi"]["output"].items():
+        linear(f"roi_heads.box_predictor.{name}", p)
+    return sd
+
+
+def flat_tree(tree, prefix=""):
+    """{path: leaf} of a pytree of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in flat_tree(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in flat_tree(sub, f"{prefix}/{i}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def trees_equal(a, b) -> bool:
+    fa, fb = flat_tree(a), flat_tree(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def write_kaist_tree(codec, root, n=32, seed=2):
+    """A KAIST-shaped test tree: ``setXX/VYYY/{lwir,visible}/IZZZZZ.jpg``,
+    both 640x512 colour JPEGs (nvJPEG, quality 90; the lwir file's three
+    channels differ, so a wrong channel choice shows), the first half of
+    the frames in sets 06-08 (day) and the second in 09-11 (night); the
+    annotation JSON (``im_name``, persons 30-200 px high on both sides of
+    55, occlusion 0/1/2, ignore flags, one non-person box) with boxes in
+    separate 128-px columns, so no two overlap; and the split file.
+    Returns (annotation path, split path, split lines)."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, w = KAIST_HW
+    lines, images, annotations = [], [], []
+    for i in range(n):
+        s = ((6, 7, 8) if i < n // 2 else (9, 10, 11))[i % 3]
+        v = i % 2
+        boxes = []
+        for col in rng.permutation(5)[: rng.randint(1, 5)]:
+            bh = float(rng.choice([30, 45, 60, 90, 150, 200]))
+            bw = round(bh * 0.41, 1)
+            x0, y0 = float(col * 128 + rng.randint(0, 127 - int(bw))), float(rng.randint(0, h - int(bh)))
+            boxes.append((x0, y0, bw, bh))
+            annotations.append({"id": len(annotations) + 1, "image_id": i + 1,
+                                "category_id": 2 if not annotations else 1, "bbox": [x0, y0, bw, bh],
+                                "height": bh, "occlusion": int(rng.choice([0, 0, 1, 2])),
+                                "ignore": int(rng.rand() < 0.1)})
+        for mod in ("lwir", "visible"):
+            d = os.path.join(root, f"set{s:02d}", f"V{v:03d}", mod)
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"I{i:05d}.jpg"), "wb") as f:
+                f.write(codec.encode(flir_scene(gen, h, w, boxes, 3, 1.0, 1.0), quality=90))
+        lines.append(f"set{s:02d}/V{v:03d}/I{i:05d}")
+        images.append({"id": i + 1, "im_name": f"set{s:02d}_V{v:03d}_I{i:05d}_lwir.png", "height": h, "width": w})
+    ann, split = os.path.join(root, "KAIST_annotation.json"), os.path.join(root, "test-all-20.txt")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "person"}, {"id": 2, "name": "cyclist"}]}, f)
+    with open(split, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return ann, split, lines
+
+
+def check_kaist_frames(codec, root, rel):
+    """KAIST's visible and lwir frames have one size, so the uint8 RGB
+    resize in ``image_io`` runs at scale 1: the composed frame must be the
+    decoded visible pixels, then lwir channel 0 (BGRT) or all three
+    (BGRTTT), bit for bit, edges included, and the kernel must equal its
+    plain version there and at the model's size."""
+    from proben_tpu_torch.apps.kaist import kaist_files
+    from proben_tpu_torch.native import io
+
+    lwir, visible = kaist_files(root, rel, "middle_fusion")
+    t = codec.decode(open(lwir, "rb").read())
+    r = codec.decode(open(visible, "rb").read())
+    torch.cuda.synchronize()
+    if t.shape != (*KAIST_HW, 3) or r.shape != (*KAIST_HW, 3):
+        raise AssertionError(f"KAIST frames decode to {tuple(t.shape)} and {tuple(r.shape)}")
+    for fmt, thermal in (("BGRT", t[..., :1]), ("BGRTTT", t)):
+        frame = io.compose_resize_pad([t], [r], fmt, [KAIST_HW], KAIST_HW)[0]
+        want = torch.cat([r, thermal], -1).float()
+        if not torch.equal(frame, want):
+            raise AssertionError(f"image_io {fmt} at scale 1: max |err| {float((frame - want).abs().max())}")
+        for size, pad in ((KAIST_HW, KAIST_HW), (TRUE_HW, (H, W))):
+            got = io.compose_resize_pad([t], [r], fmt, [size], pad)
+            ref = io.compose_resize_pad_plain([t], [r], fmt, [size], pad)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"image_io {fmt} at {size}: kernel differs from its plain version")
+    if torch.equal(t[..., 0], t[..., 1]):
+        raise AssertionError("the synthetic lwir channels are equal: the channel check has no power")
+    log("KAIST frames: image_io at scale 1 is the identity, thermal channels as the JAX app takes them")
+
+
+def check_kaist_batch(codec, dicts, fmt, batch):
+    """The batch the app maps (nvJPEG, then one ``image_io`` launch for all
+    its frames) must equal the plain version of ``image_io`` on the same
+    decoded files, at the method's format and the model's size, bit for
+    bit: thermal_only and rgb_only read a 3-channel file as BGR, middle
+    fusion composes the visible file with the lwir one."""
+    from proben_tpu_torch.native import io
+
+    def decoded(path):
+        with open(path, "rb") as f:
+            return codec.decode(f.read())
+
+    thermal = [decoded(d["file_name"]) for d in dicts]
+    rgb = [decoded(d["rgb_file"]) for d in dicts] if fmt != "BGR" else None
+    want = io.compose_resize_pad_plain(thermal, rgb, fmt, [TRUE_HW] * len(dicts), (H, W))
+    sizes = batch["image_size"].cpu().numpy()
+    if not (sizes == np.array(TRUE_HW)).all():
+        raise AssertionError(f"KAIST {fmt}: the mapped batch's sizes {sizes.tolist()}, expected {TRUE_HW}")
+    if not torch.equal(batch["image"], want):
+        err = float((batch["image"] - want).abs().max())
+        raise AssertionError(f"KAIST {fmt}: the mapped batch of {len(dicts)} differs from image_io's plain "
+                             f"version by {err}")
+
+
+def kaist_phase(card):
+    """KAIST evaluation from detectron2 files on a synthetic test tree (32
+    frames at the KAIST size): for thermal_only, rgb_only and middle_fusion
+    (``build_kaist_cfg``: R101, 1 class, the variance head, here in bf16,
+    batch 8, 640x512 -> 800x1000 padded to 800x1024) the first mapped batch
+    held against ``image_io``'s plain version, a calibrated random model
+    written as a detectron2 ``.pth`` and ``.pkl`` (``d2_state_dict``),
+    loaded back with ``load_params``, run through ``predict_split`` (det txt,
+    variance npz) and scored by LAMR; the ground truth as detections;
+    ProbEn over the three; a ``CheckpointManager`` round trip; thermal_only
+    once more as the app ships it (float32, no K1); readings."""
+    import tempfile
+    import pickle
+
+    from proben_tpu_torch.apps import kaist
+    from proben_tpu_torch.apps.flir import load_params
+    from proben_tpu_torch.checkpoint import CheckpointManager, restore_pytree, save_pytree
+    from proben_tpu_torch.config import mapper_config_from_cfg, model_config_from_cfg
+    from proben_tpu_torch.data import DatasetMapper, collate
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.evaluation import KAISTEvaluator, load_detections_txt
+    from proben_tpu_torch.models import build_model, init_rcnn
+    from proben_tpu_torch.native import io
+    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+
+    stats = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="kaist_") as root, io.JpegCodec() as codec:
+        ann, split, lines = write_kaist_tree(codec, root)
+        frames = list(range(1, len(lines) + 1))
+        check_kaist_frames(codec, root, lines[0])
+        n_batches = -(-len(lines) // BATCH)
+        runs = {}
+        for method, seed, k1 in (("thermal_only", 21, 1), ("rgb_only", 22, 1), ("middle_fusion", 23, 2)):
+            cfg = kaist.build_kaist_cfg(method)  # get_cfg's float32 compute, as in the JAX app
+            cfg.MODEL.COMPUTE_DTYPE = "bfloat16"  # as configs/Base-RCNN-FPN.yaml (K1 is bf16 only)
+            dicts = kaist.kaist_dicts(root, lines[:BATCH], method)
+            mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+            try:
+                batch = collate(mapper.map_batch(dicts))
+                load_ms = host_ms(lambda: mapper.map_batch(dicts), reps=3)
+            finally:
+                mapper.close()
+            check_kaist_batch(codec, dicts, cfg.INPUT.FORMAT, batch)
+            model, mcfg, source = flir_model(cfg, seed, batch)
+            del model
+            sd = d2_state_dict(source)
+            pth, pkl = os.path.join(root, f"{method}.pth"), os.path.join(root, f"{method}.pkl")
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+            with open(pkl, "wb") as f:
+                pickle.dump({"model": sd}, f)
+            params = load_params(cfg, pth)
+            if not trees_equal(params, load_params(cfg, pkl)):
+                raise AssertionError(f"KAIST {method}: the .pth and .pkl imports differ")
+            fp, fs = flat_tree(params), flat_tree(source)
+            rel = max(float(np.max(np.abs(fp[k] - fs[k]) / np.maximum(np.abs(fs[k]), 1e-30))) for k in fs)
+            if fp.keys() != fs.keys() or rel > 1e-6:
+                raise AssertionError(f"KAIST {method}: imported parameters off the source by {rel} relative")
+
+            stem_cuda.launches = roi_align_cuda.launches = io.launches = 0
+            out_txt, var_npz = os.path.join(root, f"{method}_dets.txt"), os.path.join(root, f"{method}_vars.npz")
+            results = kaist.predict_split(method, root, split, params, cfg=cfg, out_txt=out_txt,
+                                          var_npz=var_npz, batch_size=BATCH)
+            launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
+                        "image_io": io.launches}
+            expect = {"stem_pool": k1 * n_batches, "roi_align_fwd": n_batches, "image_io": n_batches}
+            if launches != expect:
+                raise AssertionError(f"KAIST {method}: launches {launches}, expected {expect}")
+            if sorted(results) != frames:
+                raise AssertionError(f"KAIST {method}: results for frames {sorted(results)}")
+
+            pred = Predictor(build_model(mcfg, params=params), mcfg)
+            direct = pred.predict_batch({**batch, "num_real": BATCH})
+            for rec in direct:  # the app's first batch vs predict_batch on the same mapped batch
+                app = results[rec["image_id"]]
+                if not all(np.array_equal(app[k], rec[k]) for k in ("boxes", "scores", "classes", "vars")):
+                    raise AssertionError(f"KAIST {method}: the app's detections of frame {rec['image_id']} "
+                                         "differ from Predictor.predict_batch's")
+            loaded = load_detections_txt(out_txt, frames)
+            for frame, rec in results.items():
+                b = rec["boxes"].copy()
+                b[:, 2:] -= b[:, :2]
+                want = np.concatenate([b, rec["scores"][:, None]], 1).astype(float)
+                if not np.array_equal(loaded.get(frame, np.zeros((0, 5))).reshape(-1, 5), want):
+                    raise AssertionError(f"KAIST {method}: the det txt of frame {frame} differs from the results")
+            with np.load(var_npz) as z:
+                if sorted(z.files, key=int) != [str(f) for f in frames]:
+                    raise AssertionError(f"KAIST {method}: variance npz keys {z.files}")
+            ev = KAISTEvaluator(ann)
+            lamr = ev.evaluate_all_conditions(kaist.results_to_lamr_dets(results, ev.image_ids))
+            if not all(0.0 <= lamr[f"lamr_{c}"] <= 100.0 for c in ("all", "day", "night")):
+                raise AssertionError(f"KAIST {method}: LAMR {lamr}")
+            dets = float(np.mean([len(r["scores"]) for r in results.values()]))
+            log(f"KAIST {method}: {dets:.1f} dets/frame, launches {launches} over {n_batches} batches, "
+                f"LAMR all/day/night {lamr['lamr_all']:.2f}/{lamr['lamr_day']:.2f}/{lamr['lamr_night']:.2f}")
+            runs[method] = dict(cfg=cfg, mcfg=mcfg, params=params, results=results, pred=pred, batch=batch, pth=pth)
+            stats[method] = dict(launches=launches, batches=n_batches,
+                                 launches_per_batch={k: v // n_batches for k, v in launches.items()},
+                                 lamr=lamr, dets_per_frame=dets, load_ms_per_batch=load_ms)
+
+        # the ground truth as detections: LAMR 0 wherever there is real ground truth
+        ev = KAISTEvaluator(ann)
+        with open(ann) as f:
+            anns = json.load(f)["annotations"]
+        gt = {}
+        for a in anns:
+            gt.setdefault(a["image_id"], []).append(list(a["bbox"]) + [1.0])
+        oracle = ev.evaluate_all_conditions({k: np.asarray(v) for k, v in gt.items()})
+        if not all(0.0 <= oracle[f"lamr_{c}"] <= 1e-6 for c in ("all", "day", "night")):
+            raise AssertionError(f"KAIST ground truth as detections: LAMR {oracle}, not 0")
+        stats["oracle"] = oracle
+        fused = kaist.run_kaist_proben([runs[m]["results"] for m in runs], ann, "probEn", "v-avg")
+        if not all(np.isfinite(fused[f"lamr_{c}"]) for c in ("all", "day", "night")):
+            raise AssertionError(f"KAIST ProbEn: LAMR {fused}")
+        stats["proben_lamr"] = fused
+
+        # checkpoint round trip of the imported middle-fusion parameters
+        mf = runs["middle_fusion"]
+        mgr = CheckpointManager(os.path.join(root, "ckpt"), higher_is_better=False)
+        if not mgr.save_best(0, stats["middle_fusion"]["lamr"]["lamr_all"], mf["params"]):
+            raise AssertionError("CheckpointManager: the first metric is not the best")
+        template = init_rcnn(0, mf["mcfg"])
+        restored = mgr.restore_best(template)
+        if not (trees_equal(restored, mf["params"])
+                and trees_equal(load_params(mf["cfg"], os.path.join(root, "ckpt", "best")), mf["params"])):
+            raise AssertionError("CheckpointManager: the restored parameters differ")
+        again = kaist.predict_split("middle_fusion", root, split, restored, cfg=mf["cfg"], batch_size=BATCH)
+        for frame, rec in mf["results"].items():
+            if not all(np.array_equal(again[frame][k], rec[k]) for k in ("boxes", "scores", "classes", "vars")):
+                raise AssertionError(f"KAIST middle_fusion: frame {frame} differs after the checkpoint round trip")
+        ck = os.path.join(root, "timed")
+        stats["checkpoint_ms"] = {"save": host_ms(lambda: save_pytree(ck, mf["params"]), reps=3),
+                                  "restore": host_ms(lambda: restore_pytree(ck, template), reps=3),
+                                  "mbytes": sum(v.nbytes for v in flat_tree(mf["params"]).values()) / 1e6}
+        stats["load_params_ms_r101_pth"] = host_ms(
+            lambda: load_params(runs["thermal_only"]["cfg"], runs["thermal_only"]["pth"]), reps=3)
+        log(f"KAIST ground truth LAMR {oracle}; ProbEn {fused}; checkpoint {stats['checkpoint_ms']}; "
+            f"load_params (R101 .pth) {stats['load_params_ms_r101_pth']:.1f} ms")
+
+        # the app as it ships: build_kaist_cfg keeps get_cfg's float32, so
+        # the stem runs its plain composition (K1 is bf16 only)
+        t_bf16 = runs["thermal_only"]
+        cfg32 = kaist.build_kaist_cfg("thermal_only")
+        mcfg32 = model_config_from_cfg(cfg32)
+        stem_cuda.launches = roi_align_cuda.launches = io.launches = 0
+        res32 = kaist.predict_split("thermal_only", root, split, t_bf16["params"], cfg=cfg32, batch_size=BATCH)
+        launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
+                    "image_io": io.launches}
+        expect = {"stem_pool": 0, "roi_align_fwd": n_batches, "image_io": n_batches}
+        if launches != expect:
+            raise AssertionError(f"KAIST thermal_only, float32: launches {launches}, expected {expect}")
+        if sorted(res32) != frames or not all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
+                                              for r in res32.values()):
+            raise AssertionError("KAIST thermal_only, float32: missing frames or values that are not finite")
+        lamr32 = ev.evaluate_all_conditions(kaist.results_to_lamr_dets(res32, ev.image_ids))
+        agree = match_fraction([res32[f] for f in frames], [t_bf16["results"][f] for f in frames])
+        stats["thermal_only_f32"] = dict(
+            launches=launches, batches=n_batches, launches_per_batch={k: v // n_batches for k, v in launches.items()},
+            lamr=lamr32, dets_per_frame=float(np.mean([len(r["scores"]) for r in res32.values()])),
+            match_fraction_vs_bf16=agree, load_ms_per_batch=stats["thermal_only"]["load_ms_per_batch"])
+        runs["thermal_only_f32"] = dict(cfg=cfg32, mcfg=mcfg32, params=t_bf16["params"], batch=t_bf16["batch"],
+                                        pred=Predictor(build_model(mcfg32, params=t_bf16["params"]), mcfg32))
+        log(f"KAIST thermal_only as shipped (float32): launches {launches} over {n_batches} batches, "
+            f"{stats['thermal_only_f32']['dets_per_frame']:.1f} dets/frame, {agree:.3f} of them match the "
+            f"bf16 run's, LAMR all {lamr32['lamr_all']:.2f}")
+
+        # end to end: predict_split (model build, loading, inference) and
+        # LAMR over all 32 frames, warm, three times
+        for label in ("thermal_only", "middle_fusion", "thermal_only_f32"):
+            r, method = runs[label], label.replace("_f32", "")
+
+            def once():
+                t = time.perf_counter()
+                res = kaist.predict_split(method, root, split, r["params"], cfg=r["cfg"], batch_size=BATCH)
+                e = KAISTEvaluator(ann)
+                t_lamr = time.perf_counter()
+                e.evaluate_all_conditions(kaist.results_to_lamr_dets(res, e.image_ids))
+                end = time.perf_counter()
+                return end - t, end - t_lamr
+
+            once()
+            times = sorted(once() for _ in range(3))
+            rates = [len(lines) / t for t, _ in times]
+            build_ms = host_ms(lambda: Predictor(build_model(r["mcfg"], params=r["params"]), r["mcfg"]), reps=3)
+            pred, b = r["pred"], r["batch"]
+            for _ in range(2):
+                pred.infer(b["image"], b["image_size"], b["orig_size"])
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(8):
+                pred.infer(b["image"], b["image_size"], b["orig_size"])
+            ev1.record()
+            torch.cuda.synchronize()
+            model_img_s = BATCH * 8 / (ev0.elapsed_time(ev1) / 1e3)
+            stats[label].update(eval_img_s=rates[1], eval_img_s_min_max=[rates[2], rates[0]],
+                                eval_s=times[1][0], lamr_s=times[1][1], model_build_ms=build_ms,
+                                model_img_s=model_img_s)
+            log(f"KAIST {label}: eval {rates[1]:.2f} img/s end to end, median of 3 warm runs over the "
+                f"{len(lines)} frames (min {rates[2]:.2f}, max {rates[0]:.2f}; run {times[1][0]:.3f} s: model "
+                f"build {build_ms:.1f} ms, load {stats[label]['load_ms_per_batch']:.1f} ms per batch, LAMR "
+                f"{times[1][1] * 1e3:.1f} ms), model only {model_img_s:.2f} img/s")
+        del runs
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1525,11 +1925,15 @@ def main() -> int:
     proben_stats = proben_phase(images, sizes)
     del images
     k_io, flir_stats = flir_phase(card)
+    kaist_stats = kaist_phase(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
              "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
              "flir_thermal_only_eval (4 batches)": flir_stats["thermal_only"]["launches"],
-             "flir_middle_fusion_eval (4 batches)": flir_stats["middle_fusion"]["launches"]}
+             "flir_middle_fusion_eval (4 batches)": flir_stats["middle_fusion"]["launches"],
+             **{f"kaist_{m}_eval (4 batches)": kaist_stats[m]["launches"]
+                for m in ("thermal_only", "rgb_only", "middle_fusion")},
+             "kaist_thermal_only_eval_float32_as_shipped (4 batches)": kaist_stats["thermal_only_f32"]["launches"]}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -1554,9 +1958,9 @@ def main() -> int:
                                               "card": card}}))
     print(json.dumps({"late_fusion": {**proben_stats, "card": card}}))
     print(json.dumps({"flir_eval": {**flir_stats, "seconds": time.time() - t0}}))
+    print(json.dumps({"kaist_eval": {**kaist_stats, "seconds": time.time() - t0}}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
-    k_io["launches_per_path"] = {f"flir_{m}_eval (4 batches)": flir_stats[m]["launches"]["image_io"]
-                                 for m in ("thermal_only", "middle_fusion")}
+    k_io["launches_per_path"] = {p: n["image_io"] for p, n in paths.items() if "image_io" in n}
     print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
                                                              "c4", "c6")
                                    if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)

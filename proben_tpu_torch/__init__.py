@@ -3,14 +3,17 @@
 The package mirrors ``proben_tpu``'s layout and names so each module has an
 obvious counterpart there; ``proben_tpu`` stays the numerical reference. It
 imports torch, numpy and the standard library only (cv2 only in the CPU
-branches of ``data`` that read images as the JAX package does).
+branches of ``data`` and ``apps.kaist`` that read images as the JAX package
+does).
 
 It covers Faster R-CNN R50/R101-FPN inference and training in every fusion
 mode of the JAX package: single-modality (BGR), BGRT early fusion (one
 backbone with a 4-channel stem), BGRTTT middle fusion (two backbones, the
 per-level maps concatenated) and ProbEn late fusion of several detectors'
-outputs (``fusion``), and the FLIR evaluation entry point around the model
-(``apps.flir``: config, data, JPEG loading on the card, evaluation). Its
+outputs (``fusion``), the FLIR and KAIST evaluation entry points around
+the model (``apps.flir``, ``apps.kaist``: config, data, JPEG loading on the
+card, COCO mAP and LAMR) and checkpoints (``checkpoint``: detectron2
+``.pth``/``.pkl`` import, ``torch.save`` checkpoints and their manager). Its
 hand-written Hopper kernels live under ``csrc/`` and are built with ``nvcc``
 at first use (``_build.py``):
 

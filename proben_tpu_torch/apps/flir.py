@@ -13,10 +13,11 @@ versions on the CPU, and the images are then read with cv2). On the card,
 the images are decoded with nvJPEG and composed, resized and padded by the
 ``image_io`` kernel, and the model runs the stem and RoIAlign kernels.
 
-``model_path`` "" gives the port's random init from seed 0; ``params`` takes
-a numpy pytree in ``proben_tpu``'s layout. Loading detectron2 ``.pth``/
-``.pkl`` files and checkpoint directories, and ``train_flir``, come with the
-checkpoint and trainer slices.
+``model_path`` "" gives the port's random init from seed 0, a detectron2
+``.pth``/``.pkl`` file is imported (``checkpoint.torch_import``) and a
+directory is restored (``checkpoint.restore_pytree``); ``params`` takes a
+numpy pytree in ``proben_tpu``'s layout. ``train_flir`` comes with the
+trainer slice.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..checkpoint import import_detectron2_checkpoint, restore_pytree
 from ..config import CfgNode, get_cfg, mapper_config_from_cfg, model_config_from_cfg
 from ..data import DatasetCatalog, DatasetMapper, build_test_loader, register_coco_instances
 from ..engine import Predictor
@@ -87,12 +89,15 @@ def register_flir(dataset_name: str, dataset_path: str, split_json: str = VAL_JS
 
 def load_params(cfg: CfgNode, model_path: str) -> Dict:
     """The numpy parameter pytree for ``cfg``: ``model_path`` "" gives the
-    port's random init from seed 0."""
-    if model_path:
-        raise NotImplementedError(
-            f"loading {model_path!r}: detectron2 .pth/.pkl files and checkpoint directories "
-            "come with the checkpoint slice (ROADMAP 12e); pass params= or model_path=''")
-    return init_rcnn(0, model_config_from_cfg(cfg))
+    port's random init from seed 0; a directory is a checkpoint of
+    ``checkpoint.save_pytree``; a file (or URL) is a detectron2 ``.pth``/
+    ``.pkl``, imported over that init with ``strict=False``."""
+    template = init_rcnn(0, model_config_from_cfg(cfg))
+    if not model_path:
+        return template
+    if os.path.isdir(model_path):
+        return restore_pytree(model_path, template)
+    return import_detectron2_checkpoint(model_path, template, strict=False)
 
 
 def _predictor(cfg: CfgNode, model_path: str, params, device: Device) -> Predictor:

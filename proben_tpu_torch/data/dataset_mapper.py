@@ -71,7 +71,9 @@ class DatasetMapper:
             self.codec = None
 
     def __call__(self, dataset_dict: Dict) -> Dict:
-        """Returns one sample: image (H, W, C) float32 tensor on the mapper's
+        """Returns one sample of a dataset dict ("file_name" the image, for
+        BGRT/BGRTTT the thermal one; optional "rgb_file", else derived by
+        ``derive_rgb_path``): image (H, W, C) float32 tensor on the mapper's
         device, padded; image_size (2,); gt_boxes (G, 4) XYXY in the resized
         frame, gt_classes (G,), gt_valid (G,) numpy; plus bookkeeping
         (image_id, orig_size, file_name)."""
@@ -84,7 +86,8 @@ class DatasetMapper:
         if self.device.type == "cpu":
             images, sizes, origs = [], [], []
             for d in dataset_dicts:
-                image = read_image(d["file_name"], cfg.input_format, device="cpu")
+                image = read_image(d["file_name"], cfg.input_format, device="cpu",
+                                   rgb_file=d.get("rgb_file"))
                 origs.append(image.shape[:2])
                 image, (new_h, new_w) = self.test_resize(image)
                 ph, pw = cfg.pad_shape
@@ -100,7 +103,8 @@ class DatasetMapper:
             from ..native.io import load_batch
 
             paths = [d["file_name"] for d in dataset_dicts]
-            rgb = [derive_rgb_path(p) for p in paths] if cfg.input_format != "BGR" else None
+            rgb = ([d.get("rgb_file") or derive_rgb_path(d["file_name"]) for d in dataset_dicts]
+                   if cfg.input_format != "BGR" else None)
             with torch.cuda.device(self.device):
                 canvas, sizes, origs = load_batch(self.codec, paths, rgb, cfg.input_format,
                                                   self.test_resize.size, tuple(cfg.pad_shape))

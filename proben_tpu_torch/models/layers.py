@@ -127,6 +127,17 @@ def init_affine(cout: int) -> Dict[str, np.ndarray]:
     return {"scale": np.ones((cout,), np.float32), "bias": np.zeros((cout,), np.float32)}
 
 
+def fold_batchnorm(weight, bias, running_mean, running_var, eps=1e-5) -> Dict[str, np.ndarray]:
+    """Fold BN statistics into (scale, bias) affine constants: computed in
+    float64, then rounded once to float32, as the JAX package does."""
+    weight = np.asarray(weight, np.float64)
+    bias = np.asarray(bias, np.float64)
+    mean = np.asarray(running_mean, np.float64)
+    var = np.asarray(running_var, np.float64)
+    scale = weight / np.sqrt(var + eps)
+    return {"scale": scale.astype(np.float32), "bias": (bias - mean * scale).astype(np.float32)}
+
+
 def init_linear(
     rng: np.random.Generator, cin: int, cout: int,
     init_std: Optional[float] = None, bias: bool = True,

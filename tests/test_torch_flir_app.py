@@ -22,7 +22,9 @@ import cv2
 import jax
 import numpy as np
 import pytest
+import torch
 
+import chip_smoke
 from proben_tpu.apps import flir as jax_flir
 from proben_tpu.config import model_config_from_cfg as jax_model_config_from_cfg
 from proben_tpu.evaluation import FLIREvaluator as JaxFLIREvaluator
@@ -194,7 +196,7 @@ def test_evaluate_map_matches_jax_and_ground_truth_scores_100(flir_root, tmp_pat
     assert ev.evaluate()["bbox"]["AP"] == 100.0
 
 
-def test_command_line_proben_and_load_params(flir_root, saved, capsys, monkeypatch):
+def test_command_line_proben_and_load_params(flir_root, saved, capsys, monkeypatch, tmp_path):
     out, files = saved
     res = flir.main(["proben", "--dataset_path", flir_root, "--prediction_path", out["torch"],
                      "--score_fusion", "max", "--box_fusion", "argmax", "--outfolder", out["torch"]])
@@ -202,12 +204,16 @@ def test_command_line_proben_and_load_params(flir_root, saved, capsys, monkeypat
     assert "'bbox'" in capsys.readouterr().out
     cfg = _tiny_cfg(flir, "thermal_only")
     assert set(flir.load_params(cfg, "")) == {"backbone", "fpn", "rpn_head", "roi"}
-    with pytest.raises(NotImplementedError, match="12e"):
-        flir.load_params(cfg, "model_final.pth")
+    with pytest.raises(FileNotFoundError):
+        flir.load_params(cfg, str(tmp_path / "model_final.pth"))
+    params = _params("thermal_only")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in chip_smoke.d2_state_dict(params).items()}},
+               str(tmp_path / "model_final.pth"))
+    loaded = flir.load_params(cfg, str(tmp_path / "model_final.pth"))
+    assert set(loaded) == set(params)
+    np.testing.assert_array_equal(loaded["roi"]["box_head"]["fcs"][0]["w"], params["roi"]["box_head"]["fcs"][0]["w"])
     with pytest.raises(FileNotFoundError, match=">=2"):
         flir.run_proben(flir_root, out["torch"], det_files=files["torch"][:1])
-    import torch
-
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         flir.save_predictions("thermal_only", flir_root, "", out["torch"], cfg=cfg,

@@ -4,6 +4,7 @@ the card's machine need not have), no source imports them outside the
 CPU-only branches, and the entry points refuse to run on the CPU unless
 asked to."""
 
+import ast
 import os
 import re
 import subprocess
@@ -44,9 +45,17 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.solver
         import proben_tpu_torch.structures
         import proben_tpu_torch.apps.flir
+        import proben_tpu_torch.apps.kaist
+        import proben_tpu_torch.checkpoint.ckpt
+        import proben_tpu_torch.checkpoint.paths
+        import proben_tpu_torch.checkpoint.torch_import
         import proben_tpu_torch.config
         import proben_tpu_torch.data
         import proben_tpu_torch.evaluation
+        import proben_tpu_torch.evaluation.build
+        import proben_tpu_torch.evaluation.kaist
+        import proben_tpu_torch.evaluation.testing
+        import proben_tpu_torch.models.layers
         import proben_tpu_torch.native
         import proben_tpu_torch.utils.logger
         import proben_tpu_torch.utils.opt
@@ -62,13 +71,15 @@ def test_imports_load_no_jax_and_no_proben_tpu():
 
 
 def test_imports_load_no_cv2_yaml_or_pil():
-    """The runtime slice (config, data, evaluation, native IO, the FLIR app)
-    and the model, ops and training modules load none of cv2, PyYAML or
-    Pillow: the card's machine may lack them."""
+    """The runtime slice (config, data, evaluation, native IO, checkpoints,
+    the FLIR and KAIST apps) and the model, ops and training modules load
+    none of cv2, PyYAML or Pillow: the card's machine may lack them."""
     code = textwrap.dedent(
         """
         import sys
         import proben_tpu_torch.apps.flir
+        import proben_tpu_torch.apps.kaist
+        import proben_tpu_torch.checkpoint
         import proben_tpu_torch.config
         import proben_tpu_torch.data
         import proben_tpu_torch.engine.train
@@ -106,6 +117,24 @@ def test_sources_import_no_jax_proben_tpu_cv2_yaml_or_pil():
             if m:
                 found.add((str(path.relative_to(ROOT)), m.group(1)))
     assert found == ALLOWED_IMPORTS, found ^ ALLOWED_IMPORTS
+
+
+def test_kaist_app_imports_cv2_only_in_its_cpu_reader():
+    """The KAIST app reads its frames through ``DatasetMapper``, so
+    ``apps/kaist.py`` imports no cv2 at all; the CPU reader it reaches,
+    ``data/detection_utils.py``, imports cv2 in ``_read_image_cpu`` (the
+    CPU branch of ``read_image``) and nowhere else."""
+    def cv2_imports(rel):
+        tree = ast.parse((ROOT / rel).read_text())
+        owners = [fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+                  for node in ast.walk(fn)
+                  if isinstance(node, ast.Import) and any(a.name == "cv2" for a in node.names)]
+        top = [node for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))
+               and "cv2" in [a.name for a in node.names] + [getattr(node, "module", None)]]
+        return owners, top
+
+    assert cv2_imports("proben_tpu_torch/apps/kaist.py") == ([], [])
+    assert cv2_imports("proben_tpu_torch/data/detection_utils.py") == (["_read_image_cpu"], [])
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):

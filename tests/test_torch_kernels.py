@@ -385,6 +385,35 @@ def test_image_io_kernel_matches_plain(fmt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["BGRT", "BGRTTT"])
+def test_image_io_kernel_at_equal_frame_sizes(fmt):
+    """KAIST: the RGB and thermal frames have one size (3-channel both), so
+    the uint8 RGB resize runs at scale 1. At the frame size the canvas is
+    the RGB pixels, then thermal channel 0 (BGRT) or all three (BGRTTT),
+    bit for bit, edges included; resized, the kernel equals its plain
+    version."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(4)
+    hw = [(33, 47), (64, 80)]
+    t = [torch.from_numpy(_u8(rng, h, w, 3)).cuda() for h, w in hw]
+    r = [torch.from_numpy(_u8(rng, h, w, 3)).cuda() for h, w in hw]
+    before = io.launches
+    got = io.compose_resize_pad(t, r, fmt, hw, (64, 80))
+    torch.cuda.synchronize()
+    assert io.launches == before + 1
+    for i, (h, w) in enumerate(hw):
+        thermal = t[i][..., :1] if fmt == "BGRT" else t[i]
+        assert torch.equal(got[i, :h, :w], torch.cat([r[i], thermal], -1).float())
+    sizes = [(50, 70), (80, 100)]
+    got = io.compose_resize_pad(t, r, fmt, sizes, (80, 100))
+    ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (80, 100))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
 def test_image_io_kernel_splits_large_batches():
     """More images than one launch's parameters hold (40): two launches,
     the same canvas as the plain version."""
