@@ -76,9 +76,33 @@ Phases, each raising on a miss (exit code != 0, no result line):
    ``CheckpointManager`` best-model round trip (equal tensors, identical
    detections); eval img/s end to end (median of 3 warm runs over the 32
    frames), model only, ``load_params`` and checkpoint save/restore ms;
-12. one JSON line per kernel, one for each slice and fusion mode, one for
-   the FLIR and one for the KAIST evaluation, one listing every kernel
-   (launches per path, the C = 512, C = 4 and C = 6 readings); the last
+12. the trainer (``trainer_phase``): a synthetic FLIR tree of 64 train
+   pairs (the first 32 also the val split); the train mapper on the card
+   for BGR and BGRTTT (one batch of 16 at ``MIN_SIZE_TRAIN``'s random
+   sizes, flipped and unflipped images; one ``image_io`` launch, bit for
+   bit against its plain version, GT equal to the CPU mapper's; the
+   kernel with flips timed); ``TrainLoader`` with 4 workers against the
+   plain version while the consumer's stream is busy;
+   ``train_flir("thermal_only")`` from ``faster_rcnn_R_101_FLIR.yaml``
+   (R101, bf16, batch 16, weights from a detectron2 ``.pth`` of random
+   affines) for 12 steps with keep-best every 6 (the best checkpoint's
+   detections equal the live model's) and a checkpoint every 5, then a
+   resume at ``latest + 1`` with the checkpointed state bit for bit;
+   ``train_flir("middle_fusion")`` and ``train_kaist("thermal_only")``
+   (float32 as shipped, ``FREEZE_MODULES``: only the FPN and the RPN
+   move) for 12 steps each. In each run (every launch counter set to 0
+   just before it): K1-K3 counted around one step, the run's ``image_io``
+   launches equal to the batches the trainer's loader mapped plus the
+   evaluations' batches, frozen tensors unchanged and every trainable one
+   moved, train img/s end to end (median of the last 10 steps), peak
+   memory; after it, on one more batch of 16 from the trainer's loader
+   and the trainer's model, K1 (each stream), K2 and K3 against their
+   plain versions on that step's inputs, K3 as the only difference in
+   its losses and gradients, and a bare ``train_step`` img/s;
+13. one JSON line per kernel, one for each slice and fusion mode, one for
+   the FLIR and one for the KAIST evaluation, one for the trainer, one
+   listing every kernel (launches per path, the C = 512, C = 4 and C = 6
+   readings, ``image_io`` with flips at the training shapes); the last
    line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -836,16 +860,51 @@ class plain_backward:
         self.module.roi_align_bwd = self.kernel
 
 
+def k3_only_check(model, cfg, batch, label, seed=11):
+    """K3 as the only difference in one training step's losses and
+    gradients (same seed; K3 or its plain version in the backward, the
+    forward the same), with the plain version run twice as the control.
+    Tolerance: the losses must be bit-identical; each module group's
+    gradient may differ by 1e-2 relative L2 (K3 rounds each dF entry once,
+    from an f32 sum taken in another order than the plain version's: at
+    most one bf16 ulp, 2^-8 relative, per entry); every trainable group
+    gets a finite, nonzero gradient. In f32 only the order of the f32
+    sums differs, so the limit is 1e-4."""
+    from proben_tpu_torch.engine.train import losses_and_grads
+
+    groups = sorted({group_of(n) for n, p in model.named_parameters() if p.requires_grad})
+    gen = torch.Generator(device="cuda")
+    runs = {}
+    for name in ("kernel", "plain", "plain again"):
+        if name == "kernel":
+            runs[name] = losses_and_grads(model, cfg, batch, gen.manual_seed(seed))
+        else:
+            with plain_backward():
+                runs[name] = losses_and_grads(model, cfg, batch, gen.manual_seed(seed))
+    (lk, tk, gk), (lp, tp, gp), (_, _, gp2) = runs.values()
+    same = all(torch.equal(lk[k], lp[k]) for k in lk) and torch.equal(tk, tp)
+    gaps, control = grad_gaps(gk, gp), grad_gaps(gp2, gp)
+    norms = {}
+    for n, gr in gk.items():
+        norms[group_of(n)] = norms.get(group_of(n), 0.0) + float(gr.float().pow(2).sum())
+    log(f"K3-only {label}: losses bit-identical {same} ({ {k: float(v) for k, v in lk.items()} })")
+    log(f"K3-only {label} gradient gap per group (rel L2, K3 vs plain / plain vs plain): " + ", ".join(
+        f"{k} {gaps[k]:.3g}/{control[k]:.3g}" for k in groups))
+    if not same:
+        raise AssertionError(f"K3-only {label}: K3 and plain-backward runs give different losses")
+    if any(not norms[k] > 0 or not np.isfinite(norms[k]) for k in groups):
+        raise AssertionError(f"K3-only {label}: a trainable module group gets no gradient: {norms}")
+    limit = 1e-2 if cfg.dtype == torch.bfloat16 else 1e-4
+    if any(not gaps[k] <= limit for k in groups):
+        raise AssertionError(f"K3-only {label}: K3 gradients differ from the plain backward's: {gaps}")
+    return gaps, control
+
+
 def train_phase(model, batch, expect, steps=8, warmup=2):
     """The training slice through ``make_train_step``, then K3 as the only
-    difference, then train img/s with K3 and with the plain backward.
-    Tolerance of the K3-only check: the losses must be bit-identical (the
-    forward is the same); each module group's gradient may differ by 1e-2
-    relative L2 (K3 rounds each dF entry once, from an f32 sum taken in
-    another order than the plain version's: at most one bf16 ulp, 2^-8
-    relative, per entry). ``expect``: the launches of each kernel in one
-    step."""
-    from proben_tpu_torch.engine.train import losses_and_grads, make_train_step, trainable_mask
+    difference (``k3_only_check``), then train img/s with K3 and with the
+    plain backward. ``expect``: the launches of each kernel in one step."""
+    from proben_tpu_torch.engine.train import make_train_step, trainable_mask
     from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
     from proben_tpu_torch.solver import SolverConfig
 
@@ -856,34 +915,8 @@ def train_phase(model, batch, expect, steps=8, warmup=2):
     params = dict(model.named_parameters())
     frozen = {n: p.detach().clone() for n, p in params.items() if not p.requires_grad}
     start = {n: p.detach().clone() for n, p in params.items() if p.requires_grad}
-    groups = sorted({group_of(n) for n in start})
     torch.cuda.reset_peak_memory_stats()
-
-    # K3 as the only difference: one step's losses and gradients, same seed
-    gen = torch.Generator(device="cuda")
-    runs = {}
-    for name in ("kernel", "plain", "plain again"):
-        if name == "kernel":
-            runs[name] = losses_and_grads(model, cfg, batch, gen.manual_seed(11))
-        else:
-            with plain_backward():
-                runs[name] = losses_and_grads(model, cfg, batch, gen.manual_seed(11))
-    (lk, tk, gk), (lp, tp, gp), (_, _, gp2) = runs.values()
-    same = all(torch.equal(lk[k], lp[k]) for k in lk) and torch.equal(tk, tp)
-    gaps, control = grad_gaps(gk, gp), grad_gaps(gp2, gp)
-    norms = {}
-    for n, gr in gk.items():
-        norms[group_of(n)] = norms.get(group_of(n), 0.0) + float(gr.float().pow(2).sum())
-    log(f"K3-only: losses bit-identical {same} ({ {k: float(v) for k, v in lk.items()} })")
-    log("K3-only gradient gap per group (rel L2, K3 vs plain / plain vs plain): " + ", ".join(
-        f"{k} {gaps[k]:.3g}/{control[k]:.3g}" for k in groups))
-    if not same:
-        raise AssertionError("K3 and plain-backward runs give different losses")
-    if any(not norms[k] > 0 or not np.isfinite(norms[k]) for k in groups):
-        raise AssertionError(f"a trainable module group gets no gradient: {norms}")
-    if any(not gaps[k] <= 1e-2 for k in groups):
-        raise AssertionError(f"K3 gradients differ from the plain backward's: {gaps}")
-    del runs, gk, gp, gp2
+    gaps, control = k3_only_check(model, cfg, batch, f"{cfg.input_format} batch {BATCH}")
 
     # the main path: one step, every launch counter read around it
     stem_cuda.launches = roi_align_cuda.launches = roi_align_cuda.bwd_launches = 0
@@ -1844,6 +1877,550 @@ def kaist_phase(card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# The trainer: training augmentation on the card, TrainLoader, DefaultTrainer
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16  # SOLVER.IMS_PER_BATCH of configs/Base-RCNN-FPN.yaml
+TRAIN_STEPS = 12  # per training app run; its rates are medians of the last 10 steps
+COUNTED = ("stem_pool", "roi_align_fwd", "roi_align_bwd", "image_io")
+
+
+def launch_counts():
+    from proben_tpu_torch.native import io
+    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+
+    return {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
+            "roi_align_bwd": roi_align_cuda.bwd_launches, "image_io": io.launches}
+
+
+def zero_launch_counts():
+    from proben_tpu_torch.native import io
+    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+
+    stem_cuda.launches = roi_align_cuda.launches = roi_align_cuda.bwd_launches = io.launches = 0
+
+
+def write_flir_train_tree(codec, root, n=64, n_val=32, seed=5):
+    """``write_flir_tree`` with ``n`` pairs; the train JSON lists all of
+    them, the val JSON the first ``n_val``."""
+    from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
+
+    json_path, _, sizes = write_flir_tree(codec, root, n=n, seed=seed)
+    with open(json_path) as f:
+        js = json.load(f)
+    with open(os.path.join(root, TRAIN_JSON_NAME), "w") as f:
+        json.dump(js, f)
+    keep = {im["id"] for im in js["images"][:n_val]}
+    with open(json_path, "w") as f:
+        json.dump(dict(js, images=js["images"][:n_val],
+                       annotations=[a for a in js["annotations"] if a["image_id"] in keep]), f)
+    return sizes
+
+
+def decoded_files(codec, dicts, fmt):
+    """nvJPEG decodes of the dicts' thermal files and (fused formats) their
+    RGB files."""
+    from proben_tpu_torch.data import derive_rgb_path
+
+    def dec(path):
+        with open(path, "rb") as f:
+            return codec.decode(f.read())
+
+    thermal = [dec(d["file_name"]) for d in dicts]
+    rgb = None if fmt == "BGR" else [dec(d.get("rgb_file") or derive_rgb_path(d["file_name"]))
+                                     for d in dicts]
+    return thermal, rgb
+
+
+def check_train_mapper(codec, cfg, dicts, seed):
+    """One training batch of ``TRAIN_BATCH`` FLIR files through
+    ``DatasetMapper(is_train=True)`` on the card: exactly one ``image_io``
+    launch; sizes and flips equal to ``TrainAugment``'s draws from
+    ``RandomState(seed)`` in order, at least one image flipped and one not;
+    the canvas equal to ``compose_resize_pad_plain`` on the same decoded
+    pixels, sizes and flips, bit for bit (the kernel's float operations are
+    rounded one by one in the plain version's order; the flip only moves
+    values); the GT arrays equal to the CPU mapper's for the same draws
+    (cv2's read, the port's and the JAX package's numpy box arithmetic),
+    exactly. Then the kernel timed at these shapes, with its bound."""
+    from proben_tpu_torch.config import mapper_config_from_cfg
+    from proben_tpu_torch.data import DatasetMapper, collate
+    from proben_tpu_torch.data.transforms import TrainAugment
+    from proben_tpu_torch.native import io
+
+    mcfg = mapper_config_from_cfg(cfg)
+    fmt, pad = mcfg.input_format, tuple(mcfg.pad_shape)
+    mapper = DatasetMapper(mcfg, is_train=True, seed=seed)
+    try:
+        io.launches = 0
+        batch = collate(mapper.map_batch(dicts))
+        torch.cuda.synchronize()
+        one_launch = io.launches
+        map_ms = host_ms(lambda: mapper.map_batch(dicts), reps=3)
+    finally:
+        mapper.close()
+    if one_launch != 1:
+        raise AssertionError(f"train mapper {fmt}: {one_launch} image_io launches for one batch")
+    aug = TrainAugment(mcfg.min_size_train, mcfg.max_size_train, mcfg.flip, np.random.RandomState(seed))
+    draws = [aug.draw(*FLIR_T_HW) for _ in dicts]
+    sizes, flips = [d[:2] for d in draws], [d[2] for d in draws]
+    if batch["image_size"].cpu().numpy().tolist() != [list(x) for x in sizes] \
+            or batch["flip"].tolist() != flips:
+        raise AssertionError(f"train mapper {fmt}: sizes or flips are not TrainAugment's draws")
+    if all(flips) or not any(flips) or len(set(sizes)) < 2:
+        raise AssertionError(f"train mapper {fmt}: the batch needs flipped and unflipped images "
+                             f"and two sizes ({flips}, {sizes})")
+    thermal, rgb = decoded_files(codec, dicts, fmt)
+    want = io.compose_resize_pad_plain(thermal, rgb, fmt, sizes, pad, flips)
+    err = float((batch["image"] - want).abs().max())
+    if not torch.equal(batch["image"], want):
+        raise AssertionError(f"train mapper {fmt}: canvas differs from the plain version by {err}")
+    cpu = collate(DatasetMapper(mcfg, is_train=True, seed=seed, device="cpu").map_batch(dicts))
+    gt_equal = all(torch.equal(getattr(cpu["gt"], k), getattr(batch["gt"], k).cpu())
+                   for k in ("boxes", "classes", "valid"))
+    if not gt_equal or not torch.equal(cpu["image_size"], batch["image_size"].cpu()) \
+            or cpu["flip"].tolist() != flips:
+        raise AssertionError(f"train mapper {fmt}: GT, sizes or flips differ from the CPU mapper's")
+    ms = cuda_ms(lambda: io.compose_resize_pad(thermal, rgb, fmt, sizes, pad, flips), 30)
+    plain_ms = cuda_ms(lambda: io.compose_resize_pad_plain(thermal, rgb, fmt, sizes, pad, flips), 3)
+    nbytes = want.numel() * 4 + sum(x.numel() for x in thermal) + (
+        sum(rgb_rows_read(x.shape[0], t.shape[0]) * x.shape[1] * x.shape[2]
+            for x, t in zip(rgb, thermal)) if rgb is not None else 0)
+    bound = nbytes / HBM_BYTES_S * 1e3
+    log(f"train mapper {fmt}: batch of {len(dicts)} equal to the plain version (flipped "
+        f"{sum(flips)}, sizes {sorted(set(sizes))}), GT equal to the CPU mapper's; image_io with "
+        f"flips {ms:.4g} ms (plain {plain_ms:.4g}, bound {bound:.4g} ms, {ms / bound:.1f}x); "
+        f"map_batch {map_ms:.1f} ms host")
+    return batch, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                       mbytes=nbytes / 1e6, flipped=int(sum(flips)), map_ms_per_batch=map_ms,
+                       launches_per_batch=one_launch)
+
+
+def check_train_loader(codec, cfg, dicts, seed, n=3, workers=4):
+    """``TrainLoader`` on the card with ``workers`` threads (each maps on
+    its own stream with its own nvJPEG codec): ``n`` batches taken while
+    the consumer's stream is busy; each equal bit for bit to the plain
+    version on its own indices, sizes and flips (the draws of several
+    workers interleave, as in the JAX package, so they are read from the
+    batch, not replayed)."""
+    from proben_tpu_torch.config import mapper_config_from_cfg
+    from proben_tpu_torch.data import DatasetMapper, TrainLoader
+    from proben_tpu_torch.native import io
+
+    mcfg = mapper_config_from_cfg(cfg)
+    fmt, pad = mcfg.input_format, tuple(mcfg.pad_shape)
+    loader = TrainLoader(dicts, DatasetMapper(mcfg, is_train=True, seed=seed), TRAIN_BATCH,
+                         seed=seed, num_workers=workers)
+    x = torch.randn(4096, 4096, device="cuda")
+    seen = []
+    try:
+        for _ in range(n):
+            for _ in range(30):  # ~0.1 s of queued work on the consumer's stream
+                x = torch.tanh(x @ x.T * 1e-3)
+            batch = next(loader)
+            chosen = [dicts[i] for i in batch["indices"]]
+            thermal, rgb = decoded_files(codec, chosen, fmt)
+            sizes = [tuple(v) for v in batch["image_size"].cpu().numpy().tolist()]
+            want = io.compose_resize_pad_plain(thermal, rgb, fmt, sizes, pad, batch["flip"].tolist())
+            if not torch.equal(batch["image"], want):
+                raise AssertionError(f"TrainLoader {fmt}, {workers} workers: a batch differs from the "
+                                     "plain version of its own indices and draws")
+            seen.append(batch["indices"])
+    finally:
+        loader.close()
+    log(f"TrainLoader {fmt}, {workers} workers: {n} batches equal to their plain versions")
+    return {"workers": workers, "batches": n, "indices": seen}
+
+
+def d2_weights(cfg, seed, path):
+    """A detectron2 ``.pth`` of the config's model with random affines (so
+    every residual branch is live and every trainable tensor gets a
+    gradient), for ``MODEL.WEIGHTS``."""
+    from proben_tpu_torch.config import model_config_from_cfg
+    from proben_tpu_torch.models import init_rcnn, random_affines
+
+    sd = d2_state_dict(random_affines(init_rcnn(seed, model_config_from_cfg(cfg)), seed))
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    return path
+
+
+class TrainWatch:
+    """Hooks registered after a training app's keep-best evaluation. They
+    count K1-K3 around iteration ``count_iter``, record each step's metrics,
+    the live model's detections on ``eval_batch`` whenever the evaluation
+    has just saved a best, the peak memory, and at the end check the frozen
+    and trainable tensors, snapshot the final state and, with
+    ``hold_batch``, take one more batch from the trainer's loader and keep
+    it with the model, its state and its step function for
+    ``held_batch_checks``, which run after the launch counts are read.
+    ``expect_state``: a state the trainer must start from (a resume), bit
+    for bit."""
+
+    def __init__(self, count_iter, eval_batch=None, hold_batch=False, expect_state=None):
+        self.count_iter, self.eval_batch, self.hold_batch = count_iter, eval_batch, hold_batch
+        self.expect_state = expect_state
+        self.metrics, self.best_dets, self.launches = [], {}, None
+
+    def hooks(self):
+        from proben_tpu_torch.engine import CallbackHook
+
+        return [CallbackHook(before_train=self.before_train, before_step=self.before_step,
+                             after_step=self.after_step, after_train=self.after_train)]
+
+    def before_train(self, t):
+        from proben_tpu_torch.checkpoint import train_state_tree
+
+        self.start_iter, self.max_iter, self.loader = t.start_iter, t.max_iter, t.train_loader
+        if self.expect_state is not None:
+            got = train_state_tree(t.state)
+            want = self.expect_state
+            same = got["step"] == want["step"] and got["seed"] == want["seed"] and all(
+                torch.equal(got[k][n], want[k][n].to(got[k][n].device))
+                for k in ("params", "momentum") for n in want[k])
+            if not same:
+                raise AssertionError("the resumed trainer's state differs from the checkpointed one")
+        params = dict(t.model.named_parameters())
+        self.frozen = {n: p.detach().clone() for n, p in params.items() if not p.requires_grad}
+        self.start = {n: p.detach().clone() for n, p in params.items() if p.requires_grad}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def before_step(self, t):
+        if t.iter == self.count_iter:
+            torch.cuda.synchronize()
+            self._counts = launch_counts()
+
+    def _record_best(self, t):
+        from proben_tpu_torch.engine import Predictor
+
+        meta = t.checkpointer._read_meta()
+        if self.eval_batch is not None and meta.get("best_step") == t.iter and t.iter not in self.best_dets:
+            try:
+                self.best_dets[t.iter] = Predictor(t.model, t.model_cfg).predict_batch(self.eval_batch)
+            finally:
+                t.model.train()
+
+    def after_step(self, t):
+        if t.iter == self.count_iter:
+            torch.cuda.synchronize()
+            now = launch_counts()
+            self.launches = {k: now[k] - self._counts[k] for k in ("stem_pool", "roi_align_fwd",
+                                                                  "roi_align_bwd")}
+        self.metrics.append({k: v for k, (v, _) in t.storage.latest().items()})
+        self._record_best(t)
+
+    def after_train(self, t):
+        from proben_tpu_torch.checkpoint import train_state_tree
+
+        self._record_best(t)
+        torch.cuda.synchronize()
+        self.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params = dict(t.model.named_parameters())
+        changed = [n for n, v in self.frozen.items() if not torch.equal(params[n], v)]
+        self.unmoved = [n for n, v in self.start.items() if torch.equal(params[n].detach(), v)]
+        self.trainable_groups = sorted({n.split(".")[0] for n in self.start})
+        if changed:
+            raise AssertionError(f"{len(changed)} frozen tensors changed, e.g. {changed[:3]}")
+        self.n_frozen, self.n_trainable = len(self.frozen), len(self.start)
+        del self.frozen, self.start
+        self.final = {k: ({n: v.detach().cpu().clone() for n, v in tree.items()}
+                          if isinstance(tree, dict) else tree)
+                      for k, tree in train_state_tree(t.state).items()}
+        self.iter = t.iter
+        if self.hold_batch:
+            batch = next(t.train_loader)
+            self.held = {"image": batch["image"], "image_size": batch["image_size"], "gt": batch["gt"]}
+            self.model, self.model_cfg, self.step_fn, self.state = (t.model, t.model_cfg, t._train_step,
+                                                                    t.state)
+
+
+def eval_runs(start, max_iter, period):
+    """How often ``EvalHook`` evaluates in a run from ``start`` to
+    ``max_iter``: after each iteration ``it`` with (it + 1) % period == 0
+    but the last, and once at the end."""
+    return sum((it + 1) % period == 0 and it != max_iter - 1 for it in range(start, max_iter)) + 1
+
+
+def held_batch_checks(watch, label, stem, bare_steps=6):
+    """After a training app's run (its launch counts read): K1 (when the
+    path launches it), K2 and K3 against their plain versions on the
+    inputs of one step on ``watch``'s batch of ``TRAIN_BATCH`` from the
+    trainer's own loader, with the trainer's model at its last iteration:
+    the normalized images into each stream's stem (``check_stem``), the
+    FPN maps and the RoIs ``label_and_sample_proposals`` samples for the
+    batch (``check_roi``, and ``check_bwd`` with a seeded cotangent of
+    the maps' type), and K3 as the only difference in the step's losses
+    and gradients (``k3_only_check``); then ``bare_steps`` bare
+    ``train_step`` calls on that batch, timed. The limits are those of the
+    checks named."""
+    from proben_tpu_torch.models import rcnn
+    from proben_tpu_torch.ops import roi_align_cuda
+
+    model, cfg, batch = watch.model, watch.model_cfg, watch.held
+    out = {}
+    if stem:
+        x = rcnn.preprocess(cfg, batch["image"])
+        streams = [(model.backbone, x[..., :3]), (model.backbone_2, x[..., 3:])] if cfg.dual \
+            else [(model.backbone, x)]
+        errs = []
+        for bb, xs in streams:
+            st = bb.stem
+            errs.append(check_stem(xs.to(cfg.dtype).contiguous(),
+                                   st.conv1.weight.permute(2, 3, 1, 0).to(cfg.dtype).contiguous(),
+                                   st.norm1.scale.to(cfg.dtype), st.norm1.bias.to(cfg.dtype)))
+        out["stem_pool"] = max(errs)
+        del x, streams
+    levels, boxes = sampled_rois(model, batch)
+    b, k, _ = boxes.shape
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(levels, boxes, **cfg.roi.pooler_args)
+    what = f"{label}, the step's {b} x {k} RoIs"
+    out["roi_align_fwd"] = check_roi(levels, lvl, y0, x0, wy, wx, k, what)
+    shapes = [tuple(f.shape) for f in levels]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = (0.01 * torch.randn(b * k, 7, 7, shapes[0][-1], generator=gen, device="cuda")).to(levels[0].dtype)
+    out["roi_align_bwd"] = check_bwd(g, shapes, lvl, y0, x0, wy, wx, k, what)
+    del levels, boxes, lvl, y0, x0, wy, wx, g
+    gaps, control = k3_only_check(model, cfg, batch, f"{label} batch {TRAIN_BATCH}")
+
+    state = watch.state
+    for _ in range(2):
+        state, m = watch.step_fn(state, batch)
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(bare_steps):
+        state, m = watch.step_fn(state, batch)
+        float(m["total_loss"])  # the trainer's one sync per step
+    e.record()
+    torch.cuda.synchronize()
+    bare_img_s = TRAIN_BATCH * bare_steps / (a.elapsed_time(e) / 1e3)
+    del watch.model, watch.state, watch.step_fn, watch.held
+    log(f"{label}: K1-K3 held against their plain versions on one step of the trainer's batch of "
+        f"{TRAIN_BATCH}: {out}; bare train_step {bare_img_s:.2f} img/s on that batch")
+    return dict(max_abs_err=out, k3_grad_gap=gaps, plain_grad_gap_control=control,
+                bare_step_img_s=bare_img_s, bare_steps=bare_steps)
+
+
+def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launches):
+    """Checks of one training app run and its readings: every metric of
+    every step finite and ``loss_finite`` 1; K1-K3 around one step as
+    ``expect_step``; every kernel of the path launched in the run; the
+    run's ``image_io`` launches equal to the batches the trainer's loader
+    mapped (prefetched ones included) plus ``eval_launches``, the
+    evaluations' batches, so one launch per training batch."""
+    losses = [{k: v for k, v in m.items() if k.startswith("loss") or k == "total_loss"}
+              for m in watch.metrics]
+    if len(watch.metrics) != n_steps or not all(
+            np.isfinite(v) for m in losses for v in m.values()) \
+            or not all(m["loss_finite"] == 1.0 for m in losses):
+        raise AssertionError(f"{label}: {len(watch.metrics)} steps, metrics not all finite: {losses}")
+    if watch.launches != expect_step:
+        raise AssertionError(f"{label}: launches around one step {watch.launches}, expected {expect_step}")
+    missing = [k for k, v in expect_step.items() if v and not launches_run[k]]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched in the run: {missing}, {launches_run}")
+    mapped = watch.loader.batches_mapped
+    io_train = launches_run["image_io"] - eval_launches
+    if not mapped or io_train != mapped:
+        raise AssertionError(f"{label}: {launches_run['image_io']} image_io launches in the run, "
+                             f"{eval_launches} of them the evaluations', for {mapped} training batches")
+    image_io = dict(launches_run=launches_run["image_io"], eval_launches=eval_launches,
+                    train_batches_mapped=mapped, per_train_batch=io_train / mapped)
+    del watch.loader
+    times = [m["time"] for m in watch.metrics]
+    steady = times[2:] or times
+    out = dict(steps=len(watch.metrics), launches_per_step=watch.launches, launches_run=launches_run,
+               image_io=image_io, step_s=times, step_s_median=float(np.median(steady)),
+               steps_in_median=len(steady), train_img_s=TRAIN_BATCH / float(np.median(steady)),
+               peak_memory_gb=watch.peak_gb, losses_first=losses[0], losses_last=losses[-1],
+               frozen_tensors=watch.n_frozen, trainable_tensors=watch.n_trainable,
+               trainable_groups=watch.trainable_groups, unmoved=len(watch.unmoved))
+    log(f"{label}: {out['steps']} steps, total loss {losses[0]['total_loss']:.4g} -> "
+        f"{losses[-1]['total_loss']:.4g}; launches per step {watch.launches}; image_io "
+        f"{launches_run['image_io']} in the run = {mapped} training batches mapped + {eval_launches} "
+        f"evaluation batches; {out['train_img_s']:.2f} img/s end to end (median of {len(steady)} "
+        f"steps, {out['step_s_median'] * 1e3:.1f} ms), peak {watch.peak_gb:.2f} GB; {watch.n_frozen} "
+        f"frozen tensors unchanged, {watch.n_trainable} trainable in {watch.trainable_groups}")
+    return out
+
+
+def trainer_phase(card):
+    """The training entry points end to end on synthetic trees at the
+    FLIR and KAIST sizes, from the shipped configs at ``IMS_PER_BATCH`` 16:
+    the train mapper on the card (BGR and BGRTTT) against its plain version
+    and the CPU mapper; ``TrainLoader`` with 4 workers against the plain
+    version; ``train_flir("thermal_only")`` from
+    ``faster_rcnn_R_101_FLIR.yaml`` (R101, bf16, the FLIR solver) for 12
+    steps with keep-best every 6 and a checkpoint every 5, its best
+    checkpoint's detections against the live model's, and a resume;
+    ``train_flir("middle_fusion")`` and ``train_kaist("thermal_only")``
+    (float32 as shipped; FREEZE_MODULES) for 12 steps each; after each
+    run, ``held_batch_checks`` on one more of its loader's batches. The
+    weights are random (a detectron2 ``.pth`` of random affines through
+    ``MODEL.WEIGHTS``), so AP and LAMR mean nothing."""
+    import tempfile
+
+    from proben_tpu_torch.apps import flir, kaist
+    from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
+    from proben_tpu_torch.config import get_cfg, mapper_config_from_cfg, model_config_from_cfg
+    from proben_tpu_torch.data import (DatasetCatalog, DatasetMapper, build_test_loader,
+                                       register_coco_instances)
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.models import build_model
+    from proben_tpu_torch.native import io
+
+    def yaml_cfg(name):
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(HERE, "configs", "FLIR-Detection", name))
+        return cfg
+
+    stats = {"card": card, "batch": TRAIN_BATCH}
+    with tempfile.TemporaryDirectory(prefix="flir_train_") as root, io.JpegCodec() as codec:
+        t0 = time.time()
+        write_flir_train_tree(codec, root)
+        flir.register_flir("smoke_train", root, TRAIN_JSON_NAME)
+        train_dicts = DatasetCatalog.get("smoke_train")
+        log(f"FLIR train tree: {len(train_dicts)} pairs in {time.time() - t0:.1f} s")
+
+        # 1. the train mapper and the loader on the card
+        mapped = {}
+        for fmt, yaml_name, seed in (("BGR", "faster_rcnn_R_101_FLIR.yaml", 3),
+                                     ("BGRTTT", "faster_rcnn_R_101_FLIR_middle_fusion.yaml", 4)):
+            _, mapped[fmt] = check_train_mapper(codec, yaml_cfg(yaml_name), train_dicts[:TRAIN_BATCH],
+                                                seed)
+        stats["train_mapper"] = mapped
+        stats["train_loader"] = check_train_loader(codec, yaml_cfg("faster_rcnn_R_101_FLIR.yaml"),
+                                                   train_dicts, 6)
+
+        # 2. train_flir thermal_only as shipped, 12 steps, keep-best, resume
+        out = os.path.join(root, "out_thermal")
+        cfg = yaml_cfg("faster_rcnn_R_101_FLIR.yaml")
+        cfg.MODEL.WEIGHTS = d2_weights(cfg, 31, os.path.join(root, "thermal.pth"))
+        cfg.SOLVER.CHECKPOINT_PERIOD = 5
+        flir.register_flir("smoke_val", root)
+        val = DatasetCatalog.get("smoke_val")
+        mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+        try:
+            eval_batch = next(iter(build_test_loader(val[:BATCH], mapper, batch_size=BATCH)))
+        finally:
+            mapper.close()
+        watch = TrainWatch(count_iter=3, eval_batch=eval_batch, hold_batch=True)
+        zero_launch_counts()
+        t = time.time()
+        res = flir.train_flir("thermal_only", root, out, max_iter=TRAIN_STEPS, eval_every=6, cfg=cfg,
+                              hooks=watch.hooks())
+        wall = time.time() - t
+        run = launch_counts()
+        one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1}
+        # FLIR's evaluation maps the 32 val images at batch 1: one image_io launch each
+        thermal = train_run_stats("train_flir thermal_only", watch, run, one, TRAIN_STEPS,
+                                  eval_runs(0, TRAIN_STEPS, 6) * len(val))
+        if watch.unmoved:
+            raise AssertionError(f"train_flir: {len(watch.unmoved)} trainable tensors did not move, "
+                                 f"e.g. {watch.unmoved[:3]}")
+        with open(os.path.join(out, "metrics.json")) as f:
+            records = [json.loads(ln) for ln in f]
+        if [r["iteration"] for r in records] != [TRAIN_STEPS - 1] or "total_loss" not in records[0]:
+            raise AssertionError(f"train_flir: metrics.json holds {records}")
+        with open(os.path.join(out, "checkpoints", "last.json")) as f:
+            meta = json.load(f)
+        if res["best_AP50"] is None or meta.get("best_step") not in watch.best_dets:
+            raise AssertionError(f"train_flir: no keep-best checkpoint ({res}, {meta})")
+        best = flir.load_params(cfg, os.path.join(out, "checkpoints", "best"))
+        mcfg = model_config_from_cfg(cfg)
+        again = Predictor(build_model(mcfg, params=best), mcfg).predict_batch(eval_batch)
+        live = watch.best_dets[meta["best_step"]]
+        if not all(np.array_equal(a[k], b[k]) for a, b in zip(again, live)
+                   for k in ("boxes", "scores", "classes")):
+            raise AssertionError("train_flir: the best checkpoint's detections differ from the live model's")
+        del again, best
+        held = held_batch_checks(watch, "train_flir thermal_only", stem=True)
+        thermal.update(held_batch=held, best_AP50=res["best_AP50"], best_step=meta["best_step"],
+                       wall_s=wall, bare_step_img_s=held["bare_step_img_s"],
+                       loader_share=1.0 - thermal["train_img_s"] / held["bare_step_img_s"],
+                       dets_per_img_best=float(np.mean([len(r["scores"]) for r in live])))
+        log(f"train_flir thermal_only: best AP50 {res['best_AP50']} at iter {meta['best_step']}, its "
+            f"checkpoint's detections equal the live model's; the loader and the host take "
+            f"{thermal['loader_share'] * 100:.1f}% of the end-to-end step")
+
+        resumed = TrainWatch(count_iter=TRAIN_STEPS, expect_state=watch.final)
+        zero_launch_counts()
+        res2 = flir.train_flir("thermal_only", root, out, max_iter=TRAIN_STEPS + 1, eval_every=6,
+                               cfg=yaml_cfg("faster_rcnn_R_101_FLIR.yaml"), hooks=resumed.hooks())
+        if resumed.start_iter != watch.iter + 1 or len(resumed.metrics) != 1:
+            raise AssertionError(f"train_flir resume: started at {resumed.start_iter}, "
+                                 f"expected {watch.iter + 1}")
+        again = train_run_stats("train_flir thermal_only, resumed", resumed, launch_counts(), one, 1,
+                                eval_runs(TRAIN_STEPS, TRAIN_STEPS + 1, 6) * len(val))
+        thermal["resume"] = dict(start_iter=resumed.start_iter, state_equal=True,
+                                 launches_per_step=resumed.launches, image_io=again["image_io"],
+                                 best_AP50=res2["best_AP50"])
+        log(f"train_flir resume: started at iter {resumed.start_iter} with the checkpointed state, "
+            "bit for bit")
+        stats["flir_thermal_only"] = thermal
+        del watch, resumed
+
+        # 3. train_flir middle_fusion
+        cfg = yaml_cfg("faster_rcnn_R_101_FLIR_middle_fusion.yaml")
+        cfg.MODEL.WEIGHTS = d2_weights(cfg, 32, os.path.join(root, "middle.pth"))
+        watch = TrainWatch(count_iter=1, hold_batch=True)
+        zero_launch_counts()
+        flir.train_flir("middle_fusion", root, os.path.join(root, "out_middle"), max_iter=TRAIN_STEPS,
+                        eval_every=1000, cfg=cfg, hooks=watch.hooks())
+        middle = train_run_stats("train_flir middle_fusion", watch, launch_counts(),
+                                 {"stem_pool": 2, "roi_align_fwd": 1, "roi_align_bwd": 1}, TRAIN_STEPS,
+                                 eval_runs(0, TRAIN_STEPS, 1000) * len(val))
+        if watch.unmoved:
+            raise AssertionError(f"train_flir middle_fusion: {len(watch.unmoved)} trainable tensors "
+                                 "did not move")
+        held = held_batch_checks(watch, "train_flir middle_fusion", stem=True)
+        middle.update(held_batch=held, bare_step_img_s=held["bare_step_img_s"],
+                      loader_share=1.0 - middle["train_img_s"] / held["bare_step_img_s"])
+        log(f"train_flir middle_fusion: the loader and the host take "
+            f"{middle['loader_share'] * 100:.1f}% of the end-to-end step")
+        stats["flir_middle_fusion"] = middle
+        del watch
+
+    # 4. train_kaist thermal_only as shipped (float32, FREEZE_MODULES)
+    with tempfile.TemporaryDirectory(prefix="kaist_train_") as root, io.JpegCodec() as codec:
+        ann, split, lines = write_kaist_tree(codec, root, n=32, seed=7)
+        with open(ann) as f:
+            kjs = json.load(f)
+        images = [{"id": im["id"], "file_name": f"{rel.replace('/I', '/lwir/I')}.jpg",
+                   "height": KAIST_HW[0], "width": KAIST_HW[1]}
+                  for im, rel in zip(kjs["images"], lines)]
+        persons = [dict(a, iscrowd=0, area=a["bbox"][2] * a["bbox"][3]) for a in kjs["annotations"]
+                   if a["category_id"] == 1]
+        train_json = os.path.join(root, "kaist_train.json")
+        with open(train_json, "w") as f:
+            json.dump({"images": images, "annotations": persons,
+                       "categories": [{"id": 1, "name": "person"}]}, f)
+        DatasetCatalog.remove("smoke_kaist_train")
+        register_coco_instances("smoke_kaist_train", {}, train_json, root)
+        cfg = kaist.build_kaist_cfg("thermal_only")
+        cfg.MODEL.WEIGHTS = d2_weights(cfg, 33, os.path.join(root, "kaist.pth"))
+        watch = TrainWatch(count_iter=1, hold_batch=True)
+        zero_launch_counts()
+        res = kaist.train_kaist("thermal_only", "smoke_kaist_train", ann, root, split,
+                                os.path.join(root, "out"), max_iter=TRAIN_STEPS, eval_every=1000,
+                                cfg=cfg, hooks=watch.hooks())
+        # predict_split maps the 32 frames in batches of 4: one image_io launch each
+        kst = train_run_stats("train_kaist thermal_only (float32)", watch, launch_counts(),
+                              {"stem_pool": 0, "roi_align_fwd": 1, "roi_align_bwd": 1}, TRAIN_STEPS,
+                              eval_runs(0, TRAIN_STEPS, 1000) * -(-len(lines) // 4))
+        if watch.trainable_groups != ["fpn", "rpn_head"] or watch.unmoved:
+            raise AssertionError(f"train_kaist: trainable {watch.trainable_groups}, "
+                                 f"{len(watch.unmoved)} did not move")
+        held = held_batch_checks(watch, "train_kaist thermal_only (float32)", stem=False)
+        kst.update(held_batch=held, bare_step_img_s=held["bare_step_img_s"],
+                   loader_share=1.0 - kst["train_img_s"] / held["bare_step_img_s"],
+                   best_lamr=res["best_lamr"])
+        stats["kaist_thermal_only_f32"] = kst
+        del watch
+    stats["seconds"] = time.time() - t0
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1926,6 +2503,7 @@ def main() -> int:
     del images
     k_io, flir_stats = flir_phase(card)
     kaist_stats = kaist_phase(card)
+    trainer_stats = trainer_phase(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
              "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
@@ -1933,7 +2511,11 @@ def main() -> int:
              "flir_middle_fusion_eval (4 batches)": flir_stats["middle_fusion"]["launches"],
              **{f"kaist_{m}_eval (4 batches)": kaist_stats[m]["launches"]
                 for m in ("thermal_only", "rgb_only", "middle_fusion")},
-             "kaist_thermal_only_eval_float32_as_shipped (4 batches)": kaist_stats["thermal_only_f32"]["launches"]}
+             "kaist_thermal_only_eval_float32_as_shipped (4 batches)": kaist_stats["thermal_only_f32"]["launches"],
+             **{f"{key}_train (K1-K3 per step, image_io per training batch)": {
+                 **trainer_stats[key]["launches_per_step"],
+                 "image_io": trainer_stats[key]["image_io"]["per_train_batch"]}
+                for key in ("flir_thermal_only", "flir_middle_fusion", "kaist_thermal_only_f32")}}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -1959,10 +2541,14 @@ def main() -> int:
     print(json.dumps({"late_fusion": {**proben_stats, "card": card}}))
     print(json.dumps({"flir_eval": {**flir_stats, "seconds": time.time() - t0}}))
     print(json.dumps({"kaist_eval": {**kaist_stats, "seconds": time.time() - t0}}))
+    print(json.dumps({"trainer": {**trainer_stats, "total_seconds": time.time() - t0}}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
     k_io["launches_per_path"] = {p: n["image_io"] for p, n in paths.items() if "image_io" in n}
+    k_io["train_flips"] = {fmt: {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "mbytes",
+                                                     "flipped")}
+                           for fmt, row in trainer_stats["train_mapper"].items()}
     print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
-                                                             "c4", "c6")
+                                                             "c4", "c6", "train_flips")
                                    if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

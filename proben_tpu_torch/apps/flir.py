@@ -7,17 +7,23 @@ late fusion of saved predictions.
     python -m proben_tpu_torch.apps.flir proben --dataset_path D --prediction_path O \\
         --score_fusion probEn --box_fusion v-avg
 
+    python -m proben_tpu_torch.apps.flir train  --dataset_path D --fusion_method M \\
+        --outfolder O [--max_iter N] [--eval_every K]
+
 (the arguments of ``demo/FLIR/demo_FLIR_save_predictions.py``,
-``demo_mAP_FLIR.py`` and ``demo_probEn.py``; ``--device cpu`` runs the plain
-versions on the CPU, and the images are then read with cv2). On the card,
-the images are decoded with nvJPEG and composed, resized and padded by the
-``image_io`` kernel, and the model runs the stem and RoIAlign kernels.
+``demo_mAP_FLIR.py``, ``demo_probEn.py`` and ``demo_train_FLIR.py``;
+``--device cpu`` runs the plain versions on the CPU, and the images are then
+read with cv2). On the card, the images are decoded with nvJPEG and
+composed, resized (training: also flipped) and padded by the ``image_io``
+kernel, and the model runs the stem and RoIAlign kernels (training: the
+RoIAlign backward too).
 
 ``model_path`` "" gives the port's random init from seed 0, a detectron2
 ``.pth``/``.pkl`` file is imported (``checkpoint.torch_import``) and a
 directory is restored (``checkpoint.restore_pytree``); ``params`` takes a
-numpy pytree in ``proben_tpu``'s layout. ``train_flir`` comes with the
-trainer slice.
+numpy pytree in ``proben_tpu``'s layout. ``train_flir`` trains with
+``DefaultTrainer`` and keeps the best AP50 under
+``<outfolder>/checkpoints/best``, which ``load_params`` reads.
 """
 
 from __future__ import annotations
@@ -35,10 +41,10 @@ import torch
 from ..checkpoint import import_detectron2_checkpoint, restore_pytree
 from ..config import CfgNode, get_cfg, mapper_config_from_cfg, model_config_from_cfg
 from ..data import DatasetCatalog, DatasetMapper, build_test_loader, register_coco_instances
-from ..engine import Predictor
+from ..engine import DefaultTrainer, EvalHook, Predictor
 from ..evaluation import FLIREvaluator, inference_on_dataset
 from ..fusion import fuse_multi_model
-from ..models import build_model, init_rcnn
+from ..models import RCNN, build_model, init_rcnn
 
 logger = logging.getLogger(__name__)
 
@@ -101,10 +107,13 @@ def load_params(cfg: CfgNode, model_path: str) -> Dict:
 
 
 def _predictor(cfg: CfgNode, model_path: str, params, device: Device) -> Predictor:
-    if params is None:
-        params = load_params(cfg, model_path)
+    """``params``: a numpy pytree, a built ``RCNN`` (a trainer's live model,
+    used as it is) or None (``load_params(cfg, model_path)``)."""
     model_cfg = model_config_from_cfg(cfg)
-    return Predictor(build_model(model_cfg, params=params, device=device), model_cfg, device)
+    if not isinstance(params, RCNN):
+        params = build_model(model_cfg, params=params if params is not None
+                             else load_params(cfg, model_path), device=device)
+    return Predictor(params, model_cfg, device)
 
 
 def save_predictions(
@@ -256,6 +265,59 @@ def run_proben(
     )
 
 
+def train_parser() -> argparse.ArgumentParser:
+    """The arguments of ``demo/FLIR/demo_train_FLIR.py``."""
+    parser = argparse.ArgumentParser(prog="python -m proben_tpu_torch.apps.flir train")
+    parser.add_argument("--dataset_path", required=True)
+    parser.add_argument("--fusion_method", default="thermal_only",
+                        choices=["rgb_only", "thermal_only", "early_fusion", "middle_fusion"])
+    parser.add_argument("--outfolder", default="out_training")
+    parser.add_argument("--max_iter", type=int, default=None)
+    parser.add_argument("--eval_every", type=int, default=1000)
+    return parser
+
+
+def train_flir(
+    method: str,
+    dataset_path: str,
+    out_folder: str,
+    max_iter: Optional[int] = None,
+    eval_every: int = 1000,
+    cfg: Optional[CfgNode] = None,
+    device: Device = "cuda",
+    hooks: Sequence = (),
+) -> Dict:
+    """``demo_train_FLIR.py``: train on the train split, evaluating the
+    live model on the val split every ``eval_every`` iterations and at the
+    end, keeping the best AP50 (the reference's keep-best outer loop), and
+    resuming from ``<out_folder>/checkpoints`` when it holds a checkpoint.
+    ``hooks`` are registered after the keep-best evaluation."""
+    cfg = cfg or build_flir_cfg(method)
+    cfg.OUTPUT_DIR = out_folder
+    if max_iter is not None:
+        cfg.SOLVER.MAX_ITER = max_iter
+    register_flir(f"FLIR_train_{method}", dataset_path, TRAIN_JSON_NAME)
+    register_flir(f"FLIR_val_{method}", dataset_path, VAL_JSON_NAME)
+    cfg.DATASETS.TRAIN = (f"FLIR_train_{method}",)
+    cfg.DATASETS.TEST = (f"FLIR_val_{method}",)
+    # keep-best eval is registered below; TEST.EVAL_PERIOD stays 0 so the
+    # default EvalHook is not doubled up
+
+    trainer = DefaultTrainer(cfg, device=device)
+
+    def eval_and_keep_best(t):
+        results = t.evaluate()
+        ap50 = results.get("bbox", {}).get("AP50", float("nan"))
+        if ap50 == ap50 and t.checkpointer.save_best(t.iter, ap50, t.params):
+            logger.info("new best AP50 %.2f at iter %d", ap50, t.iter)
+        return results
+
+    trainer.register_hooks([EvalHook(eval_every, eval_and_keep_best), *hooks])
+    trainer.resume_or_load(resume=True)
+    trainer.train()
+    return {"best_AP50": trainer.checkpointer.best_metric}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from ..utils.logger import setup_logger
     from ..utils.opt import config_parser
@@ -263,12 +325,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     parser = argparse.ArgumentParser(
         prog="python -m proben_tpu_torch.apps.flir",
         description="save: prediction JSON of one method; map: its FLIR mAP; "
-                    "proben: ProbEn late fusion of saved JSONs and its mAP")
-    parser.add_argument("command", choices=("save", "map", "proben"))
+                    "proben: ProbEn late fusion of saved JSONs and its mAP; "
+                    "train: keep-best-AP50 training of one method")
+    parser.add_argument("command", choices=("save", "map", "proben", "train"))
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     known, rest = parser.parse_known_args(argv)
-    args = config_parser(rest)
     setup_logger()
+    if known.command == "train":
+        args = train_parser().parse_args(rest)
+        results = train_flir(args.fusion_method, args.dataset_path, args.outfolder,
+                             args.max_iter, args.eval_every, device=known.device)
+        print(results)
+        return results
+    args = config_parser(rest)
     if known.command == "proben":
         results = run_proben(args.dataset_path, args.prediction_path, args.score_fusion,
                              args.box_fusion, args.outfolder, args.dataset_name)

@@ -10,9 +10,16 @@ ensemble.
         --annotation A --models thermal_only=t.pth middle_fusion=m.pth \\
         --score_fusion probEn --box_fusion v-avg
 
-(the arguments of ``demo/KAIST/demo_LAMR_KAIST.py`` and
-``demo_probEn_KAIST.py``, plus ``--device``: ``cpu`` runs the plain versions
-and reads the images with cv2, exactly as the JAX package does). The split's
+    python -m proben_tpu_torch.apps.kaist train --train_json J --train_image_root R \\
+        --data_root D --split S --annotation A --fusion_method M --outfolder O
+
+(the arguments of ``demo/KAIST/demo_LAMR_KAIST.py``, ``demo_probEn_KAIST.py``
+and ``demo_train_KAIST.py``, plus ``--device``: ``cpu`` runs the plain
+versions and reads the images with cv2, exactly as the JAX package does).
+``train`` fine-tunes with the backbone(s) and the RoI heads frozen
+(``MODEL.FREEZE_MODULES``), so only the FPN and the RPN train, evaluating
+the live model's LAMR every ``--eval_every`` iterations and keeping the
+lowest under ``<outfolder>/checkpoints/best``. The split's
 files go through the FLIR app's ``DatasetMapper`` and test loader: on the
 card the ``lwir`` and ``visible`` JPEGs are decoded with nvJPEG and
 composed, resized and padded by the ``image_io`` kernel, one launch per
@@ -22,7 +29,7 @@ package does). Split lines are
 ``setXX/VYYY/IZZZZZ``; the thermal input is
 ``setXX/VYYY/lwir/IZZZZZ.jpg`` and the RGB input ``.../visible/...``.
 ``--model_path`` takes a detectron2 ``.pth``/``.pkl`` or a checkpoint
-directory (``apps.flir.load_params``). Training waits for the trainer.
+directory (``apps.flir.load_params``).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import numpy as np
 import torch
 
 from ..config import CfgNode, get_cfg, mapper_config_from_cfg
-from ..data import DatasetMapper, build_test_loader
+from ..data import DatasetMapper, build_test_loader, register_coco_instances
+from ..engine import DefaultTrainer, EvalHook
 from ..evaluation.kaist import KAISTEvaluator, load_detections_txt, save_detections_txt
 from ..fusion import fuse_multi_model
 from .flir import THERMAL_MEAN, _predictor, load_params
@@ -123,7 +131,8 @@ def predict_split(
     batch_size: int = 4,
     device: Device = "cuda",
 ) -> Dict[int, Dict[str, np.ndarray]]:
-    """Run inference over a KAIST split with ``params`` (a numpy pytree).
+    """Run inference over a KAIST split with ``params`` (a numpy pytree, or
+    a built ``RCNN``: a trainer's live model, used as it is).
     Returns {frame (1-based, split order): {boxes (xyxy), scores, classes,
     probs, class_logits, vars}}; optionally writes the reference det txt
     (xywh) and the per-frame variance npz. The last batch is padded by
@@ -226,12 +235,50 @@ def run_kaist_proben(
     return evaluator.evaluate_all_conditions(fused)
 
 
-def train_kaist(*args, **kwargs):
-    """Keep-best training keyed on LAMR (``proben_tpu/apps/kaist.py::
-    train_kaist``) needs the trainer."""
-    raise NotImplementedError(
-        "train_kaist needs the trainer (DefaultTrainer, hooks, the training loader), which is "
-        "not ported yet (ROADMAP 12f)")
+def train_kaist(
+    method: str,
+    train_dataset: str,
+    annotation_json: str,
+    data_root: str,
+    split_file: str,
+    out_folder: str,
+    max_iter: int = 10000,
+    eval_every: int = 1000,
+    cfg: Optional[CfgNode] = None,
+    device: Device = "cuda",
+    hooks: Sequence = (),
+) -> Dict:
+    """Keep-best training keyed on LAMR (reference ``demo_train_KAIST.py``:
+    backbone(s) and RoI heads frozen, best = lowest all-condition LAMR of
+    the live model over the split), resuming from
+    ``<out_folder>/checkpoints`` when it holds a checkpoint. ``hooks`` are
+    registered after the keep-best evaluation."""
+    cfg = cfg or build_kaist_cfg(method)
+    cfg.OUTPUT_DIR = out_folder
+    cfg.SOLVER.MAX_ITER = max_iter
+    cfg.DATASETS.TRAIN = (train_dataset,)
+    cfg.MODEL.FREEZE_MODULES = ("backbone", "backbone_2", "roi")
+
+    trainer = DefaultTrainer(cfg, device=device)
+    trainer.checkpointer.higher_is_better = False  # LAMR: lower is better
+
+    def eval_lamr(t):
+        try:
+            results = predict_split(method, data_root, split_file, t.model, cfg=t.cfg,
+                                    device=t.device)
+        finally:
+            t.model.train()
+        evaluator = KAISTEvaluator(annotation_json)
+        out = evaluator.evaluate_all_conditions(results_to_lamr_dets(results, evaluator.image_ids))
+        lamr = out["lamr_all"]
+        if lamr == lamr and t.checkpointer.save_best(t.iter, lamr, t.params):
+            logger.info("new best LAMR %.2f%% at iter %d", lamr, t.iter)
+        return out
+
+    trainer.register_hooks([EvalHook(eval_every, eval_lamr), *hooks])
+    trainer.resume_or_load(resume=True)
+    trainer.train()
+    return {"best_lamr": trainer.checkpointer.best_metric}
 
 
 def run_lamr(method: str, data_root: str, split: str, annotation: str, model_path: str = "",
@@ -271,15 +318,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     parser = argparse.ArgumentParser(
         prog="python -m proben_tpu_torch.apps.kaist",
         description="lamr: one method's detections and LAMR; proben: ProbEn fusion of several "
-                    "methods' detections and its LAMR")
+                    "methods' detections and its LAMR; train: keep-best-LAMR fine-tuning")
     sub = parser.add_subparsers(dest="command", required=True)
-    for name in ("lamr", "proben"):
+    for name in ("lamr", "proben", "train"):
         p = sub.add_parser(name)
+        if name == "train":
+            p.add_argument("--train_json", required=True, help="COCO-format train annotations")
+            p.add_argument("--train_image_root", required=True)
         p.add_argument("--data_root", required=True)
         p.add_argument("--split", required=True)
         p.add_argument("--annotation", required=True)
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    lamr, proben = sub.choices["lamr"], sub.choices["proben"]
+    lamr, proben, train = sub.choices["lamr"], sub.choices["proben"], sub.choices["train"]
+    train.add_argument("--fusion_method", default="thermal_only", choices=methods)
+    train.add_argument("--outfolder", default="out_kaist")
+    train.add_argument("--max_iter", type=int, default=10000)
+    train.add_argument("--eval_every", type=int, default=1000)
     lamr.add_argument("--fusion_method", default="thermal_only", choices=methods)
     lamr.add_argument("--model_path", default="")
     lamr.add_argument("--outfolder", default="out")
@@ -288,7 +342,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     proben.add_argument("--box_fusion", default="v-avg", choices=["avg", "s-avg", "v-avg", "argmax"])
     args = parser.parse_args(argv)
     setup_logger()
-    if args.command == "lamr":
+    if args.command == "train":
+        register_coco_instances("kaist_train", {}, args.train_json, args.train_image_root)
+        out = train_kaist(args.fusion_method, "kaist_train", args.annotation, args.data_root,
+                          args.split, args.outfolder, args.max_iter, args.eval_every,
+                          device=args.device)
+    elif args.command == "lamr":
         out = run_lamr(args.fusion_method, args.data_root, args.split, args.annotation,
                        args.model_path, args.outfolder, args.device)
     else:

@@ -1,0 +1,71 @@
+"""Config-driven training entry point (counterpart of ``tools/train_net.py``;
+reference ``tools/train_net.py``).
+
+    python -m proben_tpu_torch.apps.train_net \\
+        --config-file configs/FLIR-Detection/faster_rcnn_R_101_FLIR.yaml \\
+        [--eval-only] [--resume] [--register name,json,image_root] [--device cpu] [KEY VALUE ...]
+
+Datasets named in DATASETS.TRAIN/TEST must be registered; ``--register``
+registers a COCO-format one (repeatable). ``--eval-only`` evaluates
+DATASETS.TEST with the (resumed) weights. Runs on one device, ``--device``
+(default ``cuda``; ``cpu`` runs the plain versions).
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+from ..config import get_cfg
+from ..data import DatasetCatalog, register_coco_instances
+from ..engine import DefaultTrainer
+from ..utils.logger import setup_logger
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(prog="python -m proben_tpu_torch.apps.train_net")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--eval-only", action="store_true")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument(
+        "--register",
+        action="append",
+        default=[],
+        help="dataset registration: name,json_path,image_root (repeatable)",
+    )
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
+                        help="config overrides as KEY VALUE pairs")
+    return parser.parse_args(argv)
+
+
+def setup(args: argparse.Namespace):
+    """The config of the parsed arguments, with their datasets registered."""
+    cfg = get_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    for spec in args.register:
+        name, json_path, image_root = spec.split(",")
+        DatasetCatalog.remove(name)
+        register_coco_instances(name, {}, json_path, image_root)
+    return cfg
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
+    cfg = setup(args)
+    setup_logger(cfg.OUTPUT_DIR)
+    trainer = DefaultTrainer(cfg, device=args.device)
+    trainer.resume_or_load(resume=args.resume)
+    if args.eval_only:
+        trainer.train_loader.close()
+        results = trainer.evaluate()
+        print(results)
+        return results
+    return trainer.train()
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,10 @@
 // nvjpegEncodeYUV (grayscale).
 //
 // compose_resize_pad_kernel: one thread per canvas pixel of one image. For a
-// pixel inside the image's resized size (nh, nw) it takes the four taps of
+// pixel inside the image's resized size (nh, nw) -- of a flipped image (the
+// training augmentation's horizontal flip of the resized image,
+// proben_tpu/data/transforms.py:207-209) at resized column nw - 1 - x, so the
+// flip costs no pass of its own -- it takes the four taps of
 // the half-pixel bilinear map into the thermal frame (th, tw)
 // (src = (dst + 0.5) * scale - 0.5, clamped to [0, size - 1], as
 // proben_io.cpp:96-154 and cv2.INTER_LINEAR), composes each tap's channels
@@ -128,15 +131,16 @@ __device__ __forceinline__ float composed(const uint8_t* t, int tw, int tc, cons
 
 // One launch's images, passed by value (kernel parameters, not a table the
 // host copies to the device): thermal and RGB pointers; th, tw, tc, rh, rw,
-// rc, nh, nw; sy, sx (thermal frame over output: float32(src) /
+// rc, nh, nw, flip; sy, sx (thermal frame over output: float32(src) /
 // float32(dst)) and ry, rx (RGB over thermal frame, cv2's 1 / (dst / src)
-// in double). 40 images fill 3.2 KB of the 4 KB of parameters.
+// in double). 40 images fill 3.4 KB of the 4 KB of parameters.
 constexpr int kMaxBatch = 40;
+constexpr int kInts = 9;
 
 struct Batch {
   const uint8_t* thermal[kMaxBatch];
   const uint8_t* rgb[kMaxBatch];
-  int ints[kMaxBatch][8];
+  int ints[kMaxBatch][kInts];
   double scale[kMaxBatch][4];
 };
 
@@ -150,6 +154,7 @@ __global__ void compose_resize_pad_kernel(const __grid_constant__ Batch b, float
   float* o = out + (size_t(n) * ph * pw + idx) * C;
   const int* d = b.ints[n];
   const int th = d[0], tw = d[1], tc = d[2], rh = d[3], rw = d[4], rc = d[5], nh = d[6], nw = d[7];
+  const bool flip = d[8] != 0;
   if (y >= nh || x >= nw) {
 #pragma unroll
     for (int k = 0; k < C; k++) o[k] = 0.0f;
@@ -158,7 +163,7 @@ __global__ void compose_resize_pad_kernel(const __grid_constant__ Batch b, float
   const uint8_t* t = b.thermal[n];
   const uint8_t* rgb = b.rgb[n];
   const double* s = b.scale[n];
-  const Taps ty = taps(y, float(s[0]), th), tx = taps(x, float(s[1]), tw);
+  const Taps ty = taps(y, float(s[0]), th), tx = taps(flip ? nw - 1 - x : x, float(s[1]), tw);
 #pragma unroll
   for (int k = 0; k < C; k++) {
     const float v00 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ty.i0, tx.i0, k);
@@ -269,7 +274,7 @@ int image_io_encode(void* codec, const unsigned char* src, int h, int w, int ch,
 
 // The (n, ph, pw, channels) float32 canvas from the decoded images described
 // by three host tables: ptrs (n, 2) thermal and RGB device pointers, ints
-// (n, 8) and scales (n, 4) as in Batch. One launch per kMaxBatch images.
+// (n, kInts) and scales (n, 4) as in Batch. One launch per kMaxBatch images.
 int image_io_compose(const long long* ptrs, const int* ints, const double* scales, float* out,
                      int n, int ph, int pw, int fmt, int channels, void* stream) {
   const int threads = 256;
@@ -281,7 +286,7 @@ int image_io_compose(const long long* ptrs, const int* ints, const double* scale
     for (int i = 0; i < m; i++) {
       b.thermal[i] = reinterpret_cast<const uint8_t*>(ptrs[2 * (first + i)]);
       b.rgb[i] = reinterpret_cast<const uint8_t*>(ptrs[2 * (first + i) + 1]);
-      for (int j = 0; j < 8; j++) b.ints[i][j] = ints[8 * (first + i) + j];
+      for (int j = 0; j < kInts; j++) b.ints[i][j] = ints[kInts * (first + i) + j];
       for (int j = 0; j < 4; j++) b.scale[i][j] = scales[4 * (first + i) + j];
     }
     float* o = out + size_t(first) * ph * pw * channels;

@@ -1,18 +1,21 @@
 """DatasetMapper: dataset dict -> fixed-shape model inputs (counterpart of
-``proben_tpu/data/dataset_mapper.py``; the test branch).
+``proben_tpu/data/dataset_mapper.py``).
 
 Every mapped sample is padded to one static ``pad_shape`` and its GT to
 ``max_gt`` with a validity mask, so batches have identical shapes. On the
-CPU the image is read and resized with cv2 exactly as the JAX package does;
-on the card (``device="cuda"``, the default) it is decoded with nvJPEG and
-composed, resized and padded by the ``image_io`` kernel, one launch per
-``map_batch`` call, and stays on the card. The GT arrays stay numpy.
-The training branch (augmentation) comes with the trainer.
+CPU the image is read, augmented (training) or resized (test) with cv2
+exactly as the JAX package does; on the card (``device="cuda"``, the
+default) it is decoded with nvJPEG and composed, resized, flipped (training)
+and padded by the ``image_io`` kernel, one launch per ``map_batch`` call,
+and stays on the card. The training draws come from one
+``np.random.RandomState(seed)`` in the JAX package's order on both devices
+(``TrainAugment``). The GT arrays stay numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -21,7 +24,7 @@ import torch
 from ..device import resolve_device
 from ..structures.boxes import BoxMode, convert_box_mode
 from .detection_utils import derive_rgb_path, read_image
-from .transforms import TestResize
+from .transforms import TestResize, TrainAugment, hflip_boxes, resize_boxes
 
 
 @dataclasses.dataclass
@@ -41,55 +44,98 @@ class MapperConfig:
         return {"BGR": 3, "RGB": 3, "L": 1, "BGRT": 4, "BGRTTT": 6}[self.input_format]
 
 
+def _annotations(dataset_dict: Dict) -> Tuple[np.ndarray, np.ndarray]:
+    """The non-crowd boxes (G, 4) XYXY float32 and classes (G,) int64."""
+    annos = [a for a in dataset_dict.get("annotations", []) if not a.get("iscrowd", 0)]
+    boxes = np.array(
+        [
+            convert_box_mode(
+                np.asarray(a["bbox"], np.float32), a.get("bbox_mode", BoxMode.XYWH_ABS), BoxMode.XYXY_ABS
+            )
+            for a in annos
+        ],
+        np.float32,
+    ).reshape(-1, 4)
+    return boxes, np.array([a["category_id"] for a in annos], np.int64)
+
+
 class DatasetMapper:
-    """Maps dataset dicts to samples on ``device``. Holds an nvJPEG codec
-    on the card; ``close`` releases it."""
+    """Maps dataset dicts to samples on ``device``. On the card it holds one
+    nvJPEG codec per thread that maps (a loader's workers each get their
+    own); ``close`` releases them. Training on the card takes no crop
+    (``INPUT.CROP``): the mapper raises, naming the ROADMAP item."""
 
     def __init__(self, cfg: MapperConfig, is_train: bool = True, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
-        if is_train:
-            raise NotImplementedError(
-                "DatasetMapper(is_train=True): the training augmentation comes with the "
-                "trainer slice (ROADMAP 12f); use is_train=False")
         self.cfg = cfg
         self.is_train = is_train
         self.device = resolve_device(device)
+        self.train_aug = TrainAugment(cfg.min_size_train, cfg.max_size_train, cfg.flip,
+                                      np.random.RandomState(seed), crop=cfg.crop)
         self.test_resize = TestResize(cfg.min_size_test, cfg.max_size_test)
-        self.codec = None
+        self._local = threading.local()
+        self._codecs: list = []
+        self._lock = threading.Lock()
         if self.device.type == "cuda":
-            from ..native.io import FORMATS, JpegCodec
+            from ..native.io import FORMATS
 
             if cfg.input_format not in FORMATS:
                 raise ValueError(f"input_format {cfg.input_format!r} on the card: expected one "
                                  f"of {sorted(FORMATS)}")
+            if is_train and cfg.crop is not None:
+                raise NotImplementedError(
+                    "INPUT.CROP on the card: the image_io kernel has no crop (ROADMAP 12, "
+                    "'Crop on the card'); train with device='cpu' or INPUT.CROP.ENABLED False")
+            self._codec()  # fails here, not in a loader's worker, without nvJPEG
+
+    def _codec(self):
+        codec = getattr(self._local, "codec", None)
+        if codec is None:
+            from ..native.io import JpegCodec
+
             with torch.cuda.device(self.device):
-                self.codec = JpegCodec()
+                codec = JpegCodec()
+            self._local.codec = codec
+            with self._lock:
+                self._codecs.append(codec)
+        return codec
 
     def close(self) -> None:
-        if self.codec is not None:
-            self.codec.close()
-            self.codec = None
+        with self._lock:
+            codecs, self._codecs = self._codecs, []
+        for codec in codecs:
+            codec.close()
+        self._local = threading.local()
 
     def __call__(self, dataset_dict: Dict) -> Dict:
         """Returns one sample of a dataset dict ("file_name" the image, for
         BGRT/BGRTTT the thermal one; optional "rgb_file", else derived by
         ``derive_rgb_path``): image (H, W, C) float32 tensor on the mapper's
         device, padded; image_size (2,); gt_boxes (G, 4) XYXY in the resized
-        frame, gt_classes (G,), gt_valid (G,) numpy; plus bookkeeping
-        (image_id, orig_size, file_name)."""
+        (training: augmented) frame, gt_classes (G,), gt_valid (G,) numpy;
+        plus bookkeeping (image_id, orig_size, file_name) and, in training,
+        "flip" (whether the image was flipped)."""
         return self.map_batch([dataset_dict])[0]
 
     def map_batch(self, dataset_dicts: Sequence[Dict]) -> List[Dict]:
-        """``[self(d) for d in dataset_dicts]``; on the card the images are
-        views of one canvas made by one kernel launch."""
+        """``[self(d) for d in dataset_dicts]``, with the training draws
+        made image by image in order; on the card the images are views of
+        one canvas made by one kernel launch."""
         cfg = self.cfg
+        annotations = [_annotations(d) for d in dataset_dicts]
+        geoms = []  # per image: resized h, w, the boxes in its frame, flipped
         if self.device.type == "cpu":
-            images, sizes, origs = [], [], []
-            for d in dataset_dicts:
+            images, origs = [], []
+            for d, (boxes, _) in zip(dataset_dicts, annotations):
                 image = read_image(d["file_name"], cfg.input_format, device="cpu",
                                    rgb_file=d.get("rgb_file"))
                 origs.append(image.shape[:2])
-                image, (new_h, new_w) = self.test_resize(image)
+                if self.is_train:
+                    image, boxes, flip = self.train_aug.apply(image, boxes)
+                    new_h, new_w = image.shape[:2]
+                else:
+                    image, (new_h, new_w) = self.test_resize(image)
+                    flip = False
                 ph, pw = cfg.pad_shape
                 if new_h > ph or new_w > pw:
                     raise ValueError(
@@ -98,33 +144,38 @@ class DatasetMapper:
                 padded = np.zeros((ph, pw, image.shape[2]), np.float32)
                 padded[:new_h, :new_w] = image
                 images.append(torch.from_numpy(padded))
-                sizes.append((new_h, new_w))
+                geoms.append((new_h, new_w, boxes, flip))
         else:
             from ..native.io import load_batch
 
             paths = [d["file_name"] for d in dataset_dicts]
             rgb = ([d.get("rgb_file") or derive_rgb_path(d["file_name"]) for d in dataset_dicts]
                    if cfg.input_format != "BGR" else None)
-            with torch.cuda.device(self.device):
-                canvas, sizes, origs = load_batch(self.codec, paths, rgb, cfg.input_format,
-                                                  self.test_resize.size, tuple(cfg.pad_shape))
-            images = list(canvas)
-        return [self._sample(d, img, tuple(int(v) for v in hw), tuple(int(v) for v in orig))
-                for d, img, hw, orig in zip(dataset_dicts, images, sizes, origs)]
+            draws = []
 
-    def _sample(self, dataset_dict: Dict, image: torch.Tensor, new_hw, orig_hw) -> Dict:
-        (new_h, new_w), (orig_h, orig_w) = new_hw, orig_hw
-        annos = [a for a in dataset_dict.get("annotations", []) if not a.get("iscrowd", 0)]
-        boxes = np.array(
-            [
-                convert_box_mode(
-                    np.asarray(a["bbox"], np.float32), a.get("bbox_mode", BoxMode.XYWH_ABS), BoxMode.XYXY_ABS
-                )
-                for a in annos
-            ],
-            np.float32,
-        ).reshape(-1, 4)
-        classes = np.array([a["category_id"] for a in annos], np.int64)
+            def size(h, w):
+                draws.append(self.train_aug.draw(h, w) if self.is_train
+                             else self.test_resize.size(h, w) + (False,))
+                return draws[-1]
+
+            with torch.cuda.device(self.device):
+                canvas, _, origs = load_batch(self._codec(), paths, rgb, cfg.input_format, size,
+                                              tuple(cfg.pad_shape))
+            images = list(canvas)
+            for (boxes, _), orig, (new_h, new_w, flip) in zip(annotations, origs, draws):
+                if self.is_train:
+                    boxes = resize_boxes(boxes, tuple(int(v) for v in orig), (new_h, new_w))
+                    if flip:
+                        boxes = hflip_boxes(boxes, new_w)
+                geoms.append((new_h, new_w, boxes, flip))
+        return [self._sample(d, img, geom, tuple(int(v) for v in orig), classes)
+                for d, img, geom, orig, (_, classes) in zip(dataset_dicts, images, geoms, origs,
+                                                             annotations)]
+
+    def _sample(self, dataset_dict: Dict, image: torch.Tensor, geom, orig_hw,
+                classes: np.ndarray) -> Dict:
+        new_h, new_w, boxes, flip = geom
+        orig_h, orig_w = orig_hw
 
         # clip boxes to the resized frame and drop empties
         if len(boxes):
@@ -142,7 +193,7 @@ class DatasetMapper:
         gt_classes[:n] = classes[:n]
         gt_valid[:n] = True
 
-        return {
+        sample = {
             "image": image,
             "image_size": np.array([new_h, new_w], np.int32),
             "gt_boxes": gt_boxes,
@@ -152,3 +203,6 @@ class DatasetMapper:
             "orig_size": np.array([orig_h, orig_w], np.int32),
             "file_name": dataset_dict["file_name"],
         }
+        if self.is_train:
+            sample["flip"] = bool(flip)
+        return sample

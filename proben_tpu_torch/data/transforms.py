@@ -1,12 +1,20 @@
-"""Test-time resize (counterpart of the test path of
-``proben_tpu/data/transforms.py``): ``ResizeShortestEdge`` at fixed sizes.
-The training augmentations (``TrainAugment``, crop, flip and the photometric
-jitters) come with the trainer.
+"""Host-side image transforms (counterpart of ``proben_tpu/data/transforms.py``;
+reference ``detectron2/data/transforms/transform_gen.py``).
+
+Numpy implementations of ``ResizeShortestEdge`` (:167) and ``RandomFlip``
+(:115), ``RandomCrop`` (:218), the photometric jitters
+``RandomContrast``/``RandomBrightness``/``RandomSaturation``/
+``RandomLighting`` (:308-413, as :class:`ColorAugment`) and ``RandomExtent``
+(:263). Geometric transforms return the transformed image plus boxes mapped
+to the new frame; color transforms touch only pixels. Images are resized
+with cv2 on the CPU, as the JAX package does; on the card the ``image_io``
+kernel resizes and flips (``native/io.py``), and ``TrainAugment.draw`` gives
+it the same random draws.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,6 +49,188 @@ def resize_image(image: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     if out.ndim == 2:
         out = out[:, :, None]
     return out
+
+
+def resize_boxes(boxes: np.ndarray, old_hw, new_hw) -> np.ndarray:
+    sy = new_hw[0] / old_hw[0]
+    sx = new_hw[1] / old_hw[1]
+    return boxes * np.array([sx, sy, sx, sy], boxes.dtype)
+
+
+def hflip_image(image: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(image[:, ::-1])
+
+
+def hflip_boxes(boxes: np.ndarray, width: float) -> np.ndarray:
+    out = boxes.copy()
+    out[:, 0] = width - boxes[:, 2]
+    out[:, 2] = width - boxes[:, 0]
+    return out
+
+
+def random_crop(
+    image: np.ndarray,
+    boxes: np.ndarray,
+    crop_size: Tuple[float, float],
+    rng: np.random.RandomState,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Relative-range random crop (reference RandomCrop "relative_range"):
+    crop h, w sampled in [crop_size, 1] fractions of the image."""
+    h, w = image.shape[:2]
+    ch = int(h * (crop_size[0] + (1 - crop_size[0]) * rng.rand()) + 0.5)
+    cw = int(w * (crop_size[1] + (1 - crop_size[1]) * rng.rand()) + 0.5)
+    y0 = rng.randint(0, h - ch + 1)
+    x0 = rng.randint(0, w - cw + 1)
+    image = image[y0 : y0 + ch, x0 : x0 + cw]
+    boxes = boxes - np.array([x0, y0, x0, y0], boxes.dtype)
+    return np.ascontiguousarray(image), boxes
+
+
+# ---------------------------------------------------------------------------
+# Color jitter (reference transform_gen.py RandomContrast :308-331,
+# RandomBrightness :334-357, RandomSaturation :360-385, RandomLighting
+# :388-413 -- each lowers to a BlendTransform: out = src_w*src + dst_w*img).
+# Color-only: boxes are unchanged. Not on any ProbEn config path; provided
+# for custom mappers, as in the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def blend(img: np.ndarray, src_image, src_weight: float, dst_weight: float) -> np.ndarray:
+    """fvcore BlendTransform.apply_image semantics (float path, no clip)."""
+    return src_weight * np.asarray(src_image, np.float32) + dst_weight * img.astype(np.float32)
+
+
+def random_contrast(img, lo: float, hi: float, rng: np.random.RandomState):
+    w = rng.uniform(lo, hi)
+    return blend(img, img.mean(), 1 - w, w)
+
+
+def random_brightness(img, lo: float, hi: float, rng: np.random.RandomState):
+    w = rng.uniform(lo, hi)
+    return blend(img, 0, 1 - w, w)
+
+
+def random_saturation(img, lo: float, hi: float, rng: np.random.RandomState):
+    if img.shape[-1] != 3:
+        raise ValueError("saturation jitter takes 3-channel images")
+    w = rng.uniform(lo, hi)
+    grayscale = img[..., :3].astype(np.float32).dot([0.299, 0.587, 0.114])[:, :, None]
+    return blend(img, grayscale, 1 - w, w)
+
+
+_LIGHTING_EIGEN_VECS = np.array(
+    [[-0.5675, 0.7192, 0.4009], [-0.5808, -0.0045, -0.8140], [-0.5836, -0.6948, 0.4203]]
+)
+_LIGHTING_EIGEN_VALS = np.array([0.2175, 0.0188, 0.0045])
+
+
+def random_lighting(img, scale: float, rng: np.random.RandomState):
+    """ImageNet-PCA color jitter (reference RandomLighting :388-413)."""
+    if img.shape[-1] != 3:
+        raise ValueError("lighting jitter takes 3-channel images")
+    weights = rng.normal(scale=scale, size=3)
+    return blend(img, _LIGHTING_EIGEN_VECS.dot(weights * _LIGHTING_EIGEN_VALS), 1.0, 1.0)
+
+
+class ColorAugment:
+    """Optional photometric jitter stack: contrast + brightness + saturation
+    (each an (lo, hi) intensity range or None) and lighting (PCA stddev or
+    None). Composable before :class:`TrainAugment` in a custom mapper."""
+
+    def __init__(self, contrast=None, brightness=None, saturation=None,
+                 lighting=None, rng: Optional[np.random.RandomState] = None):
+        self.contrast = contrast
+        self.brightness = brightness
+        self.saturation = saturation
+        self.lighting = lighting
+        self.rng = rng or np.random.RandomState()
+
+    def __call__(self, image: np.ndarray) -> np.ndarray:
+        if self.contrast is not None:
+            image = random_contrast(image, *self.contrast, rng=self.rng)
+        if self.brightness is not None:
+            image = random_brightness(image, *self.brightness, rng=self.rng)
+        if self.saturation is not None:
+            image = random_saturation(image, *self.saturation, rng=self.rng)
+        if self.lighting is not None:
+            image = random_lighting(image, self.lighting, rng=self.rng)
+        return image
+
+
+def random_extent(
+    image: np.ndarray,
+    boxes: np.ndarray,
+    scale_range: Tuple[float, float],
+    shift_range: Tuple[float, float],
+    rng: np.random.RandomState,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random scaled/shifted subrect crop (reference RandomExtent :263-305);
+    out-of-source pixels are zero. Boxes shift into the subrect frame."""
+    h, w = image.shape[:2]
+    rect = np.array([-0.5 * w, -0.5 * h, 0.5 * w, 0.5 * h])
+    rect *= rng.uniform(scale_range[0], scale_range[1])
+    rect[0::2] += shift_range[0] * w * (rng.rand() - 0.5) + 0.5 * w
+    rect[1::2] += shift_range[1] * h * (rng.rand() - 0.5) + 0.5 * h
+    x0, y0, x1, y1 = (int(v) for v in rect)
+    oh, ow = y1 - y0, x1 - x0
+    out = np.zeros((oh, ow) + image.shape[2:], np.float32)
+    sy0, sy1 = max(0, y0), min(h, y1)
+    sx0, sx1 = max(0, x0), min(w, x1)
+    if sy1 > sy0 and sx1 > sx0:
+        out[sy0 - y0 : sy1 - y0, sx0 - x0 : sx1 - x0] = image[sy0:sy1, sx0:sx1]
+    return out, boxes - np.array([x0, y0, x0, y0], boxes.dtype)
+
+
+class TrainAugment:
+    """[RandomCrop] + ResizeShortestEdge(choice) + RandomFlip(horizontal 0.5),
+    with the JAX package's draws from ``rng`` in its order, per image: the
+    crop's four (if cropping), then ``randint(len(short_sides))``, then
+    ``rand()`` for the flip (if flipping)."""
+
+    def __init__(
+        self,
+        short_sides: Sequence[int] = (640, 672, 704, 736, 768, 800),
+        max_size: int = 1333,
+        flip: bool = True,
+        rng: Optional[np.random.RandomState] = None,
+        crop: Optional[Tuple[float, float]] = None,  # relative_range crop size
+        color: Optional[ColorAugment] = None,  # photometric jitter stack
+    ):
+        self.short_sides = list(short_sides)
+        self.max_size = max_size
+        self.flip = flip
+        self.crop = crop
+        self.color = color
+        self.rng = rng or np.random.RandomState()
+
+    def draw(self, h: int, w: int) -> Tuple[int, int, bool]:
+        """The resized (h, w) of an (h, w) image and whether it is flipped:
+        the draws after the crop's."""
+        short = self.short_sides[self.rng.randint(len(self.short_sides))]
+        nh, nw = resize_shortest_edge_size(h, w, short, self.max_size)
+        return nh, nw, bool(self.flip and self.rng.rand() < 0.5)
+
+    def apply(
+        self, image: np.ndarray, boxes: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """(image, boxes, whether the image was flipped)."""
+        if self.color is not None:
+            image = self.color(image)
+        if self.crop is not None:
+            image, boxes = random_crop(image, boxes, self.crop, self.rng)
+        h, w = image.shape[:2]
+        nh, nw, flip = self.draw(h, w)
+        image = resize_image(image, nh, nw)
+        boxes = resize_boxes(boxes, (h, w), (nh, nw))
+        if flip:
+            image = hflip_image(image)
+            boxes = hflip_boxes(boxes, nw)
+        return image, boxes, flip
+
+    def __call__(
+        self, image: np.ndarray, boxes: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        return self.apply(image, boxes)[:2]
 
 
 class TestResize:

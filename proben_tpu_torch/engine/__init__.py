@@ -1,4 +1,32 @@
+from .defaults import DefaultTrainer
+from .hooks import (
+    CallbackHook,
+    EvalHook,
+    HookBase,
+    IterationTimer,
+    LRLogger,
+    PeriodicCheckpointer,
+    PeriodicWriter,
+    PreciseBNHook,
+    ProfilerHook,
+)
 from .predictor import Predictor
 from .train import TrainState, losses_and_grads, make_train_step, trainable_mask
 
-__all__ = ["Predictor", "TrainState", "losses_and_grads", "make_train_step", "trainable_mask"]
+__all__ = [
+    "CallbackHook",
+    "DefaultTrainer",
+    "EvalHook",
+    "HookBase",
+    "IterationTimer",
+    "LRLogger",
+    "PeriodicCheckpointer",
+    "PeriodicWriter",
+    "PreciseBNHook",
+    "Predictor",
+    "ProfilerHook",
+    "TrainState",
+    "losses_and_grads",
+    "make_train_step",
+    "trainable_mask",
+]

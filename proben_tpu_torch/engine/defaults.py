@@ -1,0 +1,257 @@
+"""DefaultTrainer: config-driven training orchestration (counterpart of
+``proben_tpu/engine/defaults.py``; reference ``engine/defaults.py:201`` +
+``train_loop.py:16-246``).
+
+One device: the model is built on ``device`` (default CUDA; raises without a
+GPU) and the whole ``SOLVER.IMS_PER_BATCH`` batch runs there in every step
+(a batch that does not fit raises; it is never split). The JAX package's
+data parallelism over local devices (``parallel/mesh.py``) is not ported
+(ROADMAP 13, DDP). Hooks around the loop (timer, lr, writers, periodic
+checkpoint, PreciseBN, eval) in the JAX package's order; ``torch.save``
+checkpoints under ``OUTPUT_DIR/checkpoints`` with resume; detectron2
+checkpoint loading from ``MODEL.WEIGHTS``.
+
+The parameters start from the port's own init (``init_rcnn(SEED)``, numpy
+draws, not JAX's threefry) unless ``params`` (a numpy pytree in
+``proben_tpu``'s layout) is given. On resume the index stream and the
+mapper's draws restart from ``SEED``, as in the JAX package: parameters,
+momentum, step and seed are restored, consumed batches are not skipped.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import weakref
+from typing import Dict, List, Optional, Union
+
+import torch
+
+from ..checkpoint import (
+    CheckpointManager,
+    import_detectron2_checkpoint,
+    load_train_state,
+    state_dict_to_jax,
+    train_state_tree,
+)
+from ..config import mapper_config_from_cfg, model_config_from_cfg, solver_config_from_cfg
+from ..data import DatasetCatalog, DatasetMapper, TrainLoader, build_test_loader
+from ..device import resolve_device
+from ..models import RCNN, build_model, init_rcnn
+from ..solver.build import build_lr_schedule
+from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter, TensorboardWriter
+from ..utils.logger import setup_logger
+from .hooks import (
+    EvalHook,
+    HookBase,
+    IterationTimer,
+    LRLogger,
+    PeriodicCheckpointer,
+    PeriodicWriter,
+    PreciseBNHook,
+)
+from .predictor import Predictor
+from .train import TrainState, make_train_step, trainable_mask
+
+logger = logging.getLogger(__name__)
+
+Device = Union[str, torch.device]
+
+
+class DefaultTrainer:
+    def __init__(self, cfg, train_loader=None, params=None, device: Device = "cuda"):
+        setup_logger(cfg.OUTPUT_DIR)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model_cfg = model_config_from_cfg(cfg)
+        self.solver_cfg = solver_config_from_cfg(cfg)
+        self.mapper_cfg = mapper_config_from_cfg(cfg)
+
+        seed = cfg.SEED if cfg.SEED >= 0 else 0
+        if params is None:
+            params = init_rcnn(seed, self.model_cfg)
+            if cfg.MODEL.WEIGHTS:
+                logger.info("loading weights from %s", cfg.MODEL.WEIGHTS)
+                params = import_detectron2_checkpoint(cfg.MODEL.WEIGHTS, params, strict=False)
+        self.model: RCNN = build_model(self.model_cfg, params=params, device=self.device).train()
+        init_state, self._train_step = make_train_step(
+            self.model_cfg, self.solver_cfg, self.build_trainable_mask(self.model))
+        self.state: TrainState = init_state(self.model, seed)
+
+        self.train_loader = train_loader or self.build_train_loader(cfg, self.device)
+        self.checkpointer = CheckpointManager(
+            os.path.join(cfg.OUTPUT_DIR, "checkpoints"),
+            higher_is_better=True,
+        )
+        self.start_iter = 0
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.iter = 0
+        self.storage: Optional[EventStorage] = None
+        self._hooks: List[HookBase] = []
+        self.register_hooks(self.build_hooks())
+
+    # -- construction helpers ------------------------------------------------
+
+    def build_trainable_mask(self, model: RCNN) -> Dict[str, bool]:
+        """``MODEL.BACKBONE.FREEZE_AT`` on the backbone(s), then every
+        parameter of ``MODEL.FREEZE_MODULES`` (KAIST-style freezes)."""
+        return trainable_mask(model, self.cfg.MODEL.BACKBONE.FREEZE_AT,
+                              tuple(self.cfg.MODEL.get("FREEZE_MODULES", ())))
+
+    @classmethod
+    def build_train_loader(cls, cfg, device: Device = "cuda") -> TrainLoader:
+        dicts = []
+        for name in cfg.DATASETS.TRAIN:
+            dicts.extend(DatasetCatalog.get(name))
+        mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=True, seed=max(cfg.SEED, 0),
+                               device=device)
+        return TrainLoader(
+            dicts,
+            mapper,
+            batch_size=cfg.SOLVER.IMS_PER_BATCH,
+            seed=max(cfg.SEED, 0),
+            num_workers=cfg.DATALOADER.NUM_WORKERS,
+        )
+
+    def build_hooks(self) -> List[HookBase]:
+        out_dir = self.cfg.OUTPUT_DIR
+        writers = [
+            CommonMetricPrinter(self.max_iter),
+            JSONWriter(os.path.join(out_dir, "metrics.json")),
+            TensorboardWriter(out_dir),
+        ]
+        hooks = [
+            IterationTimer(),
+            LRLogger(build_lr_schedule(self.solver_cfg)),
+            PeriodicWriter(writers, period=20),
+            PeriodicCheckpointer(self.cfg.SOLVER.CHECKPOINT_PERIOD),
+        ]
+        if self.cfg.TEST.PRECISE_BN.ENABLED:
+            # reference hook list order: PreciseBN runs before EvalHook
+            # (engine/defaults.py:300-342). No shipped model has live BN
+            # statistics (FrozenBN), so the hook disables itself.
+            hooks.append(
+                PreciseBNHook(
+                    # EVAL_PERIOD=0 -> hook fires only at the final iteration
+                    self.cfg.TEST.EVAL_PERIOD,
+                    self.train_loader,
+                    getattr(self, "bn_stats_fn", None),
+                    getattr(self, "bn_apply_fn", None),
+                    num_iters=self.cfg.TEST.PRECISE_BN.NUM_ITER,
+                )
+            )
+        if self.cfg.TEST.EVAL_PERIOD > 0 and self.cfg.DATASETS.TEST:
+            hooks.append(EvalHook(self.cfg.TEST.EVAL_PERIOD, lambda t: t.evaluate()))
+        return hooks
+
+    def register_hooks(self, hooks: List[HookBase]):
+        for h in hooks:
+            h.trainer = weakref.proxy(self)
+        self._hooks.extend(hooks)
+
+    # -- state access ---------------------------------------------------------
+
+    @property
+    def params(self) -> Dict:
+        """The current parameters as a numpy pytree in ``proben_tpu``'s
+        layout: what ``CheckpointManager.save_best`` writes and
+        ``apps.flir.load_params`` reads back. A copy on the host, also on
+        the CPU, so later steps do not change it."""
+        return state_dict_to_jax({k: v.detach().to("cpu", copy=True)
+                                  for k, v in self.model.state_dict().items()})
+
+    # -- checkpointing ---------------------------------------------------------
+
+    def save_checkpoint(self):
+        self.checkpointer.save(self.iter, train_state_tree(self.state))
+
+    def resume_or_load(self, resume: bool = True):
+        if resume:
+            restored = self.checkpointer.restore_latest(train_state_tree(self.state))
+            if restored is not None:
+                self.state = load_train_state(restored, self.state)
+                self.start_iter = int(self.checkpointer.latest_step()) + 1
+                logger.info("resumed from iter %d", self.start_iter)
+
+    # -- the loop ---------------------------------------------------------------
+
+    def run_step(self):
+        batch = next(self.train_loader)
+        gt = batch["gt"]
+        device_batch = {
+            "image": batch["image"].to(self.device),
+            "image_size": batch["image_size"].to(self.device),
+            "gt": type(gt)(gt.boxes.to(self.device), gt.classes.to(self.device),
+                           gt.valid.to(self.device)),
+        }
+        self.state, metrics = self._train_step(self.state, device_batch)
+        self._last_metrics = metrics
+
+    def _write_metrics(self):
+        # the step's one host sync: every metric in one copy
+        names = list(self._last_metrics)
+        values = torch.stack([self._last_metrics[k].float() for k in names]).tolist()
+        for k, v in zip(names, values):
+            self.storage.put_scalar(k, v)
+
+    def train(self) -> TrainState:
+        logger.info("starting training from iter %d to %d", self.start_iter, self.max_iter)
+        self.model.train()
+        with EventStorage(self.start_iter) as self.storage:
+            try:
+                for h in self._hooks:
+                    h.before_train()
+                for self.iter in range(self.start_iter, self.max_iter):
+                    self.storage.iter = self.iter
+                    for h in self._hooks:
+                        h.before_step()
+                    self.run_step()
+                    self._write_metrics()
+                    for h in self._hooks:
+                        h.after_step()
+            finally:
+                for h in self._hooks:
+                    h.after_train()
+                if hasattr(self.train_loader, "close"):
+                    self.train_loader.close()
+        return self.state
+
+    # -- evaluation ---------------------------------------------------------------
+
+    def evaluate(self) -> Dict:
+        """``test`` of the live model (no second copy of the weights); the
+        model is back in training mode afterwards, its ``requires_grad``
+        flags untouched."""
+        try:
+            return self.test(self.cfg, self.model, device=self.device)
+        finally:
+            self.model.train()
+
+    @classmethod
+    def test(cls, cfg, params, evaluators: Optional[Dict] = None, device: Device = "cuda") -> Dict:
+        """Evaluate ``DATASETS.TEST`` through ``build_evaluator`` (or
+        ``evaluators[name]``) and ``inference_on_dataset``, batch 1 as in the
+        JAX package. ``params``: a built ``RCNN`` (used as it is, put in eval
+        mode) or a numpy pytree (a model is built on ``device``)."""
+        from ..evaluation import build_evaluator, inference_on_dataset
+
+        model_cfg = model_config_from_cfg(cfg)
+        model = params if isinstance(params, RCNN) else build_model(model_cfg, params=params,
+                                                                     device=device)
+        predictor = Predictor(model, model_cfg, device)
+        results = {}
+        for name in cfg.DATASETS.TEST:
+            dicts = DatasetCatalog.get(name)
+            if evaluators and name in evaluators:
+                evaluator = evaluators[name]
+            else:
+                # dispatch on the dataset's evaluator_type (reference
+                # build_evaluator pattern); defaults to the FLIR evaluator
+                evaluator = build_evaluator(name, output_dir=cfg.OUTPUT_DIR)
+            mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False, device=device)
+            try:
+                loader = build_test_loader(dicts, mapper, batch_size=1)
+                results[name] = inference_on_dataset(predictor, loader, evaluator)
+            finally:
+                mapper.close()
+        return results if len(results) > 1 else next(iter(results.values()), {})

@@ -13,7 +13,7 @@ keeps one counter).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,14 +33,19 @@ class TrainState:
     generator: torch.Generator  # reseeded from (seed, step) every step
 
 
-def trainable_mask(model: RCNN, freeze_at: int) -> Dict[str, bool]:
+def trainable_mask(model: RCNN, freeze_at: int, freeze_modules: Sequence[str] = ()) -> Dict[str, bool]:
     """Trainable flag per parameter name: the backbone (and the BGRTTT
-    thermal ``backbone_2``) frozen at ``freeze_at``, everything else
-    trainable (JAX ``engine/defaults.py::build_trainable_mask``)."""
+    thermal ``backbone_2``) frozen at ``freeze_at``, every parameter of the
+    top-level modules named in ``freeze_modules`` (``MODEL.FREEZE_MODULES``,
+    e.g. KAIST's ``("backbone", "backbone_2", "roi")``) frozen, everything
+    else trainable (JAX ``engine/defaults.py::build_trainable_mask``)."""
     mask = {name: True for name, _ in model.named_parameters()}
     for bb in ("backbone", "backbone_2"):
         if hasattr(model, bb):
             mask.update({f"{bb}.{k}": v for k, v in freeze_mask(getattr(model, bb), freeze_at).items()})
+    for name in mask:
+        if name.split(".", 1)[0] in freeze_modules:
+            mask[name] = False
     return mask
 
 

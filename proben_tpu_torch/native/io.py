@@ -1,7 +1,8 @@
 """Image loading on the card (counterpart of ``proben_tpu/native/io.py`` and
 ``native/proben_io.cpp``): JPEG decode with nvJPEG, then one kernel that
-composes the channels, resizes to the shortest-edge size and pads a batch into
-the static float32 canvas (``csrc/image_io.cu``).
+composes the channels, resizes to the shortest-edge size, flips the images
+the training augmentation flips and pads a batch into the static float32
+canvas (``csrc/image_io.cu``).
 
 ``compose_resize_pad`` launches the kernel for CUDA tensors and runs
 ``compose_resize_pad_plain``, the same arithmetic in PyTorch, only for CPU
@@ -13,6 +14,7 @@ to the host: without a card, or if nvJPEG or the kernel fail, they raise.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,8 +22,10 @@ import torch
 
 from .. import _build
 
-# launches of the compose kernel (never of the plain version)
+# launches of the compose kernel (never of the plain version); a training
+# loader's worker threads launch it concurrently, so the count is locked
 launches = 0
+_launches_lock = threading.Lock()
 
 FORMATS = {"BGR": (0, 3), "BGRT": (1, 4), "BGRTTT": (2, 6)}  # code, channels
 
@@ -199,29 +203,34 @@ def compose_resize_pad_plain(
     input_format: str,
     sizes: Sequence[Tuple[int, int]],
     pad_shape: Tuple[int, int],
+    flips: Optional[Sequence[bool]] = None,
 ) -> torch.Tensor:
     """Plain version of the compose kernel: for each image, the composed
     thermal-frame image (``_composed_frame``) resized bilinearly with
-    half-pixel centres to ``sizes[i]`` (the shortest-edge size) and
-    zero-padded to ``pad_shape``; (N, PH, PW, C) float32 on the inputs'
-    device. ``thermal[i]``, ``rgb[i]``: decoded (H, W, 1 or 3) uint8."""
+    half-pixel centres to ``sizes[i]`` (the shortest-edge size), flipped
+    horizontally where ``flips[i]`` (the training augmentation's flip of the
+    resized image) and zero-padded to ``pad_shape``; (N, PH, PW, C) float32
+    on the inputs' device. ``thermal[i]``, ``rgb[i]``: decoded (H, W, 1 or
+    3) uint8."""
     ph, pw = pad_shape
     c = FORMATS[input_format][1]
     out = torch.zeros((len(thermal), ph, pw, c), dtype=torch.float32, device=thermal[0].device)
     for i, (nh, nw) in enumerate(sizes):
         frame = _composed_frame(thermal[i], None if rgb is None else rgb[i], input_format)
         th, tw = frame.shape[:2]
-        out[i, :nh, :nw] = _bilinear(frame, nh, nw, _scale(th, nh), _scale(tw, nw))
+        resized = _bilinear(frame, nh, nw, _scale(th, nh), _scale(tw, nw))
+        out[i, :nh, :nw] = resized.flip(1) if flips is not None and flips[i] else resized
     return out
 
 
-def _check_inputs(thermal, rgb, input_format, sizes, pad_shape):
+def _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips):
     if input_format not in FORMATS:
         raise ValueError(f"input_format {input_format!r}: expected one of {sorted(FORMATS)}")
     if (rgb is None) != (input_format == "BGR"):
         raise ValueError(f"{input_format}: rgb images {'missing' if rgb is None else 'given'}")
-    if len(sizes) != len(thermal) or (rgb is not None and len(rgb) != len(thermal)) or not thermal:
-        raise ValueError("one size (and one rgb image for fused formats) per thermal image")
+    if len(sizes) != len(thermal) or (rgb is not None and len(rgb) != len(thermal)) or not thermal \
+            or (flips is not None and len(flips) != len(thermal)):
+        raise ValueError("one size (one flip, one rgb image for fused formats) per thermal image")
     for img in list(thermal) + list(rgb or []):
         if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] not in (1, 3) \
                 or img.device != thermal[0].device or not img.is_contiguous():
@@ -237,15 +246,17 @@ def compose_resize_pad(
     input_format: str,
     sizes: Sequence[Tuple[int, int]],
     pad_shape: Tuple[int, int],
+    flips: Optional[Sequence[bool]] = None,
 ) -> torch.Tensor:
     """The (N, PH, PW, C) float32 canvas of a batch (see
     ``compose_resize_pad_plain``). One kernel launch (per 40 images) for
-    CUDA tensors; the plain version for CPU tensors; raises on anything
-    else."""
-    _check_inputs(thermal, rgb, input_format, sizes, pad_shape)
+    CUDA tensors, which also flips: the thread of output column x < nw
+    computes resized column nw - 1 - x; the plain version for CPU tensors;
+    raises on anything else."""
+    _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips)
     dev = thermal[0].device
     if dev.type == "cpu":
-        return compose_resize_pad_plain(thermal, rgb, input_format, sizes, pad_shape)
+        return compose_resize_pad_plain(thermal, rgb, input_format, sizes, pad_shape, flips)
     if dev.type != "cuda":
         raise ValueError(f"compose_resize_pad: unsupported device {dev}")
     fmt, c = FORMATS[input_format]
@@ -254,7 +265,7 @@ def compose_resize_pad(
         r = t if rgb is None else rgb[i]  # BGR reads no RGB image
         (th, tw, tc), (rh, rw, rc), (nh, nw) = t.shape, r.shape, sizes[i]
         ptrs += [t.data_ptr(), 0 if rgb is None else r.data_ptr()]
-        ints += [th, tw, tc, rh, rw, rc, nh, nw]
+        ints += [th, tw, tc, rh, rw, rc, nh, nw, int(bool(flips[i])) if flips is not None else 0]
         scales += [_scale(th, nh), _scale(tw, nw), _cv2_scale(rh, th), _cv2_scale(rw, tw)]
     n = len(thermal)
     # host tables; the library passes them to the kernel as parameters
@@ -268,7 +279,8 @@ def compose_resize_pad(
                                     out.data_ptr(), n, pad_shape[0], pad_shape[1], fmt, c, _stream())
     _check(code, "compose_resize_pad")
     global launches
-    launches += -(-n // lib.image_io_max_batch())
+    with _launches_lock:
+        launches += -(-n // lib.image_io_max_batch())
     return out
 
 
@@ -282,9 +294,10 @@ def load_batch(
 ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """Read and decode a batch on the card and make its canvas in one
     launch. ``sizes_fn(h, w)`` gives an image's resized (h, w) from its
-    thermal-frame size; ``pad_shape`` None pads to the largest. Returns
-    (images (N, PH, PW, C) float32 CUDA, sizes (N, 2) int32 resized hw,
-    orig (N, 2) int32 thermal-frame hw)."""
+    thermal-frame size, or (h, w, flip) to flip the resized image
+    horizontally; it is called image by image, in order. ``pad_shape``
+    None pads to the largest. Returns (images (N, PH, PW, C) float32 CUDA,
+    sizes (N, 2) int32 resized hw, orig (N, 2) int32 thermal-frame hw)."""
     files: List[bytes] = []
     for p in list(thermal_paths) + list(rgb_paths or []):
         with open(p, "rb") as f:
@@ -293,7 +306,9 @@ def load_batch(
     n = len(thermal_paths)
     thermal, rgb = decoded[:n], (decoded[n:] if rgb_paths is not None else None)
     orig = np.array([t.shape[:2] for t in thermal], np.int32).reshape(-1, 2)
-    sizes = np.array([sizes_fn(int(h), int(w)) for h, w in orig], np.int32).reshape(-1, 2)
+    draws = [tuple(sizes_fn(int(h), int(w))) for h, w in orig]
+    sizes = np.array([d[:2] for d in draws], np.int32).reshape(-1, 2)
+    flips = [len(d) > 2 and bool(d[2]) for d in draws]
     pad = tuple(pad_shape) if pad_shape is not None else tuple(int(v) for v in sizes.max(0))
-    images = compose_resize_pad(thermal, rgb, input_format, [tuple(s) for s in sizes], pad)
+    images = compose_resize_pad(thermal, rgb, input_format, [tuple(s) for s in sizes], pad, flips)
     return images, sizes, orig

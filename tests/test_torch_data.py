@@ -214,8 +214,10 @@ def test_build_test_loader_equals_jax(tree, batch_size):
 
 def test_mapper_device_rules(monkeypatch):
     _, tcfg = _mapper_cfgs("BGR")
-    with pytest.raises(NotImplementedError, match="trainer"):
-        DatasetMapper(tcfg, device="cpu")
+    assert DatasetMapper(tcfg, device="cpu").is_train  # the training branch, on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="Crop on the card"):  # before any codec opens
+        DatasetMapper(MapperConfig(**{**tcfg.__dict__, "crop": (0.9, 0.9)}))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         DatasetMapper(tcfg, is_train=False)

@@ -37,6 +37,7 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.fusion
         import proben_tpu_torch.fusion.proben_numpy
         import proben_tpu_torch.fusion.proben_torch
+        import proben_tpu_torch.image_io_ab
         import proben_tpu_torch.kernel_probe
         import proben_tpu_torch.models
         import proben_tpu_torch.models.gaussian_blur
@@ -46,17 +47,24 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.structures
         import proben_tpu_torch.apps.flir
         import proben_tpu_torch.apps.kaist
+        import proben_tpu_torch.apps.train_net
         import proben_tpu_torch.checkpoint.ckpt
         import proben_tpu_torch.checkpoint.paths
         import proben_tpu_torch.checkpoint.torch_import
         import proben_tpu_torch.config
         import proben_tpu_torch.data
+        import proben_tpu_torch.data.samplers
+        import proben_tpu_torch.data.transforms
+        import proben_tpu_torch.engine.defaults
+        import proben_tpu_torch.engine.hooks
         import proben_tpu_torch.evaluation
         import proben_tpu_torch.evaluation.build
         import proben_tpu_torch.evaluation.kaist
         import proben_tpu_torch.evaluation.testing
+        import proben_tpu_torch.models.batch_norm
         import proben_tpu_torch.models.layers
         import proben_tpu_torch.native
+        import proben_tpu_torch.utils.events
         import proben_tpu_torch.utils.logger
         import proben_tpu_torch.utils.opt
         import chip_smoke
@@ -72,18 +80,25 @@ def test_imports_load_no_jax_and_no_proben_tpu():
 
 def test_imports_load_no_cv2_yaml_or_pil():
     """The runtime slice (config, data, evaluation, native IO, checkpoints,
-    the FLIR and KAIST apps) and the model, ops and training modules load
-    none of cv2, PyYAML or Pillow: the card's machine may lack them."""
+    the FLIR and KAIST apps, the trainer, its hooks and event writers, and
+    ``train_net``) and the model, ops and training modules load none of
+    cv2, PyYAML or Pillow: the card's machine may lack them."""
     code = textwrap.dedent(
         """
         import sys
         import proben_tpu_torch.apps.flir
         import proben_tpu_torch.apps.kaist
+        import proben_tpu_torch.apps.train_net
         import proben_tpu_torch.checkpoint
         import proben_tpu_torch.config
         import proben_tpu_torch.data
+        import proben_tpu_torch.data.samplers
+        import proben_tpu_torch.data.transforms
+        import proben_tpu_torch.engine
         import proben_tpu_torch.engine.train
         import proben_tpu_torch.evaluation
+        import proben_tpu_torch.models.batch_norm
+        import proben_tpu_torch.utils.events
         import proben_tpu_torch.models
         import proben_tpu_torch.native
         import proben_tpu_torch.ops.roi_align_cuda
@@ -135,6 +150,51 @@ def test_kaist_app_imports_cv2_only_in_its_cpu_reader():
 
     assert cv2_imports("proben_tpu_torch/apps/kaist.py") == ([], [])
     assert cv2_imports("proben_tpu_torch/data/detection_utils.py") == (["_read_image_cpu"], [])
+
+
+def test_training_modules_import_cv2_only_in_the_cpu_resize():
+    """The training slice keeps cv2 where the test path had it: in
+    ``data/transforms.py`` only inside ``resize_image`` (the CPU resize the
+    JAX package does with cv2), and not at all in the mapper, the loader,
+    the trainer, its hooks and events, or the training apps."""
+    def cv2_owners(rel):
+        tree = ast.parse((ROOT / rel).read_text())
+        top = [node for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))
+               and "cv2" in [a.name for a in node.names] + [getattr(node, "module", None)]]
+        assert not top, rel
+        return sorted({fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+                       for node in ast.walk(fn)
+                       if isinstance(node, ast.Import) and any(a.name == "cv2" for a in node.names)})
+
+    assert cv2_owners("proben_tpu_torch/data/transforms.py") == ["resize_image"]
+    for rel in ("data/dataset_mapper.py", "data/loader.py", "data/samplers.py", "engine/defaults.py",
+                "engine/hooks.py", "utils/events.py", "models/batch_norm.py", "apps/flir.py",
+                "apps/kaist.py", "apps/train_net.py"):
+        assert cv2_owners(f"proben_tpu_torch/{rel}") == [], rel
+
+
+def test_trainer_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``DefaultTrainer``, the training mapper, ``train_flir`` and
+    ``train_net`` default to the card and raise without one, before
+    touching any data."""
+    from proben_tpu_torch.apps import flir, train_net
+    from proben_tpu_torch.config import get_cfg
+    from proben_tpu_torch.data import DatasetMapper, MapperConfig
+    from proben_tpu_torch.engine import DefaultTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_cfg()
+    cfg.OUTPUT_DIR = str(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DefaultTrainer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DatasetMapper(MapperConfig(), is_train=True)
+    (tmp_path / flir.TRAIN_JSON_NAME).write_text('{"images": [], "annotations": [], "categories": []}')
+    (tmp_path / flir.VAL_JSON_NAME).write_text('{"images": [], "annotations": [], "categories": []}')
+    with pytest.raises(RuntimeError, match="cuda"):
+        flir.train_flir("thermal_only", str(tmp_path), str(tmp_path / "out"), max_iter=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_net.main(["OUTPUT_DIR", str(tmp_path / "net")])
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):

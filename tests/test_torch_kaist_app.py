@@ -239,7 +239,7 @@ def test_command_line(d2_file, kaist_root, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         kaist.main(["lamr", *common, "--model_path", path])
-    with pytest.raises(NotImplementedError, match="12f"):
+    with pytest.raises(RuntimeError, match="cuda"):  # training, too, defaults to the card
         kaist.train_kaist("thermal_only", "d", kaist_root["ann"], kaist_root["root"], kaist_root["split"], out)
 
 

@@ -385,6 +385,37 @@ def test_image_io_kernel_matches_plain(fmt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["BGR", "BGRT", "BGRTTT"])
+def test_image_io_kernel_flips_match_plain(fmt):
+    """The training flip inside the compose launch (C = 3, 4, 6): flipped
+    and unflipped images in one launch, odd and even widths, equal to the
+    plain version (resize, then ``torch.flip`` of the valid region) bit for
+    bit, padding zero; a flipped image's canvas is its unflipped one
+    mirrored."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(5)
+    thermal = [_u8(rng, 48, 64, 1), _u8(rng, 50, 40, 3), _u8(rng, 33, 47, 1), _u8(rng, 40, 30, 3)]
+    rgb = [_u8(rng, 160, 180, 3), _u8(rng, 20, 24, 3), _u8(rng, 33, 47, 1), _u8(rng, 64, 48, 3)]
+    sizes = [(80, 101), (30, 24), (33, 47), (64, 48)]
+    flips = [True, False, True, True]
+    t = [torch.from_numpy(a).cuda() for a in thermal]
+    r = None if fmt == "BGR" else [torch.from_numpy(a).cuda() for a in rgb]
+    before = io.launches
+    got = io.compose_resize_pad(t, r, fmt, sizes, (96, 112), flips)
+    ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (96, 112), flips)
+    unflipped = io.compose_resize_pad(t, r, fmt, sizes, (96, 112))
+    torch.cuda.synchronize()
+    assert io.launches == before + 2
+    assert torch.equal(got, ref)
+    for i, ((h, w), f) in enumerate(zip(sizes, flips)):
+        want = unflipped[i, :h, :w].flip(1) if f else unflipped[i, :h, :w]
+        assert torch.equal(got[i, :h, :w], want), i
+        assert not got[i, h:].any() and not got[i, :, w:].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["BGRT", "BGRTTT"])
 def test_image_io_kernel_at_equal_frame_sizes(fmt):
     """KAIST: the RGB and thermal frames have one size (3-channel both), so
