@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the repository root; needs one card
     python3 chip_smoke.py --profile  # also per-stage breakdowns and profiler tables
                                      # (single-modality and middle fusion)
+    python3 chip_smoke.py --kaist-divergence  # only the KAIST trainer probe
+                                              # (``kaist_divergence_probe``, ~3 min)
 
 Phases, each raising on a miss (exit code != 0, no result line):
 
@@ -99,11 +101,34 @@ Phases, each raising on a miss (exit code != 0, no result line):
    and the trainer's model, K1 (each stream), K2 and K3 against their
    plain versions on that step's inputs, K3 as the only difference in
    its losses and gradients, and a bare ``train_step`` img/s;
-13. one JSON line per kernel, one for each slice and fusion mode, one for
-   the FLIR and one for the KAIST evaluation, one for the trainer, one
-   listing every kernel (launches per path, the C = 512, C = 4 and C = 6
-   readings, ``image_io`` with flips at the training shapes); the last
-   line is ``{"ok": true, "device": {...}}``.
+13. the other detector heads (``heads_phase``), R101, bf16, batch 8,
+   800x1024, random weights from a seed with random affines, calibrated:
+   C4 (``models/c4.py``) inference, K1 once and K2 at P = 14 once per batch
+   (1000 proposals per image on the res4 map, C = 1024), held to the plain
+   path as in phase 4's check (3), K2 at P = 14 against its plain version on
+   those proposals (and hazard boxes, bf16 and f32), one training step
+   (forward + backward: K1, K2 and K3 at P = 14 once each), K3 at P = 14
+   against its plain version on its 8 x 512 sampled RoIs, deterministic;
+   Cascade (``models/cascade.py``) on an R101-FPN: inference (K2 three
+   times per batch) held to the plain path, one training step (K2 six
+   times, K3 three times), K2 and K3 against their plain versions on the
+   last stage's boxes and sampled RoIs; ProposalNetwork inference (K1
+   once); ``DetectionTTA`` with ``rescore=True`` on one 800x1000 image at
+   scales 400-800 with flips (one ``image_io`` launch, K1 and K2 twice),
+   its 10 augmentations from ``image_io`` bit for bit against the plain
+   version, K1 on that batch of 10 and K2 on its proposals and on the
+   rescoring pass's given boxes against their plain versions; RetinaNet
+   inference and one training step (K1 once each). Every path's launches
+   counted from 0 around it; stage times (the pooler's weights, K2 and
+   the out-of-window fallback apart, with the RoIs out of window, per
+   C4 and per Cascade stage), img/s and step times (CUDA events over 15
+   calls);
+14. one JSON line per kernel, one for each slice and fusion mode, one for
+   the FLIR and one for the KAIST evaluation, one for the trainer, one for
+   the other heads, one listing every kernel (launches per path, the C =
+   512, C = 4 and C = 6 readings, K2 and K3 at P = 14 / C = 1024 and on
+   Cascade's last stage, ``image_io`` with flips at the training shapes);
+   the last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
@@ -111,6 +136,7 @@ when run from a directory that holds this file and nothing else of the repo.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -339,29 +365,28 @@ def check_roi(features, lvl_idx, y0, x0, wy, wx, k, label):
     return float(diff.max())
 
 
-def roi_phase(model, images, sizes):
-    from proben_tpu_torch.models import rcnn
+def k2_reading(levels, boxes, pooler, label, seed=2):
+    """K2 on a path's own pooling inputs (``levels`` (B, H, W, C) NHWC, ``boxes``
+    (B, K, 4), ``pooler``: ``window_inputs``'s keywords): held against its
+    plain version, then with 64 hazard boxes mixed in (bf16 and f32); its
+    time, the plain version's and the bound from this run's inputs. Returns
+    (the reading, the hazard boxes)."""
     from proben_tpu_torch.ops import roi_align_cuda
 
-    cfg = model.cfg
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    with torch.inference_mode():
-        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, images))
-        boxes, _, _ = rcnn.propose(model, cfg, feats, sizes)
-        levels = rcnn.roi_levels(feats)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     b, k, _ = boxes.shape
 
     def inputs(bx):
-        return roi_align_cuda.window_inputs(levels, bx, **cfg.roi.pooler_args)
+        return roi_align_cuda.window_inputs(levels, bx, **pooler)
 
-    # main path: the run's calibrated proposals
     lvl, y0, x0, wy, wx, oow = inputs(boxes)
-    err = check_roi(levels, lvl, y0, x0, wy, wx, k, "main-path proposals bf16")
-    log(f"K2 main path: {int(oow.sum())} out-of-window RoIs of {b * k}; level histogram "
-        f"{torch.bincount(lvl.long(), minlength=4).tolist()}")
+    p, c = wy.shape[1], levels[0].shape[-1]
+    err = check_roi(levels, lvl, y0, x0, wy, wx, k, f"{label} bf16")
+    log(f"K2 {label}: P = {p}, C = {c}, {int(oow.sum())} out-of-window RoIs of {b * k}; level "
+        f"histogram {torch.bincount(lvl.long(), minlength=len(levels)).tolist()}")
     ms = cuda_ms(lambda: roi_align_cuda.roi_align_fwd(levels, lvl, y0, x0, wy, wx, k), 30)
     plain_ms = cuda_ms(lambda: roi_align_cuda.roi_align_fwd_plain(levels, lvl, y0, x0, wy, wx, k), 5)
-    nbytes = (b * k * 49 * levels[0].shape[-1] * levels[0].element_size()
+    nbytes = (b * k * p * p * c * levels[0].element_size()
               + wy.numel() * 4 + wx.numel() * 4 + 3 * 4 * b * k
               + needed_feature_bytes(levels, lvl, y0, x0, wy, wx, k))
     # multiply-adds the data needs per channel: the y pass over nonzero wy
@@ -369,33 +394,47 @@ def roi_phase(model, images, sizes):
     ny = (wy != 0).sum(dim=(1, 2)).double()
     ncol = (wx != 0).any(dim=1).sum(dim=1).double()
     nx = (wx != 0).sum(dim=(1, 2)).double()
-    p = wy.shape[1]
-    flops = 2.0 * levels[0].shape[-1] * float((ncol * ny + p * nx).sum())
+    flops = 2.0 * c * float((ncol * ny + p * nx).sum())
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
 
-    # hazard boxes mixed into the proposals, bf16 and f32 features
+    # hazard boxes mixed into the path's boxes, bf16 and f32 features
     hz = boxes.clone()
     hz[:, -64:] = hazard_boxes(64, gen)
     lvl_h, y0_h, x0_h, wy_h, wx_h, _ = inputs(hz)
-    err_h = check_roi(levels, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes bf16")
+    err_h = check_roi(levels, lvl_h, y0_h, x0_h, wy_h, wx_h, k, f"{label} with hazard boxes bf16")
     levels32 = [f.float() for f in levels]
-    err32 = check_roi(levels32, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes f32")
+    err32 = check_roi(levels32, lvl_h, y0_h, x0_h, wy_h, wx_h, k, f"{label} with hazard boxes f32")
+    log(f"K2 timing ({label}): kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound "
+        f"{max(t_ops, t_bytes):.4g} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+        f"{ms / max(t_ops, t_bytes):.1f}x bound; errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
+    return dict(
+        max_abs_err=max(err, err_h), ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", gflop=flops / 1e9,
+        mbytes=nbytes / 1e6, max_abs_err_f32=err32, p=p, c=c, rois=b * k,
+        out_of_window=int(oow.sum()),
+    ), hz
+
+
+def roi_phase(model, images, sizes):
+    from proben_tpu_torch.models import rcnn
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, images))
+        boxes, _, _ = rcnn.propose(model, cfg, feats, sizes)
+        levels = rcnn.roi_levels(feats)
+    b, k, _ = boxes.shape
+    # main path: the run's calibrated proposals
+    reading, hz = k2_reading(levels, boxes, cfg.roi.pooler_args, "main-path proposals")
     # the whole path incl. the out-of-window fallback must stay finite on the hazards
     out = rcnn.pool_proposals(cfg, feats, hz)
     finite_rows = torch.isfinite(out.float()).reshape(b, k, -1).all(-1)
     nan_box = ~torch.isfinite(hz).all(-1)
     if not bool((finite_rows | nan_box).all()):
         raise AssertionError("K2: non-finite pooled rows for finite boxes")
-    log(f"K2 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {max(t_ops, t_bytes):.4g} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / max(t_ops, t_bytes):.1f}x bound; "
-        f"errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
     return dict(
         name="roi_align_fwd", route="cuda", source="proben_tpu_torch/csrc/roi_align_fwd.cu",
-        replaces="proben_tpu/ops/roi_align_pallas.py:532", max_abs_err=max(err, err_h),
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
-        gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err_f32=err32,
-    )
+        replaces="proben_tpu/ops/roi_align_pallas.py:532", library_ms=None, **reading)
 
 
 # ---------------------------------------------------------------------------
@@ -515,26 +554,29 @@ def sampled_rois(model, batch, seed=0):
     return rcnn.roi_levels(feats), s_boxes
 
 
-def bwd_phase(model, batch):
+def k3_reading(levels, boxes, pooler, label, seed=3):
+    """K3 on a path's own pooling inputs and a seeded bf16 cotangent (0.01
+    N(0, 1)): held against its plain version, then with 64 hazard boxes
+    mixed in (bf16 and f32), two calls bitwise equal on each; the memory one
+    call allocates, its time, the plain version's and the bound from this
+    run's inputs."""
     from proben_tpu_torch.ops import roi_align_cuda
     from proben_tpu_torch.ops.roi_align import roi_align_bwd_plain
 
-    cfg = model.cfg
-    levels, boxes = sampled_rois(model, batch)
     b, k, _ = boxes.shape
     shapes = [tuple(f.shape) for f in levels]
     c = shapes[0][-1]
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def inputs(bx):
-        return roi_align_cuda.window_inputs(levels, bx, **cfg.roi.pooler_args)
+        return roi_align_cuda.window_inputs(levels, bx, **pooler)
 
-    # main path: the sampled RoIs and a seeded bf16 cotangent
     lvl, y0, x0, wy, wx, oow = inputs(boxes)
-    g = (0.01 * torch.randn(b * k, 7, 7, c, generator=gen, device="cuda")).to(torch.bfloat16)
-    err = check_bwd(g, shapes, lvl, y0, x0, wy, wx, k, "main-path RoIs bf16")
-    log(f"K3 main path: {b * k} RoIs, {int(oow.sum())} out of window; level histogram "
-        f"{torch.bincount(lvl.long(), minlength=4).tolist()}")
+    p = wy.shape[1]
+    g = (0.01 * torch.randn(b * k, p, p, c, generator=gen, device="cuda")).to(torch.bfloat16)
+    err = check_bwd(g, shapes, lvl, y0, x0, wy, wx, k, f"{label} bf16")
+    log(f"K3 {label}: P = {p}, C = {c}, {b * k} RoIs, {int(oow.sum())} out of window; level "
+        f"histogram {torch.bincount(lvl.long(), minlength=len(levels)).tolist()}")
     # device memory one K3 call allocates (outputs and scratch)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -542,7 +584,7 @@ def bwd_phase(model, batch):
     roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
     alloc_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
     df_mb = sum(s[0] * s[1] * s[2] * s[3] for s in shapes) * g.element_size() / 1e6
-    log(f"K3 allocates {alloc_mb:.1f} MB per call (dF {df_mb:.1f} MB)")
+    log(f"K3 ({label}) allocates {alloc_mb:.1f} MB per call (dF {df_mb:.1f} MB)")
     ms = cuda_ms(lambda: roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k), 30)
     plain_ms = cuda_ms(lambda: roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k), 5)
     # bytes: the cotangent, weights and origins read once, every dF written
@@ -551,37 +593,45 @@ def bwd_phase(model, batch):
     # nonzero wy tap
     nbytes = (g.numel() * g.element_size() + wy.numel() * 4 + wx.numel() * 4 + 3 * 4 * b * k
               + sum(s[0] * s[1] * s[2] * s[3] for s in shapes) * g.element_size())
-    p = wy.shape[1]
     nnz_y = (wy != 0).sum(dim=(1, 2)).double()
     rows = (wy != 0).any(dim=1).sum(dim=1).double()
     nnz_x = (wx != 0).sum(dim=(1, 2)).double()
     flops = 2.0 * c * float((p * nnz_y + rows * nnz_x).sum())
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
 
-    # hazard boxes mixed into the sampled RoIs, bf16 and f32
+    # hazard boxes mixed into the path's RoIs, bf16 and f32
     hz = boxes.clone()
     hz[:, -64:] = hazard_boxes(64, gen)
     lvl_h, y0_h, x0_h, wy_h, wx_h, _ = inputs(hz)
     windows = hazard_windows(shapes, hz.reshape(-1, 4), lvl_h, y0_h, x0_h, k)
-    err_h = check_bwd(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes bf16", windows)
-    err32 = check_bwd(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, "hazard boxes f32", windows)
-    repeat = {"main path bf16": bitwise_repeatable(g, shapes, lvl, y0, x0, wy, wx, k),
+    err_h = check_bwd(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k, f"{label} with hazard boxes bf16",
+                      windows)
+    err32 = check_bwd(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k,
+                      f"{label} with hazard boxes f32", windows)
+    repeat = {"bf16": bitwise_repeatable(g, shapes, lvl, y0, x0, wy, wx, k),
               "hazards bf16": bitwise_repeatable(g, shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k),
               "hazards f32": bitwise_repeatable(g.float(), shapes, lvl_h, y0_h, x0_h, wy_h, wx_h, k)}
-    log(f"K3 two calls bitwise equal: {repeat}")
+    log(f"K3 ({label}) two calls bitwise equal: {repeat}")
     if not all(repeat.values()):
-        raise AssertionError(f"K3 is not deterministic: {repeat}")
-    log(f"K3 timing: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {max(t_ops, t_bytes):.4g} ms "
-        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), {ms / max(t_ops, t_bytes):.1f}x bound; "
-        f"errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
+        raise AssertionError(f"K3 is not deterministic ({label}): {repeat}")
+    log(f"K3 timing ({label}): kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, bound "
+        f"{max(t_ops, t_bytes):.4g} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+        f"{ms / max(t_ops, t_bytes):.1f}x bound; errors {err:.3g}/{err_h:.3g}/{err32:.3g}")
+    return dict(
+        max_abs_err=max(err, err_h), ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes", gflop=flops / 1e9,
+        mbytes=nbytes / 1e6, max_abs_err_f32=err32, deterministic=True, alloc_mb=alloc_mb,
+        p=p, c=c, rois=b * k, out_of_window=int(oow.sum()),
+    )
+
+
+def bwd_phase(model, batch):
+    levels, boxes = sampled_rois(model, batch)
+    # main path: the sampled RoIs and a seeded bf16 cotangent
+    reading = k3_reading(levels, boxes, model.cfg.roi.pooler_args, "main-path RoIs")
     return dict(
         name="roi_align_bwd", route="cuda", source="proben_tpu_torch/csrc/roi_align_bwd.cu",
-        replaces="proben_tpu/ops/roi_align_bwd_pallas.py:350", max_abs_err=max(err, err_h),
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
-        gflop=flops / 1e9, mbytes=nbytes / 1e6, max_abs_err_f32=err32, deterministic=True,
-        alloc_mb=alloc_mb,
-    )
+        replaces="proben_tpu/ops/roi_align_bwd_pallas.py:350", library_ms=None, **reading)
 
 
 # ---------------------------------------------------------------------------
@@ -597,6 +647,16 @@ def set_background_bias(model, bg_bias: float, w_scale: float, base_w: torch.Ten
     cls.bias[-1] = bg_bias
 
 
+def scale_convs(convs, outs, targets):
+    """Rescale each conv (weight and bias) so that its per-level outputs
+    ``outs`` (lists of tensors) get the target std."""
+    with torch.no_grad():
+        for conv, t, target in zip(convs, outs, targets):
+            s = target / float(torch.cat([x.flatten() for x in t]).float().std())
+            conv.weight.mul_(s)
+            conv.bias.mul_(s)
+
+
 def calibrate_rpn(model, images, logit_std=2.0, delta_std=0.1):
     """Rescale the RPN's objectness and delta convs (weight and bias) to the
     given output std on ``images``. Random delta convs give large deltas,
@@ -609,31 +669,34 @@ def calibrate_rpn(model, images, logit_std=2.0, delta_std=0.1):
     with torch.inference_mode():
         feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, images))
         outs = apply_rpn_head(model.rpn_head, [feats[f] for f in rcnn.RPN_IN_FEATURES], cfg.dtype)
-    with torch.no_grad():
-        for conv, t, target in zip((model.rpn_head.objectness, model.rpn_head.deltas), outs,
-                                   (logit_std, delta_std)):
-            s = target / float(torch.cat([x.flatten() for x in t]).std())
-            conv.weight.mul_(s)
-            conv.bias.mul_(s)
+    scale_convs((model.rpn_head.objectness, model.rpn_head.deltas), outs, (logit_std, delta_std))
+
+
+def bisect_bias(set_bias, dets_per_img, lo, hi, target=(20, 80), steps=10, fewer_when_higher=True):
+    """Bisect a bias in [lo, hi] (``set_bias(value)``) until the mean
+    detections per image (``dets_per_img()``) land in ``target``; returns
+    (bias, detections per image)."""
+    n = float("nan")
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        with torch.no_grad():
+            set_bias(mid)
+        n = dets_per_img()
+        if (n > target[1]) == fewer_when_higher and not target[0] <= n <= target[1]:
+            lo = mid
+        elif not target[0] <= n <= target[1]:
+            hi = mid
+        else:
+            break
+    return mid, n
 
 
 def calibrate(model, predictor, images, sizes, lo=0.0, hi=16.0, target=(20, 80), steps=10):
     """Bisect the background bias until mean dets/img lands in ``target``."""
     base_w = model.roi.output.cls_score.weight.detach().clone()
-    n = float("nan")
-    for _ in range(steps):
-        mid = 0.5 * (lo + hi)
-        with torch.no_grad():
-            set_background_bias(model, mid, 0.02, base_w)
-        det = predictor.infer(images, sizes, sizes)
-        n = float(det.valid.sum(-1).float().mean())
-        if n > target[1]:
-            lo = mid
-        elif n < target[0]:
-            hi = mid
-        else:
-            break
-    return mid, n
+    return bisect_bias(lambda b: set_background_bias(model, b, 0.02, base_w),
+                       lambda: float(predictor.infer(images, sizes, sizes).valid.sum(-1).float().mean()),
+                       lo, hi, target, steps)
 
 
 def match_fraction(a, b, iou_min=0.95, score_tol=0.02):
@@ -763,14 +826,11 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
                           max_memory_gb=peak)
 
 
-def stage_times(model, images, sizes, reps=5):
-    """Median ms per stage of one batch: the functions ``rcnn_inference``
-    calls, in its order, each timed with CUDA events after a synchronize
-    (the proposal NMS syncs with the host anyway)."""
-    from proben_tpu_torch.models import rcnn
-    from proben_tpu_torch.models.roi_heads import roi_heads_predict_from_pooled
-
-    cfg = model.cfg
+def stage_medians(pipeline, reps=5):
+    """Median ms per named stage of ``pipeline(timed)`` over ``reps`` runs
+    after a warm-up, under ``torch.inference_mode``: ``timed(name, fn)``
+    runs ``fn`` between CUDA events after a synchronize and returns its
+    result."""
     acc = {}
 
     def timed(name, fn):
@@ -785,15 +845,29 @@ def stage_times(model, images, sizes, reps=5):
 
     with torch.inference_mode():
         for _ in range(reps + 1):
-            x = timed("preprocess", lambda: rcnn.preprocess(cfg, images))
-            feats = timed("backbone (stem K1 + ResNet) + FPN", lambda: rcnn.extract_features(model, cfg, x))
-            boxes, _, valid = timed("RPN head + proposals (top-k, decode, NMS)",
-                                    lambda: rcnn.propose(model, cfg, feats, sizes))
-            pooled = timed("roi align (weights, K2, fallback)",
-                           lambda: rcnn.pool_proposals(cfg, feats, boxes))
-            timed("box head + detection NMS", lambda: roi_heads_predict_from_pooled(
-                model.roi, pooled, boxes, valid, sizes, cfg.rcnn, dtype=cfg.dtype))
+            pipeline(timed)
     return {k: float(np.median(v[1:])) for k, v in acc.items()}
+
+
+def stage_times(model, images, sizes, reps=5):
+    """Median ms per stage of one batch: the functions ``rcnn_inference``
+    calls, in its order (``stage_medians``; the proposal NMS syncs with the
+    host anyway)."""
+    from proben_tpu_torch.models import rcnn
+    from proben_tpu_torch.models.roi_heads import roi_heads_predict_from_pooled
+
+    cfg = model.cfg
+
+    def pipeline(timed):
+        x = timed("preprocess", lambda: rcnn.preprocess(cfg, images))
+        feats = timed("backbone (stem K1 + ResNet) + FPN", lambda: rcnn.extract_features(model, cfg, x))
+        boxes, _, valid = timed("RPN head + proposals (top-k, decode, NMS)",
+                                lambda: rcnn.propose(model, cfg, feats, sizes))
+        pooled = timed("roi align (weights, K2, fallback)", lambda: rcnn.pool_proposals(cfg, feats, boxes))
+        timed("box head + detection NMS", lambda: roi_heads_predict_from_pooled(
+            model.roi, pooled, boxes, valid, sizes, cfg.rcnn, dtype=cfg.dtype))
+
+    return stage_medians(pipeline, reps)
 
 
 def profile_phase(pred, images, sizes):
@@ -2033,14 +2107,24 @@ def check_train_loader(codec, cfg, dicts, seed, n=3, workers=4):
     return {"workers": workers, "batches": n, "indices": seen}
 
 
-def d2_weights(cfg, seed, path):
+def d2_weights(cfg, seed, path, var_scale=0.01):
     """A detectron2 ``.pth`` of the config's model with random affines (so
     every residual branch is live and every trainable tensor gets a
-    gradient), for ``MODEL.WEIGHTS``."""
+    gradient), for ``MODEL.WEIGHTS``. A variance head's weights are scaled
+    by ``var_scale``, so that its log-variances start near 0 as a trained
+    head's do: at the random init's scale (``var_scale`` 1) they reach
+    several units, the Gaussian NLL's 1 / variance then amplifies the
+    FPN's gradient, and KAIST's run (the RoI heads frozen, so the head
+    cannot adapt) can diverge to NaN within 12 steps, with its kernels and
+    with their plain versions alike (``kaist_divergence_probe``)."""
     from proben_tpu_torch.config import model_config_from_cfg
     from proben_tpu_torch.models import init_rcnn, random_affines
 
-    sd = d2_state_dict(random_affines(init_rcnn(seed, model_config_from_cfg(cfg)), seed))
+    params = random_affines(init_rcnn(seed, model_config_from_cfg(cfg)), seed)
+    var_pred = params["roi"]["output"].get("var_pred")
+    if var_pred is not None:
+        var_pred["w"] = var_pred["w"] * var_scale
+    sd = d2_state_dict(params)
     torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
     return path
 
@@ -2142,6 +2226,24 @@ def eval_runs(start, max_iter, period):
     return sum((it + 1) % period == 0 and it != max_iter - 1 for it in range(start, max_iter)) + 1
 
 
+def model_stem_check(model, cfg, images):
+    """K1 against its plain version (``check_stem``) on the normalized
+    ``images`` (N, H, W, C) raw into each stream's stem, with the model's
+    stem weights: the largest error."""
+    from proben_tpu_torch.models import rcnn
+
+    x = rcnn.preprocess(cfg, images)
+    streams = [(model.backbone, x[..., :3]), (model.backbone_2, x[..., 3:])] if cfg.dual \
+        else [(model.backbone, x)]
+    errs = []
+    for bb, xs in streams:
+        st = bb.stem
+        errs.append(check_stem(xs.to(cfg.dtype).contiguous(),
+                               st.conv1.weight.permute(2, 3, 1, 0).to(cfg.dtype).contiguous(),
+                               st.norm1.scale.to(cfg.dtype), st.norm1.bias.to(cfg.dtype)))
+    return max(errs)
+
+
 def held_batch_checks(watch, label, stem, bare_steps=6):
     """After a training app's run (its launch counts read): K1 (when the
     path launches it), K2 and K3 against their plain versions on the
@@ -2154,23 +2256,12 @@ def held_batch_checks(watch, label, stem, bare_steps=6):
     and gradients (``k3_only_check``); then ``bare_steps`` bare
     ``train_step`` calls on that batch, timed. The limits are those of the
     checks named."""
-    from proben_tpu_torch.models import rcnn
     from proben_tpu_torch.ops import roi_align_cuda
 
     model, cfg, batch = watch.model, watch.model_cfg, watch.held
     out = {}
     if stem:
-        x = rcnn.preprocess(cfg, batch["image"])
-        streams = [(model.backbone, x[..., :3]), (model.backbone_2, x[..., 3:])] if cfg.dual \
-            else [(model.backbone, x)]
-        errs = []
-        for bb, xs in streams:
-            st = bb.stem
-            errs.append(check_stem(xs.to(cfg.dtype).contiguous(),
-                                   st.conv1.weight.permute(2, 3, 1, 0).to(cfg.dtype).contiguous(),
-                                   st.norm1.scale.to(cfg.dtype), st.norm1.bias.to(cfg.dtype)))
-        out["stem_pool"] = max(errs)
-        del x, streams
+        out["stem_pool"] = model_stem_check(model, cfg, batch["image"])
     levels, boxes = sampled_rois(model, batch)
     b, k, _ = boxes.shape
     lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(levels, boxes, **cfg.roi.pooler_args)
@@ -2244,6 +2335,101 @@ def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launc
     return out
 
 
+def kaist_train_tree(codec, root):
+    """A synthetic KAIST tree of 32 frames in ``root`` and its persons as a
+    COCO training set registered as ``smoke_kaist_train``: (annotation
+    file, split file, the split's lines)."""
+    from proben_tpu_torch.data import DatasetCatalog, register_coco_instances
+
+    ann, split, lines = write_kaist_tree(codec, root, n=32, seed=7)
+    with open(ann) as f:
+        kjs = json.load(f)
+    images = [{"id": im["id"], "file_name": f"{rel.replace('/I', '/lwir/I')}.jpg",
+               "height": KAIST_HW[0], "width": KAIST_HW[1]}
+              for im, rel in zip(kjs["images"], lines)]
+    persons = [dict(a, iscrowd=0, area=a["bbox"][2] * a["bbox"][3]) for a in kjs["annotations"]
+               if a["category_id"] == 1]
+    train_json = os.path.join(root, "kaist_train.json")
+    with open(train_json, "w") as f:
+        json.dump({"images": images, "annotations": persons,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    DatasetCatalog.remove("smoke_kaist_train")
+    register_coco_instances("smoke_kaist_train", {}, train_json, root)
+    return ann, split, lines
+
+
+def kaist_train_run(root, tree, out, hooks, var_scale=0.01, roi_align_impl="pallas", workers=4):
+    """``train_kaist("thermal_only")`` as shipped (float32, FREEZE_MODULES,
+    ``workers`` loader threads) for ``TRAIN_STEPS`` on
+    ``kaist_train_tree``'s set into ``root/out``, from ``d2_weights`` of
+    seed 33."""
+    from proben_tpu_torch.apps import kaist
+
+    ann, split, _ = tree
+    cfg = kaist.build_kaist_cfg("thermal_only")
+    cfg.MODEL.ROI_ALIGN_IMPL = roi_align_impl
+    cfg.DATALOADER.NUM_WORKERS = workers
+    cfg.MODEL.WEIGHTS = d2_weights(cfg, 33, os.path.join(root, f"{out}.pth"), var_scale)
+    return kaist.train_kaist("thermal_only", "smoke_kaist_train", ann, root, split,
+                             os.path.join(root, out), max_iter=TRAIN_STEPS, eval_every=1000,
+                             cfg=cfg, hooks=hooks)
+
+
+def kaist_divergence_probe(card):
+    """``--kaist-divergence``: ``trainer_phase``'s KAIST run
+    (``kaist_train_run``: 12 steps of ``train_kaist("thermal_only")``,
+    float32, only the FPN and the RPN trainable) with the variance head's
+    random weights unscaled (``var_scale`` 1), each setting twice in one
+    process: as the trainer runs, with 4 loader threads, whose batches may
+    arrive out of order and interleave the mapper's random draws; with one
+    loader thread (the stream's order and draws); with one loader thread
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
+    ``cudnn.deterministic`` (a warning names every nondeterministic op the
+    run reaches); the same with K2 and K3 replaced by their plain versions
+    (``ROI_ALIGN_IMPL: gather``); and the same with the kernels at the
+    shipped ``var_scale`` 0.01. ``CUBLAS_WORKSPACE_CONFIG`` is ``:4096:8``
+    throughout (``main`` sets it before the first cuBLAS call). Logs each
+    run's total loss per step and prints one ``kaist_divergence`` JSON
+    line; checks nothing."""
+    import tempfile
+    import warnings
+
+    from proben_tpu_torch.native import io
+
+    one = "one loader thread"
+    settings = [("as shipped", False, "pallas", 1.0, 4), (one, False, "pallas", 1.0, 1),
+                (f"{one}, deterministic", True, "pallas", 1.0, 1),
+                (f"{one}, deterministic, plain K2/K3", True, "gather", 1.0, 1),
+                (f"{one}, deterministic, var_scale 0.01", True, "pallas", 0.01, 1)]
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="kaist_probe_") as root, io.JpegCodec() as codec:
+        tree = kaist_train_tree(codec, root)
+        for i, (label, det, impl, scale, workers) in enumerate(s for s in settings for _ in range(2)):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            torch.backends.cudnn.deterministic = det
+            watch = TrainWatch(count_iter=0)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                kaist_train_run(root, tree, f"run{i}", watch.hooks(), scale, impl, workers)
+            named = sorted({str(w.message).splitlines()[0][:200] for w in caught
+                            if "determinis" in str(w.message)})
+            total = [m["total_loss"] for m in watch.metrics]
+            finite = all(m["loss_finite"] == 1.0 and np.isfinite(m["total_loss"]) for m in watch.metrics)
+            log(f"KAIST probe run {i} ({label}): total loss per step {total}; all finite {finite}; "
+                f"nondeterministic ops named: {named}")
+            runs.append(dict(setting=label, total_loss=total, all_finite=finite, nondeterministic_ops=named))
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    repeatable = {a["setting"]: bool(np.array_equal(a["total_loss"], b["total_loss"], equal_nan=True))
+                  for a, b in zip(runs[::2], runs[1::2])}
+    kern, plain = runs[4]["total_loss"], runs[6]["total_loss"]
+    gap = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(kern, plain)]
+    log(f"KAIST probe: the two runs of each setting equal step for step: {repeatable}; kernels against "
+        f"plain K2/K3 (one loader thread, deterministic), relative gap per step: {gap}")
+    print(json.dumps({"kaist_divergence": {"runs": runs, "repeatable": repeatable,
+                                           "kernels_vs_plain_rel_gap": gap, "card": card}}), flush=True)
+
+
 def trainer_phase(card):
     """The training entry points end to end on synthetic trees at the
     FLIR and KAIST sizes, from the shipped configs at ``IMS_PER_BATCH`` 16:
@@ -2260,11 +2446,10 @@ def trainer_phase(card):
     ``MODEL.WEIGHTS``), so AP and LAMR mean nothing."""
     import tempfile
 
-    from proben_tpu_torch.apps import flir, kaist
+    from proben_tpu_torch.apps import flir
     from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
     from proben_tpu_torch.config import get_cfg, mapper_config_from_cfg, model_config_from_cfg
-    from proben_tpu_torch.data import (DatasetCatalog, DatasetMapper, build_test_loader,
-                                       register_coco_instances)
+    from proben_tpu_torch.data import DatasetCatalog, DatasetMapper, build_test_loader
     from proben_tpu_torch.engine import Predictor
     from proben_tpu_torch.models import build_model
     from proben_tpu_torch.native import io
@@ -2383,31 +2568,14 @@ def trainer_phase(card):
 
     # 4. train_kaist thermal_only as shipped (float32, FREEZE_MODULES)
     with tempfile.TemporaryDirectory(prefix="kaist_train_") as root, io.JpegCodec() as codec:
-        ann, split, lines = write_kaist_tree(codec, root, n=32, seed=7)
-        with open(ann) as f:
-            kjs = json.load(f)
-        images = [{"id": im["id"], "file_name": f"{rel.replace('/I', '/lwir/I')}.jpg",
-                   "height": KAIST_HW[0], "width": KAIST_HW[1]}
-                  for im, rel in zip(kjs["images"], lines)]
-        persons = [dict(a, iscrowd=0, area=a["bbox"][2] * a["bbox"][3]) for a in kjs["annotations"]
-                   if a["category_id"] == 1]
-        train_json = os.path.join(root, "kaist_train.json")
-        with open(train_json, "w") as f:
-            json.dump({"images": images, "annotations": persons,
-                       "categories": [{"id": 1, "name": "person"}]}, f)
-        DatasetCatalog.remove("smoke_kaist_train")
-        register_coco_instances("smoke_kaist_train", {}, train_json, root)
-        cfg = kaist.build_kaist_cfg("thermal_only")
-        cfg.MODEL.WEIGHTS = d2_weights(cfg, 33, os.path.join(root, "kaist.pth"))
+        tree = kaist_train_tree(codec, root)
         watch = TrainWatch(count_iter=1, hold_batch=True)
         zero_launch_counts()
-        res = kaist.train_kaist("thermal_only", "smoke_kaist_train", ann, root, split,
-                                os.path.join(root, "out"), max_iter=TRAIN_STEPS, eval_every=1000,
-                                cfg=cfg, hooks=watch.hooks())
+        res = kaist_train_run(root, tree, "out", watch.hooks())
         # predict_split maps the 32 frames in batches of 4: one image_io launch each
         kst = train_run_stats("train_kaist thermal_only (float32)", watch, launch_counts(),
                               {"stem_pool": 0, "roi_align_fwd": 1, "roi_align_bwd": 1}, TRAIN_STEPS,
-                              eval_runs(0, TRAIN_STEPS, 1000) * -(-len(lines) // 4))
+                              eval_runs(0, TRAIN_STEPS, 1000) * -(-len(tree[2]) // 4))
         if watch.trainable_groups != ["fpn", "rpn_head"] or watch.unmoved:
             raise AssertionError(f"train_kaist: trainable {watch.trainable_groups}, "
                                  f"{len(watch.unmoved)} did not move")
@@ -2421,6 +2589,511 @@ def trainer_phase(card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the other detector heads: C4, Cascade, RetinaNet, ProposalNetwork, TTA
+# ---------------------------------------------------------------------------
+
+
+TIMED_CALLS = 15  # per img/s or step time of the heads: 5 groups of 3 (``cuda_ms``)
+
+
+def counted(fn):
+    """``fn()`` with every launch counter set to 0 just before it and read
+    just after (synchronized): (result, launches)."""
+    zero_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def expect_launches(label, got, expect):
+    log(f"{label} launches: {got}")
+    want = {k: expect.get(k, 0) for k in COUNTED}
+    if got != want:
+        raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
+
+
+def timed_pooling(timed, prefix, levels, boxes, pooler, capacity):
+    """``multilevel_roi_align``'s steps on the card, each a stage of
+    ``timed``: the window weights, K2 and the out-of-window fallback.
+    (pooled (B, K, P, P, C), the number of RoIs out of their window)."""
+    from proben_tpu_torch.ops import roi_align_cuda
+    from proben_tpu_torch.ops.roi_align import apply_oow_fallback
+
+    b, k, _ = boxes.shape
+    lvl, y0, x0, wy, wx, oow = timed(f"{prefix}pooler weights", lambda: roi_align_cuda.window_inputs(
+        levels, boxes, **pooler))
+    p = wy.shape[1]
+    pooled = timed(f"{prefix}K2 (P = {p})", lambda: roi_align_cuda.roi_align_fwd(
+        levels, lvl, y0, x0, wy, wx, k).reshape(b, k, p, p, -1))
+    pooled = timed(f"{prefix}out-of-window fallback", lambda: apply_oow_fallback(
+        pooled, oow.reshape(b, k), levels, boxes, lvl.reshape(b, k), pooler["strides"], p,
+        pooler["sampling_ratio"], capacity))
+    return pooled, int(oow.sum())
+
+
+def log_stages(label, stage_ms, oow=None):
+    for k, v in stage_ms.items():
+        log(f"{label}: {k}: {v:.4g} ms")
+    if oow is not None:
+        log(f"{label}: RoIs out of their window per pooling: {oow}")
+
+
+def det_records(det):
+    """Per-image dicts of a batched ``Detections``' valid rows (numpy)."""
+    d = det.to_numpy()
+    return [{"boxes": d.boxes[i][d.valid[i]], "scores": d.scores[i][d.valid[i]],
+             "classes": d.classes[i][d.valid[i]]} for i in range(d.boxes.shape[0])]
+
+
+def check_detections(label, det, topk):
+    """Finite detections of the expected shape, some in every image."""
+    if tuple(det.boxes.shape) != (BATCH, topk, 4) or det.scores.shape != det.valid.shape:
+        raise AssertionError(f"{label}: detections of shape {tuple(det.boxes.shape)}")
+    v = det.valid
+    if not (bool(torch.isfinite(det.boxes[v]).all()) and bool(torch.isfinite(det.scores[v]).all())):
+        raise AssertionError(f"{label}: non-finite detections")
+    n = v.sum(-1)
+    if int(n.min()) == 0:
+        raise AssertionError(f"{label}: an image without detections: {n.tolist()}")
+    return float(n.float().mean())
+
+
+def plain_agreement(label, infer, cfg):
+    """The path with its kernels against the same path with their plain
+    versions (bf16), with the bf16-vs-f32 control of slice_phase's check
+    (3): both ways, the share of detections matched (class, IoU >= 0.95,
+    |dscore| <= 0.02) must be at least the control's less 5 points."""
+    plain_cfg = cfg.replace(stem_impl="plain", roi_align_impl="plain")
+    out_k, out_p = det_records(infer(cfg)), det_records(infer(plain_cfg))
+    out_32 = det_records(infer(plain_cfg.replace(compute_dtype="float32")))
+    m = min(match_fraction(out_k, out_p), match_fraction(out_p, out_k))
+    m_32 = min(match_fraction(out_p, out_32), match_fraction(out_32, out_p))
+    log(f"{label}: kernels vs plain {100 * m:.2f}% matched, bf16 vs f32 control {100 * m_32:.2f}%")
+    if m < m_32 - 0.05:
+        raise AssertionError(f"{label}: kernel-path detections agree worse than the bf16-vs-f32 control")
+    return m, m_32
+
+
+def grads_step(model, params, losses_fn):
+    """One training step's forward and backward: (losses, gradients), every
+    gradient finite and some nonzero."""
+    with torch.enable_grad():
+        losses = losses_fn()
+        total = sum(v.mean() for v in losses.values())
+        grads = torch.autograd.grad(total, params)
+    return {k: float(v.detach().mean()) for k, v in losses.items()}, grads
+
+
+def check_step(label, losses, grads):
+    bad = [k for k, v in losses.items() if not np.isfinite(v)]
+    if bad or not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"{label}: non-finite losses {bad} or gradients")
+    nonzero = sum(bool(g.abs().sum() > 0) for g in grads)
+    log(f"{label}: losses {losses}; {nonzero} of {len(grads)} trainable tensors get a nonzero gradient")
+    if nonzero < len(grads) // 2:
+        raise AssertionError(f"{label}: only {nonzero} of {len(grads)} gradients are nonzero")
+
+
+def trainable(model, freeze_at, freeze_modules=()):
+    """Mark and return the trainable parameters (``trainable_mask``)."""
+    from proben_tpu_torch.engine.train import trainable_mask
+
+    mask = trainable_mask(model, freeze_at, freeze_modules)
+    for n, p in model.named_parameters():
+        p.requires_grad_(mask[n])
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+def c4_phase(images, sizes, batch):
+    """R101-C4 (``models/c4.py``), bf16, batch 8: inference with K1 once
+    and K2 at P = 14 once per batch (1000 proposals per image on the stride-16
+    res4 map, C = 1024), held to the plain path; K2 at P = 14 against its
+    plain version on those proposals; one training step (forward +
+    backward: K1, K2 and K3 at P = 14 once each, 512 sampled RoIs per
+    image); K3 at P = 14 against its plain version on those RoIs."""
+    from proben_tpu_torch.models import build_config, c4, random_affines
+    from proben_tpu_torch.models.box_head import apply_output_layers
+    from proben_tpu_torch.models.fast_rcnn import fast_rcnn_inference
+    from proben_tpu_torch.models.rcnn import nhwc
+    from proben_tpu_torch.models.roi_heads import label_and_sample_proposals
+    from proben_tpu_torch.models.rpn import apply_rpn_head, find_top_proposals
+
+    cfg = build_config(depth=101, num_classes=3, compute_dtype="bfloat16")
+    model = c4.build_c4_model(cfg, random_affines(c4.init_rcnn_c4(10, cfg), 10))
+    with torch.inference_mode():
+        res4 = c4._res4(model, cfg, images)
+        outs = apply_rpn_head(model.rpn_head, [res4], cfg.dtype)
+    scale_convs((model.rpn_head.objectness, model.rpn_head.deltas), outs, (2.0, 0.1))
+    cls = model.roi["output"].cls_score
+    base_w = cls.weight.detach().clone()
+
+    def set_bias(b):
+        cls.weight.copy_(base_w * 0.02)
+        cls.bias[-1] = b
+
+    def infer(c=cfg):
+        return c4.rcnn_c4_inference(model, c, images, sizes)
+
+    bias, n = bisect_bias(set_bias, lambda: float(infer().valid.sum(-1).float().mean()), 0.0, 16.0)
+    log(f"C4 calibration: background bias {bias:.4g} -> {n:.1f} dets/img")
+    det, launches = counted(infer)
+    expect_launches("C4 inference", launches, {"stem_pool": 1, "roi_align_fwd": 1})
+    dets = check_detections("C4 inference", det, cfg.rcnn.topk_per_image)
+    matched, matched_32 = plain_agreement("C4 inference", infer, cfg)
+    ms = cuda_ms(infer, TIMED_CALLS)
+    log(f"C4 inference: {BATCH * 1e3 / ms:.2f} img/s ({ms:.4g} ms per batch of {BATCH})")
+
+    k = cfg.rpn.post_nms_topk_test
+    zero = torch.zeros(BATCH, k, dtype=torch.int32, device="cuda")
+    pooler = dict(strides=(c4.C4_STRIDE,), output_size=c4.C4_POOLER_RESOLUTION,
+                  sampling_ratio=cfg.roi.pooler_sampling_ratio, min_level=0, levels=zero)
+
+    def stages(timed):
+        r4 = timed("backbone to res4 (stem K1)", lambda: c4._res4(model, cfg, images))
+        lg, dl = timed("RPN head", lambda: apply_rpn_head(model.rpn_head, [r4], cfg.dtype))
+        boxes, _, valid = timed("proposals (top-k, decode, NMS)", lambda: find_top_proposals(
+            lg, dl, c4.c4_anchors(r4), sizes, cfg.rpn.pre_nms_topk_test, k, cfg.rpn.nms_thresh,
+            cfg.rpn.min_box_side_len))
+        pooled, oow["res4"] = timed_pooling(timed, "", [nhwc(r4)], boxes, pooler,
+                                            cfg.roi.fallback_capacity)
+        vec = timed("res5 on every RoI", lambda: c4._res5(model, pooled, cfg.dtype))
+        timed("box predictor + decode + NMS", lambda: fast_rcnn_inference(
+            *apply_output_layers(model.roi["output"], vec)[:2], boxes, valid, sizes, cfg.rcnn))
+
+    oow = {}
+    stage_ms = stage_medians(stages)
+    log_stages("C4", stage_ms, oow)
+    with torch.inference_mode():
+        res4 = c4._res4(model, cfg, images)
+        lg, dl = apply_rpn_head(model.rpn_head, [res4], cfg.dtype)
+        boxes = find_top_proposals(lg, dl, c4.c4_anchors(res4), sizes, cfg.rpn.pre_nms_topk_test, k,
+                                   cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len)[0]
+    k2, _ = k2_reading([nhwc(res4)], boxes, pooler, "C4 proposals")
+
+    params = trainable(model, cfg.freeze_at)
+    gen = torch.Generator(device="cuda")
+
+    def losses_fn():
+        return c4.rcnn_c4_train_losses(model, cfg, batch["image"], batch["image_size"], batch["gt"],
+                                       gen.manual_seed(0))
+
+    (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
+    expect_launches("C4 training step", train_launches,
+                    {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1})
+    check_step("C4 training step", losses, grads)
+    step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
+    log(f"C4 training step (forward + backward): {step_ms:.4g} ms, {BATCH * 1e3 / step_ms:.2f} img/s")
+    with torch.no_grad():
+        res4 = c4._res4(model, cfg, batch["image"], cfg.freeze_at)
+        lg, dl = apply_rpn_head(model.rpn_head, [res4], cfg.dtype)
+        props, _, valid = find_top_proposals(
+            lg, dl, c4.c4_anchors(res4), batch["image_size"], cfg.rpn.pre_nms_topk_train,
+            cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len)
+        s_boxes = label_and_sample_proposals(props, valid, batch["gt"], gen.manual_seed(0), cfg.roi)[0]
+    k3 = k3_reading([nhwc(res4)], s_boxes, dict(pooler, levels=torch.zeros(
+        s_boxes.shape[:2], dtype=torch.int32, device="cuda")), "C4 sampled RoIs")
+    return k2, k3, dict(inference=launches, train=train_launches), dict(
+        dets_per_img=dets, matched_plain=matched, matched_bf16_f32=matched_32,
+        img_s=BATCH * 1e3 / ms, batch_ms=ms, stage_ms=stage_ms, out_of_window=oow, train_losses=losses,
+        train_step_ms=step_ms, train_img_s=BATCH * 1e3 / step_ms)
+
+
+def cascade_phase(images, sizes, batch):
+    """Cascade R-CNN (``models/cascade.py``) on an R101-FPN backbone and RPN,
+    bf16, batch 8: inference (K1 once, K2 three times per batch: one pooling
+    per stage), held to the plain path; K2 against its plain version on
+    the last stage's boxes (refined twice); one training step (the RPN's
+    and the three stages' losses: K1 once, K2 six times (each stage's
+    sampled RoIs with autograd, then all proposals to refine them
+    without), K3 three times); K3 against its plain version on the last
+    stage's sampled RoIs. Returns the RCNN model too (ProposalNetwork and
+    TTA run on it)."""
+    from proben_tpu_torch.models import build_config, build_model, cascade, init_rcnn, random_affines
+    from proben_tpu_torch.models import rcnn
+    from proben_tpu_torch.models.fast_rcnn import fast_rcnn_inference
+    from proben_tpu_torch.models.roi_heads import label_and_sample_proposals
+    from proben_tpu_torch.models.rpn import find_top_proposals, rpn_losses
+
+    cfg = build_config(depth=101, num_classes=3, compute_dtype="bfloat16")
+    model = build_model(cfg, random_affines(init_rcnn(11, cfg), 11))
+    heads = cascade.build_cascade_heads(seed=11, in_channels=cfg.head_in_channels, num_classes=3)
+    calibrate_rpn(model, images)
+    base_w = [s.output.cls_score.weight.detach().clone() for s in heads.stages]
+
+    def set_bias(b):
+        for s, w in zip(heads.stages, base_w):
+            s.output.cls_score.weight.copy_(w * 0.02)
+            s.output.cls_score.bias[-1] = b
+
+    def proposals(c):
+        feats = rcnn.extract_features(model, c, rcnn.preprocess(c, images))
+        return feats, *rcnn.propose(model, c, feats, sizes)
+
+    def infer(c=cfg):
+        with torch.inference_mode():
+            feats, boxes, _, valid = proposals(c)
+            return cascade.cascade_inference(heads, rcnn.roi_levels(feats), boxes, valid, sizes, c.roi,
+                                             c.rcnn, c.dtype, c.roi_align_impl)
+
+    bias, n = bisect_bias(set_bias, lambda: float(infer().valid.sum(-1).float().mean()), 0.0, 16.0)
+    log(f"Cascade calibration: background bias {bias:.4g} (all stages) -> {n:.1f} dets/img")
+    det, launches = counted(infer)
+    expect_launches("Cascade inference", launches, {"stem_pool": 1, "roi_align_fwd": 3})
+    dets = check_detections("Cascade inference", det, cfg.rcnn.topk_per_image)
+    matched, matched_32 = plain_agreement("Cascade inference", infer, cfg)
+    ms = cuda_ms(infer, TIMED_CALLS)
+    log(f"Cascade inference: {BATCH * 1e3 / ms:.2f} img/s ({ms:.4g} ms per batch of {BATCH})")
+
+    def stages(timed):
+        x = rcnn.preprocess(cfg, images)
+        feats = timed("backbone (stem K1) + FPN", lambda: rcnn.extract_features(model, cfg, x))
+        boxes, _, valid = timed("RPN head + proposals", lambda: rcnn.propose(model, cfg, feats, sizes))
+        levels = rcnn.roi_levels(feats)
+        probs, hw = [], (sizes[:, 0:1].float(), sizes[:, 1:2].float())
+        for i, (stage, wts) in enumerate(zip(heads.stages, cascade.CASCADE_WEIGHTS)):
+            pooled, oow[f"stage {i}"] = timed_pooling(timed, f"stage {i} ", levels, boxes,
+                                                      cfg.roi.pooler_args, cfg.roi.fallback_capacity)
+            logits, boxes = timed(f"stage {i} box head + refine", lambda: cascade._refine(
+                stage, pooled, boxes, wts, hw, cfg.dtype))
+            probs.append(torch.softmax(logits, -1))
+        agnostic = dataclasses.replace(cfg.rcnn, cls_agnostic_bbox_reg=True)
+        timed("mean probabilities + decode + NMS", lambda: fast_rcnn_inference(
+            torch.log(torch.stack(probs).mean(0).clamp(min=1e-30)), torch.zeros_like(boxes), boxes,
+            valid, sizes, agnostic))
+
+    oow = {}
+    stage_ms = stage_medians(stages)
+    log_stages("Cascade", stage_ms, oow)
+    with torch.inference_mode():
+        feats, boxes, _, valid = proposals(cfg)
+        levels = rcnn.roi_levels(feats)
+        hw = (sizes[:, 0:1].float(), sizes[:, 1:2].float())
+        for stage, wts in list(zip(heads.stages, cascade.CASCADE_WEIGHTS))[:2]:
+            boxes = cascade._run_stage(stage, levels, boxes, cfg.roi, wts, hw, cfg.dtype, "kernel")[1]
+    k2, _ = k2_reading(levels, boxes, cfg.roi.pooler_args, "Cascade stage-2 boxes")
+
+    # the RCNN's own box head is not on this path: the cascade's stages are
+    params = trainable(model, cfg.freeze_at, ("roi",)) + [p.requires_grad_() for p in heads.parameters()]
+    gen = torch.Generator(device="cuda")
+
+    def losses_fn():
+        gen.manual_seed(0)
+        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, batch["image"]), training=True)
+        logits, deltas = rcnn.rpn_outputs(model, cfg, feats)
+        anchors = rcnn.anchors_for(feats)
+        losses = rpn_losses(logits, deltas, anchors, batch["gt"].boxes, batch["gt"].valid, gen, cfg.rpn)
+        with torch.no_grad():
+            boxes, _, valid = find_top_proposals(
+                logits, deltas, anchors, batch["image_size"], cfg.rpn.pre_nms_topk_train,
+                cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len)
+        losses.update(cascade.cascade_train_losses(heads, rcnn.roi_levels(feats), boxes, valid,
+                                                   batch["gt"], gen, cfg.roi, cfg.rcnn, cfg.dtype))
+        return losses
+
+    (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
+    expect_launches("Cascade training step", train_launches,
+                    {"stem_pool": 1, "roi_align_fwd": 6, "roi_align_bwd": 3})
+    check_step("Cascade training step", losses, grads)
+    step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
+    log(f"Cascade training step (forward + backward): {step_ms:.4g} ms, {BATCH * 1e3 / step_ms:.2f} img/s")
+    with torch.no_grad():
+        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, batch["image"]), training=True)
+        logits, deltas = rcnn.rpn_outputs(model, cfg, feats)
+        boxes, _, valid = find_top_proposals(
+            logits, deltas, rcnn.anchors_for(feats), batch["image_size"], cfg.rpn.pre_nms_topk_train,
+            cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len)
+        levels = rcnn.roi_levels(feats)
+        inf = (float("inf"), float("inf"))
+        for stage, wts in list(zip(heads.stages, cascade.CASCADE_WEIGHTS))[:2]:
+            boxes = cascade._run_stage(stage, levels, boxes, cfg.roi, wts, inf, cfg.dtype, "kernel")[1]
+        roi2 = dataclasses.replace(cfg.roi, iou_threshold=cascade.CASCADE_IOUS[2])
+        s_boxes = label_and_sample_proposals(boxes, valid, batch["gt"], gen.manual_seed(0), roi2)[0]
+    k3 = k3_reading(levels, s_boxes, cfg.roi.pooler_args, "Cascade stage-2 sampled RoIs")
+    for p in heads.parameters():
+        p.requires_grad_(False)
+    return model, k2, k3, dict(inference=launches, train=train_launches), dict(
+        dets_per_img=dets, matched_plain=matched, matched_bf16_f32=matched_32,
+        img_s=BATCH * 1e3 / ms, batch_ms=ms, stage_ms=stage_ms, out_of_window=oow, train_losses=losses,
+        train_step_ms=step_ms, train_img_s=BATCH * 1e3 / step_ms)
+
+
+def retinanet_phase(images, sizes, batch):
+    """RetinaNet (``models/retinanet.py``) R101, bf16, batch 8: inference
+    (K1 once per batch; no RoI pooling) and one training step (forward +
+    backward, K1 once)."""
+    from proben_tpu_torch.models import random_affines, retinanet
+
+    cfg = retinanet.RetinaNetConfig(depth=101, num_classes=3, compute_dtype="bfloat16")
+    model = retinanet.build_retinanet(cfg, random_affines(retinanet.init_retinanet(12, cfg), 12))
+    with torch.inference_mode():
+        outs = retinanet._head(model, cfg, retinanet._features(model, cfg, images, False))
+    # calibration: class logits to std 1.5 and deltas to std 0.1 around the
+    # prior bias, then the class bias bisected to 20-80 dets/img
+    scale_convs((model.head.cls_score, model.head.bbox_pred), outs, (1.5, 0.1))
+    cls = model.head.cls_score
+
+    def infer():
+        return retinanet.retinanet_inference(model, cfg, images, sizes)
+
+    bias, n = bisect_bias(lambda b: cls.bias.fill_(b), lambda: float(infer().valid.sum(-1).float().mean()),
+                          -16.0, 0.0, fewer_when_higher=False)
+    log(f"RetinaNet calibration: class bias {bias:.4g} -> {n:.1f} dets/img")
+    det, launches = counted(infer)
+    expect_launches("RetinaNet inference", launches, {"stem_pool": 1})
+    dets = check_detections("RetinaNet inference", det, cfg.topk_per_image)
+    ms = cuda_ms(infer, TIMED_CALLS)
+    log(f"RetinaNet inference: {BATCH * 1e3 / ms:.2f} img/s ({ms:.4g} ms per batch of {BATCH})")
+
+    def stages(timed):
+        feats = timed("backbone (stem K1) + FPN + P6/P7",
+                      lambda: retinanet._features(model, cfg, images, False))
+        timed("class and box towers", lambda: retinanet._head(model, cfg, feats))
+    stage_ms = stage_medians(stages)
+    stage_ms["per-level top-k + decode + NMS (the rest of a batch)"] = ms - sum(stage_ms.values())
+    log_stages("RetinaNet", stage_ms)
+
+    params = trainable(model, cfg.freeze_at)
+
+    def losses_fn():
+        return retinanet.retinanet_losses(model, cfg, batch["image"], batch["image_size"], batch["gt"])
+
+    (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
+    expect_launches("RetinaNet training step", train_launches, {"stem_pool": 1})
+    check_step("RetinaNet training step", losses, grads)
+    step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
+    log(f"RetinaNet training step (forward + backward): {step_ms:.4g} ms, "
+        f"{BATCH * 1e3 / step_ms:.2f} img/s")
+    return dict(inference=launches, train=train_launches), dict(
+        dets_per_img=dets, img_s=BATCH * 1e3 / ms, batch_ms=ms, stage_ms=stage_ms,
+        train_losses=losses, train_step_ms=step_ms, train_img_s=BATCH * 1e3 / step_ms)
+
+
+def proposal_tta_phase(model, images, sizes):
+    """ProposalNetwork inference (``models/proposal_network.py``, K1 once
+    per batch) on the Cascade phase's R101-FPN, and ``DetectionTTA`` with
+    ``rescore=True`` through that model's ``Predictor`` (its box head
+    calibrated as slice_phase does) on one 800x1000 uint8 image at JAX's
+    defaults (scales 400-800, flips: 10 augmentations, one batch): one
+    ``image_io`` launch makes them, then K1 and K2 once for the
+    detections and once for the rescoring."""
+    from proben_tpu_torch.data.dataset_mapper import MapperConfig
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.models import proposal_network
+    from proben_tpu_torch.models.tta import DetectionTTA
+
+    cfg = model.cfg
+
+    def propose():
+        return proposal_network.proposal_network_inference(model, cfg, images, sizes)
+
+    (boxes, scores, valid), launches = counted(propose)
+    expect_launches("ProposalNetwork inference", launches, {"stem_pool": 1})
+    if not (bool(torch.isfinite(boxes[valid]).all()) and int(valid.sum(-1).min()) > 0):
+        raise AssertionError("ProposalNetwork: non-finite proposals or an image without any")
+    ms = cuda_ms(propose, TIMED_CALLS)
+    log(f"ProposalNetwork inference: {float(valid.sum(-1).float().mean()):.1f} proposals/img, "
+        f"{BATCH * 1e3 / ms:.2f} img/s")
+
+    pred = Predictor(model, cfg)
+    bias, n = calibrate(model, pred, images, sizes)
+    log(f"TTA model calibration: background bias {bias:.4g} -> {n:.1f} dets/img")
+    image = images[0, :TRUE_HW[0], :TRUE_HW[1]].round().clamp(0, 255).to(torch.uint8).contiguous()
+    tta = DetectionTTA(pred, MapperConfig(pad_shape=(H, W)), rescore=True)
+    seen, rescore = {}, pred.rescore_boxes
+
+    def recording(imgs, given):  # keeps what the rescoring pass pools; launches nothing
+        seen["images"], seen["given"] = imgs, given
+        return rescore(imgs, given)
+
+    pred.rescore_boxes = recording
+    out, tta_launches = counted(lambda: tta(image))
+    pred.rescore_boxes = rescore
+    expect_launches("TTA with rescore (10 augmentations)", tta_launches,
+                    {"stem_pool": 2, "roi_align_fwd": 2, "image_io": 1})
+    errs = tta_kernel_checks(model, tta, image, seen)
+    plain = DetectionTTA(pred, MapperConfig(pad_shape=(H, W)))(image)
+    b, s = out["boxes"], out["scores"]
+    if not (len(s) and np.isfinite(b).all() and (b[:, [0, 2]] <= TRUE_HW[1] + 1e-3).all()
+            and (b[:, [1, 3]] <= TRUE_HW[0] + 1e-3).all() and (b >= 0).all()
+            and ((s > 0) & (s <= 1)).all() and (np.diff(s) <= 0).all()):
+        raise AssertionError("TTA: merged detections out of the frame, unsorted or empty")
+    if len(plain["scores"]) != len(s) or np.allclose(np.sort(plain["scores"]), np.sort(s)):
+        raise AssertionError("TTA: rescoring kept the merged scores")
+    tta_ms = host_ms(lambda: tta(image), 3)
+    log(f"TTA with rescore: {len(s)} merged detections, {tta_ms:.4g} ms per image "
+        f"(median of 3, host clock)")
+    return dict(proposal_network=launches, tta=tta_launches), dict(
+        proposal_network_img_s=BATCH * 1e3 / ms, proposals_per_img=float(valid.sum(-1).float().mean()),
+        tta_dets=len(s), tta_ms=tta_ms, tta_max_abs_err=errs)
+
+
+def tta_kernel_checks(model, tta, image, seen):
+    """``image_io``, K1 and K2 against their plain versions on the TTA
+    path's own inputs: ``tta``'s augmentations of ``image`` (``image_io``
+    bit for bit, and the batch the path ran on, ``seen["images"]``, equal
+    to the plain version's), K1 on that batch (``model_stem_check``), K2
+    on its proposals and on the rescoring pass's given boxes
+    (``seen["given"]``, mostly zero padding rows) (``check_roi``). The
+    largest error per kernel."""
+    from proben_tpu_torch.models import rcnn
+    from proben_tpu_torch.native import io
+    from proben_tpu_torch.ops import roi_align_cuda
+
+    cfg = model.cfg
+    augs = tta._augmentations(*image.shape[:2])
+    args = ([image] * len(augs), None, "BGR", [(nh, nw) for nh, nw, _ in augs], (H, W),
+            [f for _, _, f in augs])
+    got, ref = io.compose_resize_pad(*args), io.compose_resize_pad_plain(*args)
+    if not (torch.equal(got, ref) and torch.equal(seen["images"], ref)):
+        raise AssertionError("TTA: image_io's augmentations differ from the plain version's, or the "
+                             "batch the path ran on differs from them")
+    log(f"TTA: image_io's {len(augs)} augmentations (h, w, flip) {augs} equal the plain version's "
+        "bit for bit, and the path's batch equals them")
+    out = {"image_io": 0.0}
+    with torch.inference_mode():
+        out["stem_pool"] = model_stem_check(model, cfg, ref)
+        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, ref))
+        aug_sizes = torch.tensor([a[:2] for a in augs], dtype=torch.int32, device="cuda")
+        levels = rcnn.roi_levels(feats)
+        errs = []
+        for what, bx in (("proposals", rcnn.propose(model, cfg, feats, aug_sizes)[0]),
+                         ("given boxes", torch.as_tensor(seen["given"], device="cuda"))):
+            lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(levels, bx, **cfg.roi.pooler_args)
+            errs.append(check_roi(levels, lvl, y0, x0, wy, wx, bx.shape[1],
+                                  f"TTA {what} ({bx.shape[0]} x {bx.shape[1]})"))
+    out["roi_align_fwd"] = max(errs)
+    return out
+
+
+def heads_phase(card):
+    """The other detector heads at the main path's width: R101, 3 classes,
+    bf16, batch 8, 800x1024 (true 800x1000), random weights from seeds 10-12
+    with random affines, calibrated (``c4_phase``, ``cascade_phase``,
+    ``retinanet_phase``, ``proposal_tta_phase``). One ``heads`` JSON line."""
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy(structured_images(rng, 1, BATCH, H, W, 3)[0]).cuda()
+    sizes = torch.tensor([TRUE_HW] * BATCH, dtype=torch.int32, device="cuda")
+    batch = train_batch()
+    t0 = time.time()
+    k2_c4, k3_c4, c4_launches, c4_stats = c4_phase(images, sizes, batch)
+    torch.cuda.empty_cache()
+    model, k2_cas, k3_cas, cas_launches, cas_stats = cascade_phase(images, sizes, batch)
+    pt_launches, pt_stats = proposal_tta_phase(model, images, sizes)
+    del model
+    torch.cuda.empty_cache()
+    rn_launches, rn_stats = retinanet_phase(images, sizes, batch)
+    torch.cuda.empty_cache()
+    launches = {"c4_inference": c4_launches["inference"], "c4_train": c4_launches["train"],
+                "cascade_inference": cas_launches["inference"], "cascade_train": cas_launches["train"],
+                "retinanet_inference": rn_launches["inference"], "retinanet_train": rn_launches["train"],
+                "proposal_network_inference": pt_launches["proposal_network"],
+                "tta_rescore (10 augmentations)": pt_launches["tta"]}
+    stats = {"c4": c4_stats, "cascade": cas_stats, "retinanet": rn_stats, **pt_stats,
+             "launches": launches, "seconds": time.time() - t0, "card": card}
+    return dict(k2_c4=k2_c4, k3_c4=k3_c4, k2_cascade=k2_cas, k3_cascade=k3_cas), stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2429,6 +3102,8 @@ def main() -> int:
         print(f"chip_smoke: proben_tpu_torch not found beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    if "--kaist-divergence" in sys.argv[1:]:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # before the first cuBLAS call
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
@@ -2444,6 +3119,9 @@ def main() -> int:
     tb = time.time()
     _build.build(["stem", "roi_align_fwd", "roi_align_bwd", "image_io"])
     log(f"build: {time.time() - tb:.1f} s")
+    if "--kaist-divergence" in sys.argv[1:]:
+        kaist_divergence_probe(card)
+        return 0
 
     cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
     # random weights from seed 0, with trained-like affines so that every
@@ -2504,6 +3182,7 @@ def main() -> int:
     k_io, flir_stats = flir_phase(card)
     kaist_stats = kaist_phase(card)
     trainer_stats = trainer_phase(card)
+    heads_k, heads_stats = heads_phase(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
              "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
@@ -2515,14 +3194,19 @@ def main() -> int:
              **{f"{key}_train (K1-K3 per step, image_io per training batch)": {
                  **trainer_stats[key]["launches_per_step"],
                  "image_io": trainer_stats[key]["image_io"]["per_train_batch"]}
-                for key in ("flir_thermal_only", "flir_middle_fusion", "kaist_thermal_only_f32")}}
+                for key in ("flir_thermal_only", "flir_middle_fusion", "kaist_thermal_only_f32")},
+             **heads_stats["launches"]}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
-    for d, wide in ((k2, k2_512), (k3, k3_512)):
-        d["c512"] = {k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                                          "max_abs_err_f32", "gflop", "mbytes", "alloc_mb")
-                     if k in wide}
+    reading_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "max_abs_err_f32", "gflop",
+                    "mbytes", "alloc_mb", "rois", "out_of_window")
+    for d, wide, c4, cas in ((k2, k2_512, heads_k["k2_c4"], heads_k["k2_cascade"]),
+                             (k3, k3_512, heads_k["k3_c4"], heads_k["k3_cascade"])):
+        d["c512"] = {k: wide[k] for k in reading_keys if k in wide}
+        # the C4 pooler (P = 14 on res4, C = 1024) and Cascade's last stage (P = 7, C = 256)
+        d["p14_c1024"] = {k: c4[k] for k in reading_keys if k in c4}
+        d["cascade_stage2"] = {k: cas[k] for k in reading_keys if k in cas}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -2542,12 +3226,14 @@ def main() -> int:
     print(json.dumps({"flir_eval": {**flir_stats, "seconds": time.time() - t0}}))
     print(json.dumps({"kaist_eval": {**kaist_stats, "seconds": time.time() - t0}}))
     print(json.dumps({"trainer": {**trainer_stats, "total_seconds": time.time() - t0}}))
+    print(json.dumps({"heads": {**heads_stats, "total_seconds": time.time() - t0}}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
     k_io["launches_per_path"] = {p: n["image_io"] for p, n in paths.items() if "image_io" in n}
     k_io["train_flips"] = {fmt: {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "mbytes",
                                                      "flipped")}
                            for fmt, row in trainer_stats["train_mapper"].items()}
     print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
+                                                             "p14_c1024", "cascade_stage2",
                                                              "c4", "c6", "train_flips")
                                    if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ The tree is ``proben_tpu``'s, key for key and value for value, except
 packages. The converters map the implementation names of the JAX package to
 the port's: ``ROI_ALIGN_IMPL`` "pallas" -> "kernel", "gather" -> "plain";
 ``STEM_IMPL`` "pallas", "wpair", "pack24" -> "kernel", "direct" -> "plain";
-any other name raises. ``REMAT_BACKBONE`` (rematerialise the backbone in
-training) is accepted and has no port field: it changes memory, not values.
+any other name raises. ``REMAT_BACKBONE`` sets ``ModelConfig.remat_backbone``
+(recompute the backbone's blocks in the backward: memory, not values).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ _DEFAULTS = {
         "COMPUTE_DTYPE": "float32",
         "ROI_ALIGN_IMPL": "pallas",  # pallas | gather -> the port's "kernel" | "plain"
         "STEM_IMPL": "pallas",  # pallas | wpair | pack24 -> "kernel"; direct -> "plain"
-        "REMAT_BACKBONE": False,  # accepted, no port field (memory only, not values)
+        "REMAT_BACKBONE": False,  # recompute backbone blocks in the backward (memory only)
         "MIDDLE_FUSION_INFERENCE_SHARES_BACKBONE": False,
         "BACKBONE": {"NAME": "build_resnet_fpn_backbone", "FREEZE_AT": 2},
         "RESNETS": {
@@ -183,6 +183,7 @@ def model_config_from_cfg(cfg: CfgNode):
         roi_align_impl=_impl(ROI_ALIGN_IMPLS, "ROI_ALIGN_IMPL", m.ROI_ALIGN_IMPL),
         stem_impl=_impl(STEM_IMPLS, "STEM_IMPL", m.get("STEM_IMPL", "pallas")),
         middle_fusion_inference_shares_backbone=m.MIDDLE_FUSION_INFERENCE_SHARES_BACKBONE,
+        remat_backbone=m.REMAT_BACKBONE,
         rpn=RPNConfig(
             pre_nms_topk_train=m.RPN.PRE_NMS_TOPK_TRAIN,
             pre_nms_topk_test=m.RPN.PRE_NMS_TOPK_TEST,

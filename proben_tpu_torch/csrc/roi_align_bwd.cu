@@ -56,6 +56,11 @@
 //      zero weights (never for a non-finite RoI).
 //    - Store: round once, write every pixel of the tile (zeros where no RoI
 //      reaches) as whole 16-byte lanes.
+//    - Output sizes: two instances by the largest P they take (MAXP), 8 (the
+//      FPN pooler's P = 7) and 16 (the C4 pooler's P = 14). At MAXP = 16 a
+//      RoI fills the MMA's k = 16 alone, so a step takes one RoI (NB = 1)
+//      and each product runs one RoI per MMA, with 16 weight slots per
+//      window row and column (zeros past P) in the transposed scratch.
 //    Every dF element is written exactly once and summed in a fixed order:
 //    no f32 buffer, zero-fill, atomics or rounding pass, and the result is
 //    the same from run to run. The level index is clipped and the spans are
@@ -77,7 +82,6 @@ namespace {
 
 constexpr int WIN_Y = 56;
 constexpr int WIN_X = 64;
-constexpr int MAXP = 8;
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 // a CTA's output tile: TILE_Y x TILE_X pixels and CHUNK_BYTES of channels
@@ -86,9 +90,11 @@ constexpr int TILE_Y = 8;
 constexpr int TILE_X = 16;
 constexpr int CHUNK_BYTES = 128;
 constexpr int SCALAR_CHUNK = 8;
-constexpr int NB = 2;           // listed RoIs per step (the MMA path pairs them)
+constexpr int NB = 2;           // listed RoIs per step at MAXP = 8 (the MMA path pairs them)
 constexpr int CTAS_PER_SM = 3;  // the tile kernel's launch bound
-constexpr int WT_STRIDE = (WIN_Y + WIN_X) * MAXP;  // transposed weights per RoI
+// listed RoIs per step, and the transposed weights per RoI, for MAXP
+template <int MAXP> __host__ __device__ constexpr int steps_rois() { return MAXP == 8 ? NB : 1; }
+template <int MAXP> __host__ __device__ constexpr int wt_stride() { return (WIN_Y + WIN_X) * MAXP; }
 
 struct Levels {
   void* out[4];      // dF per level, (B, H_l, W_l, C) in the feature dtype
@@ -227,10 +233,10 @@ __device__ __forceinline__ A pick(const A (&a)[4], int l) {
 // the true map (x = -1 for a RoI that reaches no position of the map), and
 // its weights rounded to T and transposed, wt[r] = (wy[:, y] for each window
 // row y, then wx[:, x] for each window column x), MAXP floats each (zeros
-// past P), so that a tile takes a row's or a column's weights in two
+// past P), so that a tile takes a row's or a column's weights in MAXP / 4
 // 16-byte copies. Window origins lie in [0, padded size - window], so they
 // fit 16 bits.
-template <typename T>
+template <typename T, int MAXP>
 __global__ void __launch_bounds__(THREADS)
 spans_kernel(Levels lv, int num_levels, const int* __restrict__ lvl, const int* __restrict__ y0s,
              const int* __restrict__ x0s, const float* __restrict__ wy,
@@ -241,7 +247,7 @@ spans_kernel(Levels lv, int num_levels, const int* __restrict__ lvl, const int* 
   if (r >= R) return;
   const float* wy_r = wy + static_cast<size_t>(r) * P * WIN_Y;
   const float* wx_r = wx + static_cast<size_t>(r) * P * WIN_X;
-  float* wt_r = wt + static_cast<size_t>(r) * WT_STRIDE;
+  float* wt_r = wt + static_cast<size_t>(r) * wt_stride<MAXP>();
   bool nz[4] = {false, false, false, false}, fin = true;
   // this lane's window rows lane, lane + 32 and columns lane, lane + 32
 #pragma unroll
@@ -257,8 +263,9 @@ spans_kernel(Levels lv, int num_levels, const int* __restrict__ lvl, const int* 
       fin = fin && isfinite(w[p]);
     }
     float4* dst = reinterpret_cast<float4*>(wt_r + ((is_row ? 0 : WIN_Y) + i) * MAXP);
-    dst[0] = make_float4(w[0], w[1], w[2], w[3]);
-    dst[1] = make_float4(w[4], w[5], w[6], w[7]);
+#pragma unroll
+    for (int v = 0; v < MAXP / 4; ++v)
+      dst[v] = make_float4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
   }
   const bool bad = !__all_sync(FULL, fin);
   int ylo, yhi, xlo, xhi;
@@ -287,11 +294,12 @@ spans_kernel(Levels lv, int num_levels, const int* __restrict__ lvl, const int* 
 // (P * CC + PAD) and of u (CC + PAD) are padded by 16 bytes so that the
 // eight rows of an 8x8 ldmatrix fall in different banks.
 constexpr int PAD = 8;
-template <typename T, int CC>
+template <typename T, int CC, int MAXP>
 constexpr int tile_smem_bytes(int P) {
-  const int staging = (2 * NB * P * (P * CC + PAD)                      // g_s, two steps
-                       + NB * TILE_Y * P * (CC + PAD)) * static_cast<int>(sizeof(T))  // u_s
-                      + 2 * NB * (TILE_Y + TILE_X) * MAXP * 4;          // wt_s, two steps
+  constexpr int nb = steps_rois<MAXP>();
+  const int staging = (2 * nb * P * (P * CC + PAD)                      // g_s, two steps
+                       + nb * TILE_Y * P * (CC + PAD)) * static_cast<int>(sizeof(T))  // u_s
+                      + 2 * nb * (TILE_Y + TILE_X) * MAXP * 4;          // wt_s, two steps
   const int out_tile = TILE_Y * TILE_X * (CC + PAD) * static_cast<int>(sizeof(T));
   return THREADS * 20 + (staging > out_tile ? staging : out_tile);  // list, then either
 }
@@ -365,16 +373,18 @@ lists_kernel(Levels lv, int tiles_per_image, int rois_per_image, const int4* __r
 // bf16 with 16-byte lanes runs both products on the tensor cores: per listed
 // RoI, u (TILE_Y x P*CC) = wy^T (TILE_Y x P) g (P x P*CC), rounded to bf16,
 // then for each tile row y, dF[y] (TILE_X x CC) += wx^T (TILE_X x P) u[y]
-// (P x CC), one warp per tile row; each MMA takes a pair of RoIs, each
-// with 8 of the k = 16 (zero weights past P). f32 and the scalar path use
-// FMAs, thread by thread.
-template <typename T, int V, int CC>
+// (P x CC), one warp per tile row; at MAXP = 8 each MMA takes a pair of
+// RoIs, each with 8 of the k = 16, at MAXP = 16 one RoI with all 16 (zero
+// weights past P). f32 and the scalar path use FMAs, thread by thread.
+template <typename T, int V, int CC, int MAXP>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunks,
             const int4* __restrict__ spans, const int* __restrict__ tile_cnt,
             const int* __restrict__ tile_lists,
             const float* __restrict__ wt, const T* __restrict__ g, int P) {
   constexpr bool MMA = sizeof(T) == 2 && V == 8;
+  constexpr int NBM = steps_rois<MAXP>();       // listed RoIs per step
+  constexpr int QW = MAXP / 4;                  // 16-byte pieces of a row's weights
   constexpr int NV = CC / V;                // channel vectors per pixel
   constexpr int NS = THREADS / NV;          // pixel slots
   constexpr int NP = TILE_Y * TILE_X / NS;  // pixels per thread
@@ -385,19 +395,19 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
   static_assert(CC % V == 0 && THREADS % NV == 0 && NS % TILE_X == 0 &&
                     (TILE_Y * TILE_X) % NS == 0,
                 "each thread owns one tile column and NP of its rows");
-  static_assert(!MMA || (TILE_Y == 8 && THREADS == 256 && TILE_X == 16 && CC % 16 == 0 && MAXP == 8 &&
-                          NB == 2),
-                "one warp per tile row; two RoIs per MMA: the tile's 8 rows per RoI in "
-                "the first product, its 16 columns in the second");
+  static_assert(!MMA || (TILE_Y == 8 && THREADS == 256 && TILE_X == 16 && CC % 16 == 0 &&
+                          ((MAXP == 8 && NBM == 2) || (MAXP == 16 && NBM == 1))),
+                "one warp per tile row; two RoIs per MMA at MAXP = 8, one at MAXP = 16: the "
+                "tile's 8 rows per RoI in the first product, its 16 columns in the second");
   const int GP = P * CC + PAD;     // pitch of the staged cotangent's rows p
   const int GS = P * GP;           // a staged RoI's cotangent chunk, (P, P * CC)
   const int US = TILE_Y * P * UP;  // its u rows, (TILE_Y, P, CC)
   extern __shared__ __align__(16) unsigned char smem[];
   int4* list = reinterpret_cast<int4*>(smem);                  // listed RoIs' spans
   int* list_r = reinterpret_cast<int*>(list + THREADS);        // and indices in the image
-  T* g_s = reinterpret_cast<T*>(list_r + THREADS);             // (2, NB, P, GP)
-  T* u_s = g_s + 2 * NB * GS;                                  // (NB, TILE_Y, P, UP)
-  float* wt_s = reinterpret_cast<float*>(u_s + NB * US);       // (2, NB, TILE_Y + TILE_X, MAXP)
+  T* g_s = reinterpret_cast<T*>(list_r + THREADS);             // (2, NBM, P, GP)
+  T* u_s = g_s + 2 * NBM * GS;                                 // (NBM, TILE_Y, P, UP)
+  float* wt_s = reinterpret_cast<float*>(u_s + NBM * US);      // (2, NBM, TILE_Y + TILE_X, MAXP)
 
   const int tid = threadIdx.x;
   const int chunk = blockIdx.x % chunks;
@@ -426,7 +436,7 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
   // start the copies of listed RoIs [j0, j0 + nb) into staging buffer s: the
   // cotangent chunks, the weights of the tile rows and columns they cover
   auto stage = [&](int j0, int nb, int s) {
-    T* gb = g_s + s * NB * GS;
+    T* gb = g_s + s * NBM * GS;
     for (int k = tid; k < nb * MAXP * MAXP * NV; k += THREADS) {
       const int v = k % NV, pq = (k / NV) % (MAXP * MAXP), j = k / (MAXP * MAXP * NV);
       const int p = pq / MAXP, q = pq % MAXP;
@@ -440,10 +450,12 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
           copy_vec<T, V>(dst, src, ok);
       }
     }
-    for (int k = tid; k < nb * (TILE_Y + TILE_X) * 2; k += THREADS) {
-      const int half = k & 1, e = (k >> 1) % (TILE_Y + TILE_X), j = (k >> 1) / (TILE_Y + TILE_X);
+    for (int k = tid; k < nb * (TILE_Y + TILE_X) * QW; k += THREADS) {
+      const int piece = k & (QW - 1), kq = k >> (QW == 2 ? 1 : 2);  // QW is 2 or 4
+      const int e = kq % (TILE_Y + TILE_X), j = kq / (TILE_Y + TILE_X);
       const int4 sj = list[j0 + j];
-      const float* src = wt + static_cast<size_t>(roi0 + list_r[j0 + j]) * WT_STRIDE + 4 * half;
+      const float* src =
+          wt + static_cast<size_t>(roi0 + list_r[j0 + j]) * wt_stride<MAXP>() + 4 * piece;
       bool in;
       if (e < TILE_Y) {  // tile row e, window row ty0 + e - y0
         const int gy = ty0 + e;
@@ -454,7 +466,7 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
         in = gx >= (sj.z & 0xffff) && gx <= (sj.z >> 16);
         src += (WIN_Y + gx - (sj.w >> 16)) * MAXP;
       }
-      if (in) cp_async16(wt_s + (s * NB + j) * WS + e * MAXP + 4 * half, src, true);
+      if (in) cp_async16(wt_s + (s * NBM + j) * WS + e * MAXP + 4 * piece, src, true);
     }
     cp_async_commit();
   };
@@ -471,20 +483,42 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
     }
     __syncthreads();
 
-    // NB listed RoIs per step; the next step's copies fly during this one's
-    // arithmetic
-    if (n > 0) stage(0, min(NB, n), 0);
-    for (int j0 = 0, sb = 0; j0 < n; j0 += NB, sb ^= 1) {
-      const int nb = min(NB, n - j0);
-      if (j0 + NB < n) stage(j0 + NB, min(NB, n - j0 - NB), sb ^ 1);
+    // NBM listed RoIs per step; the next step's copies fly during this
+    // one's arithmetic
+    if (n > 0) stage(0, min(NBM, n), 0);
+    for (int j0 = 0, sb = 0; j0 < n; j0 += NBM, sb ^= 1) {
+      const int nb = min(NBM, n - j0);
+      if (j0 + NBM < n) stage(j0 + NBM, min(NBM, n - j0 - NBM), sb ^ 1);
       else cp_async_commit();
       cp_async_wait_prior();
       __syncthreads();
-      const T* gb = g_s + sb * NB * GS;
-      const float* wb = wt_s + sb * NB * WS;
+      const T* gb = g_s + sb * NBM * GS;
+      const float* wb = wt_s + sb * NBM * WS;
 
       // u of the staged RoIs' covered rows, summed in f32 and rounded to T
-      if constexpr (MMA) {
+      if constexpr (MMA && MAXP == 16) {
+        // one RoI per MMA: rows 0-7 are the tile rows y, k its p (A's rows
+        // 8-15 are zero); B rows past P repeat row P - 1, against zero
+        // weights
+        const View v0 = tile_view(list[j0], ty0, tx0);
+        const bool r0 = g8 >= v0.ra && g8 <= v0.rb;
+        const float* w = wb + g8 * MAXP + 2 * t4;
+        const unsigned a0 = r0 ? pack_bf16x2(w[0], w[1]) : 0u;
+        const unsigned a2 = r0 ? pack_bf16x2(w[8], w[9]) : 0u;
+        const T* grow = gb + min(lane & 15, P - 1) * GP;
+#pragma unroll
+        for (int i = 0; i < MAXP * CC / 8 / (THREADS / 32); ++i) {
+          const int nt = warp + i * (THREADS / 32);
+          if (nt < P * CC / 8) {
+            unsigned b0, b1;
+            ldsm_x2_trans(b0, b1, grow + nt * 8);
+            float d[4];
+            mma16(d, a0, 0u, a2, 0u, b0, b1);
+            T* u = u_s + (g8 * P + nt / (CC / 8)) * UP + (nt % (CC / 8)) * 8 + 2 * t4;
+            if (r0) *reinterpret_cast<unsigned*>(u) = pack_bf16x2(d[0], d[1]);
+          }
+        }
+      } else if constexpr (MMA) {
         // both RoIs in one MMA, block-diagonally: rows 0-7 and k 0-7 are the
         // first RoI's (tile rows y, its p), rows 8-15 and k 8-15 the
         // second's. B rows past P repeat row P - 1, and without a second
@@ -518,9 +552,12 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
           const int q = k % MAXP, y = (k / MAXP) % TILE_Y, j = k / (TILE_Y * MAXP);
           const View vw = tile_view(list[j0 + j], ty0, tx0);
           if (q >= P || y < vw.ra || y > vw.rb) continue;
-          const float4 w0 = *reinterpret_cast<const float4*>(wb + j * WS + y * MAXP);
-          const float4 w1 = *reinterpret_cast<const float4*>(wb + j * WS + y * MAXP + 4);
-          const float w[MAXP] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+          float w[MAXP];
+#pragma unroll
+          for (int i = 0; i < QW; ++i) {
+            const float4 wv = *reinterpret_cast<const float4*>(wb + j * WS + y * MAXP + 4 * i);
+            w[4 * i] = wv.x, w[4 * i + 1] = wv.y, w[4 * i + 2] = wv.z, w[4 * i + 3] = wv.w;
+          }
           const T* gj = gb + j * GS + q * CC + v * V;
           float u[V];
 #pragma unroll
@@ -541,19 +578,22 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
 
       // dF += wx^T u, in list order. FMA path: RoI by RoI, each RoI's
       // contribution summed over q first, then added. MMA path: one warp per
-      // tile row, the step's two RoIs in one MMA (block-diagonally in k),
-      // their sum added.
+      // tile row, at MAXP = 8 the step's two RoIs in one MMA (block-diagonally
+      // in k), their sum added; at MAXP = 16 the step's RoI alone.
       if constexpr (MMA) {
         const int y = warp;
         const bool two = nb > 1;
         const View v0 = tile_view(list[j0], ty0, tx0);
         const View v1 = two ? tile_view(list[j0 + 1], ty0, tx0) : View{1, 0, 1, 0, false};
         const bool y0 = y >= v0.ra && y <= v0.rb, y1 = y >= v1.ra && y <= v1.rb;
-        if (v0.bad || v1.bad) {
-          // a non-finite RoI's u may hold NaN, and 0 * NaN must not reach
-          // the columns outside its span (whose wx were not staged either):
-          // one RoI per MMA, its sum added only where the RoI reaches
-          for (int h = 0; h < nb; ++h) {
+        if (MAXP == 16 || v0.bad || v1.bad) {
+          // one RoI per MMA. A: tile columns x = g8, g8 + 8 by k = q (k 8-15
+          // at MAXP = 16 only); a column outside the RoI's span gets zero
+          // weights (they were not staged). A non-finite RoI's u may hold
+          // NaN, and 0 * NaN must not reach the columns outside its span:
+          // its sum is added only where the RoI reaches (at MAXP = 8 any
+          // RoI's of a step with a non-finite one)
+          for (int h = 0; h < (MAXP == 16 ? 1 : nb); ++h) {  // MAXP = 16: nb is 1
             const View vw = h ? v1 : v0;
             if (!(h ? y1 : y0)) continue;  // the whole warp
             const float* w = wb + h * WS + (TILE_Y + g8) * MAXP + 2 * t4;
@@ -561,6 +601,13 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
             const bool x_hi = g8 + 8 >= vw.ca && g8 + 8 <= vw.cb;
             const unsigned a0 = x_lo ? pack_bf16x2(w[0], w[1]) : 0u;
             const unsigned a1 = x_hi ? pack_bf16x2(w[8 * MAXP], w[8 * MAXP + 1]) : 0u;
+            unsigned a2 = 0u, a3 = 0u;
+            if constexpr (MAXP == 16) {
+              a2 = x_lo ? pack_bf16x2(w[8], w[9]) : 0u;
+              a3 = x_hi ? pack_bf16x2(w[8 * MAXP + 8], w[8 * MAXP + 9]) : 0u;
+            }
+            const bool add_lo = x_lo || (MAXP == 16 && !vw.bad);
+            const bool add_hi = x_hi || (MAXP == 16 && !vw.bad);
             // B rows k = q (past P: row P - 1 against zero weights); lanes
             // 16-31 address the next n tile
             const T* urow = u_s + h * US + (y * P + min(lane & 15, P - 1)) * UP + (lane >> 4) * 8;
@@ -569,16 +616,16 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
               unsigned bq[4];
               ldsm_x4_trans(bq, urow + nt * 8);
               float d[4], e[4];
-              mma16(d, a0, a1, 0u, 0u, bq[0], bq[1]);
-              mma16(e, a0, a1, 0u, 0u, bq[2], bq[3]);
-              acc[4 * nt] += x_lo ? d[0] : 0.f;
-              acc[4 * nt + 1] += x_lo ? d[1] : 0.f;
-              acc[4 * nt + 2] += x_hi ? d[2] : 0.f;
-              acc[4 * nt + 3] += x_hi ? d[3] : 0.f;
-              acc[4 * nt + 4] += x_lo ? e[0] : 0.f;
-              acc[4 * nt + 5] += x_lo ? e[1] : 0.f;
-              acc[4 * nt + 6] += x_hi ? e[2] : 0.f;
-              acc[4 * nt + 7] += x_hi ? e[3] : 0.f;
+              mma16(d, a0, a1, a2, a3, bq[0], bq[1]);
+              mma16(e, a0, a1, a2, a3, bq[2], bq[3]);
+              acc[4 * nt] += add_lo ? d[0] : 0.f;
+              acc[4 * nt + 1] += add_lo ? d[1] : 0.f;
+              acc[4 * nt + 2] += add_hi ? d[2] : 0.f;
+              acc[4 * nt + 3] += add_hi ? d[3] : 0.f;
+              acc[4 * nt + 4] += add_lo ? e[0] : 0.f;
+              acc[4 * nt + 5] += add_lo ? e[1] : 0.f;
+              acc[4 * nt + 6] += add_hi ? e[2] : 0.f;
+              acc[4 * nt + 7] += add_hi ? e[3] : 0.f;
             }
           }
         } else if (y0 || y1) {
@@ -615,9 +662,13 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
         for (int j = 0; j < nb; ++j) {
           const View vw = tile_view(list[j0 + j], ty0, tx0);
           if (px < vw.ca || px > vw.cb) continue;
-          const float4 w0 = *reinterpret_cast<const float4*>(wb + j * WS + (TILE_Y + px) * MAXP);
-          const float4 w1 = *reinterpret_cast<const float4*>(wb + j * WS + (TILE_Y + px) * MAXP + 4);
-          const float wq[MAXP] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+          float wq[MAXP];
+#pragma unroll
+          for (int i = 0; i < QW; ++i) {
+            const float4 wv =
+                *reinterpret_cast<const float4*>(wb + j * WS + (TILE_Y + px) * MAXP + 4 * i);
+            wq[4 * i] = wv.x, wq[4 * i + 1] = wv.y, wq[4 * i + 2] = wv.z, wq[4 * i + 3] = wv.w;
+          }
           const T* uj = u_s + j * US + cv * V;
 #pragma unroll
           for (int i = 0; i < NP; ++i) {
@@ -682,24 +733,25 @@ tile_kernel(Levels lv, int C, int rois_per_image, int tiles_per_image, int chunk
   }
 }
 
-template <typename T, int V, int CC>
+template <typename T, int V, int CC, int MAXP>
 int launch_tiles(const Levels& lv, int B, int C, int rois_per_image, int tiles_per_image,
                  const int4* spans, const int* tile_cnt, const int* tile_lists,
                  const float* wt, const T* g, int P, cudaStream_t s) {
-  constexpr int max_smem = tile_smem_bytes<T, CC>(MAXP);
+  constexpr int max_smem = tile_smem_bytes<T, CC, MAXP>(MAXP);
   static_assert(max_smem <= 232448, "the tile kernel's shared memory exceeds an SM's");
   if (max_smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tile_kernel<T, V, CC>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+        tile_kernel<T, V, CC, MAXP>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int chunks = (C + CC - 1) / CC;
-  tile_kernel<T, V, CC><<<B * tiles_per_image * chunks, THREADS, tile_smem_bytes<T, CC>(P), s>>>(
-      lv, C, rois_per_image, tiles_per_image, chunks, spans, tile_cnt, tile_lists, wt, g, P);
+  tile_kernel<T, V, CC, MAXP>
+      <<<B * tiles_per_image * chunks, THREADS, tile_smem_bytes<T, CC, MAXP>(P), s>>>(
+          lv, C, rois_per_image, tiles_per_image, chunks, spans, tile_cnt, tile_lists, wt, g, P);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int MAXP>
 int launch(const void* g, const int* lvl, const int* y0, const int* x0, const float* wy,
            const float* wx, void* scratch, long long scratch_ints, void* o0, void* o1,
            void* o2, void* o3, int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
@@ -719,19 +771,19 @@ int launch(const void* g, const int* lvl, const int* y0, const int* x0, const fl
   }
   const long long grid = B * tiles * ((C + SCALAR_CHUNK - 1) / SCALAR_CHUNK);
   if (grid > 0x7fffffffLL ||
-      static_cast<long long>(WT_STRIDE + 4 + tiles) * R + B * tiles > scratch_ints)
+      static_cast<long long>(wt_stride<MAXP>() + 4 + tiles) * R + B * tiles > scratch_ints)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B * tiles == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(B * tiles);
   float* wt = static_cast<float*>(scratch);
-  int4* sp = reinterpret_cast<int4*>(wt + static_cast<size_t>(WT_STRIDE) * R);
+  int4* sp = reinterpret_cast<int4*>(wt + static_cast<size_t>(wt_stride<MAXP>()) * R);
   int* cnt = reinterpret_cast<int*>(sp + R);
   int* lists = cnt + n;  // (n, rois_per_image)
   if (R > 0) {
     constexpr int WARPS = THREADS / 32;
-    spans_kernel<T><<<(R + WARPS - 1) / WARPS, THREADS, 0, s>>>(lv, num_levels, lvl, y0, x0,
-                                                                 wy, wx, sp, wt, R, P);
+    spans_kernel<T, MAXP><<<(R + WARPS - 1) / WARPS, THREADS, 0, s>>>(lv, num_levels, lvl, y0,
+                                                                       x0, wy, wx, sp, wt, R, P);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -744,10 +796,21 @@ int launch(const void* g, const int* lvl, const int* y0, const int* x0, const fl
   const T* gt = static_cast<const T*>(g);
   const int tpi = static_cast<int>(tiles);
   if (vec)
-    return launch_tiles<T, V, CHUNK_BYTES / static_cast<int>(sizeof(T))>(
+    return launch_tiles<T, V, CHUNK_BYTES / static_cast<int>(sizeof(T)), MAXP>(
         lv, B, C, rois_per_image, tpi, sp, cnt, lists, wt, gt, P, s);
-  return launch_tiles<T, 1, SCALAR_CHUNK>(lv, B, C, rois_per_image, tpi, sp, cnt, lists, wt, gt, P,
-                                          s);
+  return launch_tiles<T, 1, SCALAR_CHUNK, MAXP>(lv, B, C, rois_per_image, tpi, sp, cnt, lists, wt,
+                                                gt, P, s);
+}
+
+// the instance for P: MAXP = 8 up to P = 8, 16 above
+template <typename T>
+int launch_p(const void* g, const int* lvl, const int* y0, const int* x0, const float* wy,
+             const float* wx, void* scratch, long long scratch_ints, void* o0, void* o1,
+             void* o2, void* o3, int h0, int h1, int h2, int h3, int w0, int w1, int w2, int w3,
+             int num_levels, int B, int C, int rois_per_image, int R, int P, void* stream) {
+  return (P <= 8 ? launch<T, 8> : launch<T, 16>)(
+      g, lvl, y0, x0, wy, wx, scratch, scratch_ints, o0, o1, o2, o3, h0, h1, h2, h3, w0, w1, w2,
+      w3, num_levels, B, C, rois_per_image, R, P, stream);
 }
 
 }  // namespace
@@ -762,15 +825,16 @@ int launch(const void* g, const int* lvl, const int* y0, const int* x0, const fl
   g, lvl, y0, x0, wy, wx, scratch, scratch_ints, o0, o1, o2, o3, h0, h1, h2, h3, w0,  \
       w1, w2, w3, num_levels, B, C, rois_per_image, R, P, stream
 
-// Every pass on the caller's stream. scratch: scratch_ints of 4-byte words,
-// 16-byte aligned, at least (WT_STRIDE + 4 + T) R + B T for T tiles per
-// image (the transposed weights, the spans, each tile's RoI list and its
-// length); o0..o3: the per-level outputs, each written whole. Returns cudaGetLastError() of the last launch
+// Every pass on the caller's stream; P up to 16. scratch: scratch_ints of
+// 4-byte words, 16-byte aligned, at least ((56 + 64) MAXP + 4 + T) R + B T
+// for T tiles per image and MAXP = 8 (P <= 8) or 16 (the transposed
+// weights, the spans, each tile's RoI list and its length); o0..o3: the
+// per-level outputs, each written whole. Returns cudaGetLastError() of the last launch
 // (or of the first that failed).
 extern "C" int roi_align_bwd_bf16(ROI_ALIGN_BWD_ARGS) {
-  return launch<__nv_bfloat16>(ROI_ALIGN_BWD_PASS);
+  return launch_p<__nv_bfloat16>(ROI_ALIGN_BWD_PASS);
 }
 
 extern "C" int roi_align_bwd_f32(ROI_ALIGN_BWD_ARGS) {
-  return launch<float>(ROI_ALIGN_BWD_PASS);
+  return launch_p<float>(ROI_ALIGN_BWD_PASS);
 }

@@ -21,6 +21,12 @@
 //
 // Design: one CTA per RoI with one warp per output row p (P warps), so a
 // CTA holds P independent row computations and the SM many RoIs at once.
+// - Two instances by the largest P they take (MAXP): 8 (the FPN pooler's
+//   P = 7, two CTAs per SM) and 14 (the C4 pooler's P = 14, one CTA of 14
+//   warps per SM). A warp keeps the sums of at most 8 outputs q in
+//   registers (acc[QB][V], 8 x 8 floats at 16-byte lanes), so at MAXP = 14
+//   it runs its q in two blocks of 7, each over the union of its own wx
+//   spans; the blocks share at most a boundary column, which is read twice.
 // - Wide accesses: each lane owns 16 bytes of channels (8 bf16 or 4 f32),
 //   so one warp covers C = 256 bf16 with one 512-byte load or store; a
 //   scalar path (one channel per lane) takes any other C.
@@ -59,7 +65,6 @@ namespace {
 
 constexpr int WIN_Y = 56;
 constexpr int WIN_X = 64;
-constexpr int MAXP = 8;
 constexpr int UX = 2;  // window columns per x step
 
 struct Levels {
@@ -127,12 +132,15 @@ __device__ __forceinline__ void nonzero_span(unsigned m0, unsigned m1, int empty
   hi = m1 ? 63 - __clz(m1) : (m0 ? 31 - __clz(m0) : -1);
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(MAXP * 32, 2)
+template <typename T, int V, int MAXP>
+__global__ void __launch_bounds__(MAXP * 32, MAXP <= 8 ? 2 : 1)
 roi_align_fwd_kernel(Levels lv, int num_levels, int C, int rois_per_image,
                      const int* __restrict__ lvl, const int* __restrict__ y0s,
                      const int* __restrict__ x0s, const float* __restrict__ wy,
                      const float* __restrict__ wx, T* __restrict__ out, int P) {
+  // outputs q per block of register sums, and blocks per row
+  constexpr int QB = MAXP <= 8 ? MAXP : (MAXP + 1) / 2;
+  constexpr int NQB = (MAXP + QB - 1) / QB;
   __shared__ __align__(16) float wy_s[MAXP * WIN_Y];
   __shared__ __align__(16) float wx_s[MAXP * WIN_X];
 
@@ -175,7 +183,7 @@ roi_align_fwd_kernel(Levels lv, int num_levels, int C, int rois_per_image,
   const bool wy_finite =
       __all_sync(0xffffffffu, isfinite(wyp[lane]) && (!in1 || isfinite(wyp[lane + 32])));
   int qlo[MAXP], qhi[MAXP];
-  int xlo = WIN_X, xhi = -1;
+  int ulo = WIN_X, uhi = -1;
 #pragma unroll
   for (int q = 0; q < MAXP; ++q) {
     qlo[q] = WIN_X;
@@ -184,78 +192,99 @@ roi_align_fwd_kernel(Levels lv, int num_levels, int C, int rois_per_image,
       nonzero_span(__ballot_sync(0xffffffffu, wx_s[q * WIN_X + lane] != 0.f),
                    __ballot_sync(0xffffffffu, wx_s[q * WIN_X + lane + 32] != 0.f), WIN_X,
                    qlo[q], qhi[q]);
-      xlo = min(xlo, qlo[q]);
-      xhi = max(xhi, qhi[q]);
+      ulo = min(ulo, qlo[q]);
+      uhi = max(uhi, qhi[q]);
     }
   }
   if (!wy_finite) {
 #pragma unroll
     for (int q = 0; q < MAXP; ++q) {
-      qlo[q] = xlo;
-      qhi[q] = xhi;
+      qlo[q] = ulo;
+      qhi[q] = uhi;
     }
   }
-
+  int blo[NQB], bhi[NQB];  // the union of each q block's spans (one block: the union)
+  if constexpr (NQB == 1) {
+    blo[0] = ulo;
+    bhi[0] = uhi;
+  } else {
+#pragma unroll
+    for (int qb = 0; qb < NQB; ++qb) {
+      blo[qb] = WIN_X;
+      bhi[qb] = -1;
+#pragma unroll
+      for (int q = qb * QB; q < (qb + 1) * QB && q < MAXP; ++q) {
+        blo[qb] = min(blo[qb], qlo[q]);
+        bhi[qb] = max(bhi[qb], qhi[q]);
+      }
+    }
+  }
 
   const int H = lv.h[l];
   const int W = lv.w[l];
   const T* f = static_cast<const T*>(lv.ptr[l]) + static_cast<size_t>(r / rois_per_image) * H * W * C;
   T* out_p = out + (static_cast<size_t>(r) * P + p) * P * C;
   for (int ch = lane * V; ch < C; ch += 32 * V) {
-    float acc[MAXP][V];
 #pragma unroll
-    for (int q = 0; q < MAXP; ++q)
+    for (int qb = 0; qb < NQB; ++qb) {
+      const int q0 = qb * QB;
+      const int xlo = blo[qb], xhi = bhi[qb];
+      float acc[QB][V];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[q][e] = 0.f;
+      for (int q = 0; q < QB; ++q)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[q][e] = 0.f;
 
-    for (int xb = xlo; xb <= xhi; xb += UX) {
-      float t[UX][V];
+      for (int xb = xlo; xb <= xhi; xb += UX) {
+        float t[UX][V];
 #pragma unroll
-      for (int u = 0; u < UX; ++u)
+        for (int u = 0; u < UX; ++u)
 #pragma unroll
-        for (int e = 0; e < V; ++e) t[u][e] = 0.f;
-      bool col_ok[UX];
-#pragma unroll
-      for (int u = 0; u < UX; ++u) {
-        const int gx = x0 + xb + u;
-        col_ok[u] = xb + u <= xhi && gx >= 0 && gx < W;
-      }
-#pragma unroll 2
-      for (int y = ylo; y <= yhi; ++y) {
-        const int gy = y0 + y;
-        const bool row_ok = gy >= 0 && gy < H;
-        const float w = wyp[y];
-        const T* row = f + (static_cast<long long>(gy) * W + x0 + xb) * C + ch;
+          for (int e = 0; e < V; ++e) t[u][e] = 0.f;
+        bool col_ok[UX];
 #pragma unroll
         for (int u = 0; u < UX; ++u) {
-          float v[V];
-          if (row_ok && col_ok[u]) {
-            load_vec<T, V>(row + u * C, v);
-          } else {
+          const int gx = x0 + xb + u;
+          col_ok[u] = xb + u <= xhi && gx >= 0 && gx < W;
+        }
+#pragma unroll 2
+        for (int y = ylo; y <= yhi; ++y) {
+          const int gy = y0 + y;
+          const bool row_ok = gy >= 0 && gy < H;
+          const float w = wyp[y];
+          const T* row = f + (static_cast<long long>(gy) * W + x0 + xb) * C + ch;
 #pragma unroll
-            for (int e = 0; e < V; ++e) v[e] = 0.f;  // zero padding, as the plain version
+          for (int u = 0; u < UX; ++u) {
+            float v[V];
+            if (row_ok && col_ok[u]) {
+              load_vec<T, V>(row + u * C, v);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) v[e] = 0.f;  // zero padding, as the plain version
+            }
+#pragma unroll
+            for (int e = 0; e < V; ++e) t[u][e] = fmaf(w, v[e], t[u][e]);
           }
+        }
 #pragma unroll
-          for (int e = 0; e < V; ++e) t[u][e] = fmaf(w, v[e], t[u][e]);
+        for (int u = 0; u < UX; ++u) {
+          const int x = xb + u;
+          if (x > xhi) break;
+#pragma unroll
+          for (int q = 0; q < QB; ++q) {
+            const int qq = q0 + q;  // wx[qq, x] is 0 outside [qlo, qhi]
+            if (qq < P && x >= qlo[q0 + q] && x <= qhi[q0 + q]) {
+              const float wq = wx_s[qq * WIN_X + x];
+#pragma unroll
+              for (int e = 0; e < V; ++e) acc[q][e] = fmaf(wq, t[u][e], acc[q][e]);
+            }
+          }
         }
       }
 #pragma unroll
-      for (int u = 0; u < UX; ++u) {
-        const int x = xb + u;
-        if (x > xhi) break;
-#pragma unroll
-        for (int q = 0; q < MAXP; ++q) {
-          if (q < P && x >= qlo[q] && x <= qhi[q]) {  // wx[q, x] is 0 elsewhere
-            const float wq = wx_s[q * WIN_X + x];
-#pragma unroll
-            for (int e = 0; e < V; ++e) acc[q][e] = fmaf(wq, t[u][e], acc[q][e]);
-          }
-        }
-      }
+      for (int q = 0; q < QB; ++q)
+        if (q0 + q < P) store_vec<T, V>(out_p + static_cast<size_t>(q0 + q) * C + ch, acc[q]);
     }
-#pragma unroll
-    for (int q = 0; q < MAXP; ++q)
-      if (q < P) store_vec<T, V>(out_p + static_cast<size_t>(q) * C + ch, acc[q]);
   }
 }
 
@@ -265,19 +294,29 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3,
            int num_levels, int C, int rois_per_image, const int* lvl,
            const int* y0, const int* x0, const float* wy, const float* wx,
            void* out, int R, int P, void* stream) {
-  if (P < 1 || P > MAXP || num_levels < 1 || num_levels > 4)
+  if (P < 1 || P > 14 || num_levels < 1 || num_levels > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   Levels lv{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   constexpr int V = 16 / sizeof(T);
   bool vec = C % V == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   for (int i = 0; i < num_levels; ++i) vec = vec && reinterpret_cast<uintptr_t>(lv.ptr[i]) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    roi_align_fwd_kernel<T, V><<<R, 32 * P, 0, s>>>(lv, num_levels, C, rois_per_image, lvl, y0,
-                                                   x0, wy, wx, static_cast<T*>(out), P);
-  else
-    roi_align_fwd_kernel<T, 1><<<R, 32 * P, 0, s>>>(lv, num_levels, C, rois_per_image, lvl, y0,
-                                                   x0, wy, wx, static_cast<T*>(out), P);
+  T* o = static_cast<T*>(out);
+  if (P <= 8) {
+    if (vec)
+      roi_align_fwd_kernel<T, V, 8><<<R, 32 * P, 0, s>>>(lv, num_levels, C, rois_per_image, lvl,
+                                                         y0, x0, wy, wx, o, P);
+    else
+      roi_align_fwd_kernel<T, 1, 8><<<R, 32 * P, 0, s>>>(lv, num_levels, C, rois_per_image, lvl,
+                                                         y0, x0, wy, wx, o, P);
+  } else {
+    if (vec)
+      roi_align_fwd_kernel<T, V, 14><<<R, 32 * P, 0, s>>>(lv, num_levels, C, rois_per_image, lvl,
+                                                          y0, x0, wy, wx, o, P);
+    else
+      roi_align_fwd_kernel<T, 1, 14><<<R, 32 * P, 0, s>>>(lv, num_levels, C, rois_per_image, lvl,
+                                                          y0, x0, wy, wx, o, P);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

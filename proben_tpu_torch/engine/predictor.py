@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.rcnn import ModelConfig, RCNN, rcnn_inference
+from ..models.rcnn import ModelConfig, RCNN, rcnn_inference, rcnn_inference_given_boxes
 from ..structures.boxes import clip_boxes
 from ..structures.detections import Detections
 
@@ -40,6 +40,15 @@ class Predictor:
         boxes = det.boxes * torch.stack([sx, sy, sx, sy], -1)[:, None, :]
         det.boxes = clip_boxes(boxes, (out_hw[:, None, 0], out_hw[:, None, 1]))
         return det
+
+    def rescore_boxes(self, images, boxes):
+        """Box-head scores of GIVEN boxes (N, K, 4) in the model-input frame
+        of raw (N, H, W, C) images (the reference's
+        ``GeneralizedRCNN.inference(..., detected_instances)``): (probs
+        (N, K, C+1) with the background last, class logits (N, K, C+1),
+        variance (N, K, 1) or None), on the device."""
+        return rcnn_inference_given_boxes(self.model, self.cfg, self._tensor(images),
+                                          self._tensor(boxes))
 
     def predict_batch(self, batch: Dict) -> List[Dict[str, np.ndarray]]:
         """``batch`` as the data loaders build it: "image" (N, H, W, C) raw,

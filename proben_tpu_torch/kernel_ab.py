@@ -1,0 +1,184 @@
+"""A/B readings of the port's kernels across checkouts on one GPU.
+
+    python -m proben_tpu_torch.kernel_ab image_io TREE [TREE ...]
+    python -m proben_tpu_torch.kernel_ab roi_align TREE [TREE ...]
+    python -m proben_tpu_torch.kernel_ab sass TREE_A TREE_B SOURCE KERNEL_A KERNEL_B
+
+Each TREE is the root of a checkout (``.`` for this one).
+
+``image_io`` times the compose + resize + pad kernel at the FLIR evaluation
+shapes: 8 single-channel 512x640 thermal frames resized to 800x1000 in an
+800x1024 canvas (BGR), and the same with 8 1600x1800 RGB frames beside them
+(BGRTTT). ``roi_align`` times K2 (RoIAlign forward) and K3 (its backward) at
+the FPN pooler's main-path shapes: four bf16 levels of an 800x1024 batch of
+8 at C = 256, 8 x 1000 proposals for K2 and 8 x 512 RoIs for K3 (P = 7),
+and, where the tree's kernels take P = 14, at the C4 pooler's (one 50 x 64
+level at C = 1024, P = 14), all from one seed, so every tree pools the same
+boxes. Each tree is timed in a process of its own, which builds that
+checkout's kernels, in the order given (for example parent, change, change,
+parent). A run is three readings per case, each the median of 5 groups of
+10 back-to-back calls timed with CUDA events. Prints one line per tree and a
+JSON object last.
+
+``sass`` compiles ``csrc/SOURCE.cu`` of both trees for ``sm_90a`` and
+compares, with ``cuobjdump -sass``, the kernel whose mangled name matches
+the regular expression KERNEL_A in TREE_A with the one matching KERNEL_B in
+TREE_B, instruction by instruction (addresses and symbol names left out).
+Prints the counts and one JSON object.
+
+Needs a CUDA device (``sass``: only nvcc and cuobjdump).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+_MS = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from proben_tpu_torch import _build
+
+def ms(fn):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(10):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / 10)
+    return float(np.median(times))
+
+g = torch.Generator(device="cuda").manual_seed(0)
+"""
+
+_IMAGE_IO = _MS + r"""
+from proben_tpu_torch.native import io
+_build.build(["image_io"])
+th = [torch.randint(0, 256, (512, 640, 1), generator=g, device="cuda", dtype=torch.uint8)
+      for _ in range(8)]
+rgb = [torch.randint(0, 256, (1600, 1800, 3), generator=g, device="cuda", dtype=torch.uint8)
+       for _ in range(8)]
+sizes, pad = [(800, 1000)] * 8, (800, 1024)
+out = {}
+for fmt, r in (("BGR", None), ("BGRTTT", rgb)):
+    out[fmt] = [ms(lambda: io.compose_resize_pad(th, r, fmt, sizes, pad)) for _ in range(3)]
+print(json.dumps(out))
+"""
+
+_ROI_ALIGN = _MS + r"""
+from proben_tpu_torch.ops import roi_align_cuda as rc
+_build.build(["roi_align_fwd", "roi_align_bwd"])
+levels = [torch.randn(8, 200 >> i, 256 >> i, 256, generator=g, device="cuda").bfloat16()
+          for i in range(4)]
+shapes = [tuple(f.shape) for f in levels]
+
+def boxes(k):
+    xy = torch.rand(8, k, 2, generator=g, device="cuda") * torch.tensor([960.0, 760.0], device="cuda")
+    wh = 16 + torch.rand(8, k, 2, generator=g, device="cuda") ** 2 * 400
+    return torch.cat([xy, (xy + wh).minimum(torch.tensor([1000.0, 800.0], device="cuda"))], -1)
+
+fwd = rc.window_inputs(levels, boxes(1000), (4, 8, 16, 32))[:5]
+bwd = rc.window_inputs(levels, boxes(512), (4, 8, 16, 32))[:5]
+cot = (0.01 * torch.randn(8 * 512, 7, 7, 256, generator=g, device="cuda")).bfloat16()
+out = {"K2": [ms(lambda: rc.roi_align_fwd(levels, *fwd, 1000)) for _ in range(3)],
+       "K3": [ms(lambda: rc.roi_align_bwd(cot, shapes, *bwd, 512)) for _ in range(3)]}
+if getattr(rc, "MAX_P", 8) >= 14:  # the C4 pooler: one 50 x 64 level at C = 1024, P = 14
+    res4 = [torch.randn(8, 50, 64, 1024, generator=g, device="cuda").bfloat16()]
+    zero = lambda k: torch.zeros(8, k, dtype=torch.int32, device="cuda")
+    pooler = dict(strides=(16,), output_size=14, min_level=0)
+    fwd = rc.window_inputs(res4, boxes(1000), levels=zero(1000), **pooler)[:5]
+    bwd = rc.window_inputs(res4, boxes(512), levels=zero(512), **pooler)[:5]
+    cot = (0.01 * torch.randn(8 * 512, 14, 14, 1024, generator=g, device="cuda")).bfloat16()
+    out["K2 P = 14"] = [ms(lambda: rc.roi_align_fwd(res4, *fwd, 1000)) for _ in range(3)]
+    out["K3 P = 14"] = [ms(lambda: rc.roi_align_bwd(cot, [tuple(res4[0].shape)], *bwd, 512))
+                        for _ in range(3)]
+print(json.dumps(out))
+"""
+
+TIMINGS = {"image_io": _IMAGE_IO, "roi_align": _ROI_ALIGN}
+
+
+def run_trees(trees, timing: str, key: str) -> int:
+    """Run the ``timing`` script once per tree, each in a process of its own
+    with the tree's root as its argument and working directory; print each
+    tree's last output line (a JSON object) and ``{key: [...]}`` last."""
+    runs = []
+    for tree in trees:
+        root = os.path.abspath(tree)
+        res = subprocess.run([sys.executable, "-c", timing, root], cwd=root, capture_output=True,
+                             text=True)
+        if res.returncode:
+            print(res.stderr, file=sys.stderr)
+            return res.returncode
+        ms = json.loads(res.stdout.strip().splitlines()[-1])
+        print(tree, ms, flush=True)
+        runs.append({"tree": tree, "ms": ms})
+    print(json.dumps({key: runs}), flush=True)
+    return 0
+
+
+def kernel_sass(tree: str, source: str, pattern: str, tmp: str):
+    """The SASS instructions of the one kernel of ``tree``'s
+    ``csrc/<source>.cu`` whose mangled name matches ``pattern``: (name,
+    instructions without addresses, encodings or symbol names)."""
+    from ._build import NVCC_FLAGS, nvcc
+
+    cubin = os.path.join(tmp, f"{len(os.listdir(tmp))}.cubin")
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([nvcc(), *flags, "-cubin", "-o", cubin,
+                    os.path.join(tree, "proben_tpu_torch", "csrc", f"{source}.cu")], check=True)
+    cuobjdump = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name:
+            ins = re.sub(r"_Z\w+", "SYM", re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)).strip()
+            if ins and not ins.startswith("/*"):
+                funcs[name].append(ins)
+    hits = [k for k in funcs if re.search(pattern, k)]
+    if len(hits) != 1:
+        raise SystemExit(f"{tree}: {len(hits)} kernels of {source} match {pattern!r}: {sorted(funcs)}")
+    return hits[0], funcs[hits[0]]
+
+
+def compare_sass(tree_a: str, tree_b: str, source: str, pattern_a: str, pattern_b: str) -> int:
+    with tempfile.TemporaryDirectory() as tmp:
+        name_a, a = kernel_sass(tree_a, source, pattern_a, tmp)
+        name_b, b = kernel_sass(tree_b, source, pattern_b, tmp)
+    differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    print(f"{source}: {name_a} ({len(a)} instructions) vs {name_b} ({len(b)}): "
+          f"{differ} differing", flush=True)
+    print(json.dumps({"sass": {"source": source, "a": [tree_a, name_a, len(a)],
+                               "b": [tree_b, name_b, len(b)], "identical": a == b,
+                               "differing": differ}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = list(argv if argv is not None else sys.argv[1:])
+    if args and args[0] in TIMINGS and len(args) > 1:
+        return run_trees(args[1:], TIMINGS[args[0]], f"{args[0]}_ab")
+    if args and args[0] == "sass" and len(args) == 6:
+        return compare_sass(*args[1:])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -77,15 +77,15 @@ K1_VARIANTS = [
 ]
 
 _K2_LOAD = "if (row_ok && col_ok[u]) {"
-_K2_XLOOP = "    for (int xb = xlo; xb <= xhi; xb += UX) {"
-_K2_STORE = "if (q < P) store_vec<T, V>"
+_K2_XLOOP = "      for (int xb = xlo; xb <= xhi; xb += UX) {"
+_K2_STORE = "if (q0 + q < P) store_vec<T, V>"
 K2_VARIANTS = [
     ("shipped (UX = 2)", [], True),
     ("UX = 1", [("constexpr int UX = 2;", "constexpr int UX = 1;")], True),
     ("UX = 4", [("constexpr int UX = 2;", "constexpr int UX = 4;")], True),
     ("without feature loads", [(_K2_LOAD, "if (false) {")], False),
     ("setup + stores only", [(_K2_XLOOP, _K2_XLOOP.replace("xb <= xhi", "xb < 0"))], False),
-    ("setup only", [(_K2_LOAD, "if (false) {"), (_K2_STORE, "if (q < 0) store_vec<T, V>")], False),
+    ("setup only", [(_K2_LOAD, "if (false) {"), (_K2_STORE, "if (q0 + q < 0) store_vec<T, V>")], False),
 ]
 
 
@@ -369,7 +369,7 @@ def probe_k3(tmp: str, model):
     g = (0.01 * torch.randn(r, 7, 7, c, generator=gen, device="cuda")).bfloat16()
     ref = [t.float() for t in roi_align_cuda.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)]
     outs = [torch.empty(s, dtype=torch.bfloat16, device="cuda") for s in shapes]
-    scratch = torch.empty(roi_align_cuda.bwd_scratch_words(r, shapes[0][0], shapes),
+    scratch = torch.empty(roi_align_cuda.bwd_scratch_words(r, shapes[0][0], shapes, 7),
                           dtype=torch.int32, device="cuda")
     flat = torch.empty(sum(t.numel() for t in outs), dtype=torch.bfloat16, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream

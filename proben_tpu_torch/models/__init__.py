@@ -8,6 +8,8 @@ from .rcnn import (
     postprocess_boxes,
     random_affines,
     rcnn_inference,
+    rcnn_inference_given_boxes,
+    rcnn_train_losses,
 )
 from .roi_heads import ROIHeadsConfig
 from .rpn import RPNConfig
@@ -24,4 +26,6 @@ __all__ = [
     "postprocess_boxes",
     "random_affines",
     "rcnn_inference",
+    "rcnn_inference_given_boxes",
+    "rcnn_train_losses",
 ]

@@ -27,10 +27,11 @@ class BoxHead(nn.Module):
 
 
 class OutputLayers(nn.Module):
-    def __init__(self, in_dim: int = 1024, num_classes: int = 3, enable_variance: bool = False):
+    def __init__(self, in_dim: int = 1024, num_classes: int = 3, enable_variance: bool = False,
+                 cls_agnostic_bbox_reg: bool = False):
         super().__init__()
         self.cls_score = Linear(in_dim, num_classes + 1)
-        self.bbox_pred = Linear(in_dim, num_classes * 4)
+        self.bbox_pred = Linear(in_dim, 4 if cls_agnostic_bbox_reg else num_classes * 4)
         self.var_pred = Linear(in_dim, 1) if enable_variance else None
 
 
@@ -45,10 +46,13 @@ def init_box_head(rng: np.random.Generator, in_channels: int = 256, pooler_resol
 
 
 def init_output_layers(rng: np.random.Generator, in_dim: int = 1024, num_classes: int = 3,
-                       enable_variance: bool = False) -> Dict:
+                       enable_variance: bool = False, cls_agnostic_bbox_reg: bool = False) -> Dict:
+    """``bbox_pred`` has 4 outputs with ``cls_agnostic_bbox_reg`` (one box per
+    RoI, as Cascade's stages regress), else 4 per class."""
+    num_bbox_reg = 1 if cls_agnostic_bbox_reg else num_classes
     p = {
         "cls_score": init_linear(rng, in_dim, num_classes + 1, init_std=0.01),
-        "bbox_pred": init_linear(rng, in_dim, num_classes * 4, init_std=0.001),
+        "bbox_pred": init_linear(rng, in_dim, num_bbox_reg * 4, init_std=0.001),
     }
     if enable_variance:
         p["var_pred"] = init_linear(rng, in_dim, 1, init_std=0.01)
@@ -68,7 +72,8 @@ def apply_box_head(head: BoxHead, x: torch.Tensor, dtype=None) -> torch.Tensor:
 def apply_output_layers(
     out: OutputLayers, x: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """(..., fc_dim) -> (logits (..., C+1), deltas (..., C*4), variance (..., 1) | None)."""
+    """(..., fc_dim) -> (logits (..., C+1), deltas (..., C*4) or (..., 4)
+    class-agnostic, variance (..., 1) | None)."""
     scores = linear(x, out.cls_score)
     deltas = linear(x, out.bbox_pred)
     variance = None

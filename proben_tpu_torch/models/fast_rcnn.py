@@ -53,7 +53,7 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def fast_rcnn_inference(
     logits: torch.Tensor,  # (B, R, C+1) f32
-    deltas: torch.Tensor,  # (B, R, C*4)
+    deltas: torch.Tensor,  # (B, R, C*4), or (B, R, 4) class-agnostic
     proposal_boxes: torch.Tensor,  # (B, R, 4)
     proposal_valid: torch.Tensor,  # (B, R)
     image_sizes: torch.Tensor,  # (B, 2) true (h, w)
@@ -61,7 +61,8 @@ def fast_rcnn_inference(
     variance: Optional[torch.Tensor] = None,  # (B, R, 1)
     coordinate_bound: float = 8192.0,
 ) -> Detections:
-    """``fast_rcnn_inference_single_image`` for every image of the batch."""
+    """``fast_rcnn_inference_single_image`` for every image of the batch; a
+    class-agnostic (B, R, 4) box serves every class of its RoI."""
     b, r = logits.shape[:2]
     c = cfg.num_classes
     dev = logits.device
@@ -70,7 +71,8 @@ def fast_rcnn_inference(
     boxes = apply_deltas(deltas, proposal_boxes, cfg.box_reg_weights)
     h = image_sizes[:, 0].to(torch.float32)[:, None, None]
     w = image_sizes[:, 1].to(torch.float32)[:, None, None]
-    boxes = clip_boxes(boxes.reshape(b, r, c, 4), (h, w))
+    boxes = clip_boxes(boxes.reshape(b, r, -1, 4), (h, w))  # (B, R, C or 1, 4)
+    boxes = boxes.expand(b, r, c, 4)
 
     cand_scores = scores.reshape(b, -1)
     cand_boxes = boxes.reshape(b, -1, 4)

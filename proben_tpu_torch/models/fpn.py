@@ -32,9 +32,17 @@ def init_fpn(rng: np.random.Generator, in_channels: Sequence[int] = (256, 512, 1
     }
 
 
-def apply_fpn(fpn: FPN, bottom_up: Dict[str, torch.Tensor], dtype=None) -> Dict[str, torch.Tensor]:
-    """res2..res5 -> {"p2": ..., ..., "p6": ...}."""
-    feats = [bottom_up[f] for f in ("res2", "res3", "res4", "res5")]
+def apply_fpn(
+    fpn: FPN,
+    bottom_up: Dict[str, torch.Tensor],
+    in_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
+    top_block_maxpool: bool = True,
+    dtype=None,
+) -> Dict[str, torch.Tensor]:
+    """The ``in_features`` maps -> {"p2": ..., "p{n+1}": ...} (named from p2
+    whatever the inputs, as in JAX), plus ``p{n+2}`` = the max-pool top
+    block when ``top_block_maxpool``: res2..res5 give p2..p6."""
+    feats = [bottom_up[f] for f in in_features]
     n = len(feats)
     laterals = [conv2d(f, fpn.lateral[i].weight, fpn.lateral[i].bias, 1, 0, dtype)
                 for i, f in enumerate(feats)]
@@ -49,6 +57,8 @@ def apply_fpn(fpn: FPN, bottom_up: Dict[str, torch.Tensor], dtype=None) -> Dict[
         f"p{i + 2}": conv2d(merged[i], fpn.output[i].weight, fpn.output[i].bias, 1, 1, dtype)
         for i in range(n)
     }
-    # LastLevelMaxPool: a 1x1 max-pool with stride 2 is a subsample
-    out["p6"] = out["p5"][:, :, ::2, ::2].contiguous(memory_format=torch.channels_last)
+    if top_block_maxpool:
+        # LastLevelMaxPool: a 1x1 max-pool with stride 2 is a subsample
+        out[f"p{n + 2}"] = out[f"p{n + 1}"][:, :, ::2, ::2].contiguous(
+            memory_format=torch.channels_last)
     return out

@@ -22,7 +22,6 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
-from ..ops.roi_align_cuda import multilevel_roi_align
 from ..structures.boxes import clip_boxes
 from ..structures.detections import Detections, GroundTruth
 from .anchors import multilevel_anchors
@@ -36,6 +35,7 @@ from .roi_heads import (
     ROIHeads,
     ROIHeadsConfig,
     label_and_sample_proposals,
+    pool_box_features,
     roi_heads_predict_from_pooled,
 )
 from .rpn import (
@@ -76,6 +76,8 @@ class ModelConfig:
     # BGRTTT training-only ablations (reference MODEL.BLUR_RGB / MAX_POOL_RGB)
     blur_rgb: bool = False
     max_pool_rgb: bool = False
+    # training: recompute each backbone block in the backward (memory only)
+    remat_backbone: bool = False
     rpn: RPNConfig = dataclasses.field(default_factory=RPNConfig)
     roi: ROIHeadsConfig = dataclasses.field(default_factory=ROIHeadsConfig)
     rcnn: FastRCNNConfig = dataclasses.field(default_factory=FastRCNNConfig)
@@ -181,14 +183,20 @@ def build_model(
     """The detector on ``device`` (default CUDA; raises without a GPU), with
     ``params`` (a numpy pytree in ``proben_tpu``'s layout) or the port's
     random init from ``seed``."""
+    if params is None:
+        params = init_rcnn(seed, cfg)
+    return load_module(RCNN(cfg), params, device)
+
+
+def load_module(module: nn.Module, params: Dict, device: Union[str, torch.device] = "cuda"):
+    """``module`` with the numpy pytree ``params`` (``proben_tpu``'s layout,
+    names as the module's), on ``device`` (CUDA raises without a GPU), in
+    eval mode."""
     from ..checkpoint.from_jax import state_dict_from_jax
 
     device = resolve_device(device)
-    if params is None:
-        params = init_rcnn(seed, cfg)
-    model = RCNN(cfg)
-    model.load_state_dict(state_dict_from_jax(params), strict=True)
-    return model.to(device).eval()
+    module.load_state_dict(state_dict_from_jax(params), strict=True)
+    return module.to(device).eval()
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +223,8 @@ def _stream(backbone: ResNet, fpn: FPN, cfg: ModelConfig, images: torch.Tensor,
             training: bool) -> Dict[str, torch.Tensor]:
     x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view, channels_last memory
     feats = apply_resnet(backbone, x, dtype=cfg.dtype, stem_impl=cfg.stem_impl,
-                         freeze_at=cfg.freeze_at if training else 0)
+                         freeze_at=cfg.freeze_at if training else 0,
+                         remat=cfg.remat_backbone and training)
     return apply_fpn(fpn, feats, dtype=cfg.dtype)
 
 
@@ -223,7 +232,8 @@ def extract_features(
     model: RCNN, cfg: ModelConfig, images: torch.Tensor, training: bool = False
 ) -> Dict[str, torch.Tensor]:
     """Backbone + FPN on normalized (N, H, W, C) images; NCHW channels_last
-    maps p2..p6. ``training`` freezes the backbone(s) at ``cfg.freeze_at``.
+    maps p2..p6. ``training`` freezes the backbone(s) at ``cfg.freeze_at``
+    (and recomputes their blocks in the backward with ``remat_backbone``).
 
     BGRTTT: channels 0-2 through ``backbone``/``fpn``, 3-5 through
     ``backbone_2``/``fpn_2`` (or ``backbone``/``fpn`` at inference with
@@ -287,10 +297,7 @@ def pool_proposals(
     cfg: ModelConfig, features: Dict[str, torch.Tensor], boxes: torch.Tensor
 ) -> torch.Tensor:
     """Multi-level RoIAlign of the proposals: (N, P, R, R, C)."""
-    return multilevel_roi_align(
-        roi_levels(features), boxes, **cfg.roi.pooler_args,
-        fallback_capacity=cfg.roi.fallback_capacity, impl=cfg.roi_align_impl,
-    )
+    return pool_box_features(roi_levels(features), boxes, cfg.roi, cfg.roi_align_impl)
 
 
 @torch.inference_mode()
@@ -308,6 +315,25 @@ def rcnn_inference(
     return roi_heads_predict_from_pooled(
         model.roi, pooled, boxes, valid, image_sizes, cfg.rcnn, dtype=cfg.dtype
     )
+
+
+@torch.inference_mode()
+def rcnn_inference_given_boxes(
+    model: RCNN,
+    cfg: ModelConfig,
+    images: torch.Tensor,  # (N, H, W, C) raw 0..255
+    boxes: torch.Tensor,  # (N, K, 4) XYXY in the model-input frame
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The box head on GIVEN boxes (the reference's
+    ``GeneralizedRCNN.inference(..., detected_instances)``), as TTA uses it
+    to score merged boxes: (probs (N, K, C+1) softmax with the background
+    last, class logits (N, K, C+1), variance (N, K, 1) or None). No NMS, no
+    box regression."""
+    features = extract_features(model, cfg, preprocess(cfg, images))
+    x = apply_box_head(model.roi.box_head, pool_proposals(cfg, features, boxes), dtype=cfg.dtype)
+    logits, _, variance = apply_output_layers(model.roi.output, x)
+    logits = logits.float()
+    return torch.softmax(logits, dim=-1), logits, variance
 
 
 def rcnn_train_losses(

@@ -8,18 +8,21 @@ Feature maps are NCHW in channels_last memory. The stem runs kernel K1
 its gate, as ``apply_resnet`` does with the Pallas stem; otherwise the plain
 composition. For training, ``freeze_at`` runs the frozen sections under
 ``torch.no_grad()`` (JAX: ``stop_gradient``) and ``freeze_mask`` names the
-parameters the optimizer leaves alone.
+parameters the optimizer leaves alone; ``remat`` recomputes each trainable
+residual block in the backward (``torch.utils.checkpoint``, JAX
+``jax.checkpoint``).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.stem_cuda import StemPool, stem_supported
 from .layers import Affine, Conv, affine, conv2d, init_affine, init_conv
@@ -149,18 +152,30 @@ def apply_resnet(
     dtype=None,
     stem_impl: str = "kernel",
     freeze_at: int = 0,
+    out_features: Sequence[str] = STAGE_NAMES,
+    remat: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Run the backbone; returns res2..res5. ``freeze_at`` follows the
-    reference (1 freezes the stem, 2 also res2, ...): frozen sections run
-    under ``torch.no_grad()``, so the backward never enters them."""
+    """Run the backbone up to the last stage of ``out_features`` and return
+    those stages' maps. ``freeze_at`` follows the reference (1 freezes the
+    stem, 2 also res2, ...): frozen sections run under ``torch.no_grad()``,
+    so the backward never enters them. ``remat`` keeps only each block's
+    input for the backward and recomputes the block there (memory for large
+    training batches; the values are the same)."""
     out: Dict[str, torch.Tensor] = {}
+    last = max(STAGE_NAMES.index(f) for f in out_features)
     with _frozen(freeze_at >= 1):
         h = apply_stem(backbone.stem, x, dtype, stem_impl)
-    for i, name in enumerate(STAGE_NAMES):
+    for i, name in enumerate(STAGE_NAMES[:last + 1]):
         with _frozen(freeze_at >= i + 2):
             for b, block in enumerate(getattr(backbone, name)):
-                h = _bottleneck(block, h, 2 if b == 0 and i > 0 else 1, dtype)
-        out[name] = h
+                stride = 2 if b == 0 and i > 0 else 1
+                if remat and torch.is_grad_enabled():
+                    h = torch.utils.checkpoint.checkpoint(_bottleneck, block, h, stride, dtype,
+                                                          use_reentrant=False)
+                else:
+                    h = _bottleneck(block, h, stride, dtype)
+        if name in out_features:
+            out[name] = h
     return out
 
 

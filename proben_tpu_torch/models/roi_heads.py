@@ -5,12 +5,13 @@ head + output layers + decoding on already pooled features."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..ops.matcher import match
+from ..ops.roi_align_cuda import multilevel_roi_align
 from ..ops.sampling import sample_topk_indices
 from ..structures.boxes import pairwise_iou
 from ..structures.detections import Detections, GroundTruth
@@ -83,6 +84,18 @@ def label_and_sample_proposals(
     gt_classes = torch.where(sampled_valid, gt_classes, cfg.num_classes)
     return (take_rows(boxes, idx), gt_classes, take_rows(gt.boxes, sampled_matched),
             sampled_valid, is_pos)
+
+
+def pool_box_features(
+    levels: List[torch.Tensor],  # p2..p5 (B, H_l, W_l, C), contiguous NHWC
+    boxes: torch.Tensor,  # (B, K, 4)
+    cfg: ROIHeadsConfig,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """(B, K, P, P, C) pooled features (JAX ``pool_box_features``): K2 and K3
+    on the card with ``impl="kernel"``."""
+    return multilevel_roi_align(levels, boxes, **cfg.pooler_args,
+                                fallback_capacity=cfg.fallback_capacity, impl=impl)
 
 
 def roi_heads_predict_from_pooled(

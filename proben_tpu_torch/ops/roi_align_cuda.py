@@ -14,7 +14,7 @@ CUDA tensors and run the plain versions only on CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,15 +45,19 @@ _SIG = {"roi_align_fwd_bf16": _ARGS, "roi_align_fwd_f32": _ARGS}
 _BWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
              + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 _BWD_SIG = {"roi_align_bwd_bf16": _BWD_ARGS, "roi_align_bwd_f32": _BWD_ARGS}
-_MAXP = 8
+# the largest output size P both kernels take: the FPN pooler's 7 and the C4
+# pooler's 14 (K2 and K3 each build one instance for P <= 8 and one above)
+MAX_P = 14
 
 
-def bwd_scratch_words(r: int, b: int, shapes) -> int:
-    """4-byte words of K3's scratch (``csrc/roi_align_bwd.cu``): per RoI its
-    transposed weights and spans; per tile its RoI list (room for every RoI
-    of its image) and its length, for tiles of at least 8 x 8."""
+def bwd_scratch_words(r: int, b: int, shapes, p: int) -> int:
+    """4-byte words of K3's scratch (``csrc/roi_align_bwd.cu``) at output
+    size ``p``: per RoI its transposed weights (8 slots per window row and
+    column up to P = 8, 16 above) and spans; per tile its RoI list (room for
+    every RoI of its image) and its length, for tiles of at least 8 x 8."""
     tiles = sum(-(-s[1] // 8) * -(-s[2] // 8) for s in shapes)  # per image
-    return ((WIN_Y + WIN_X) * _MAXP + 4 + tiles) * r + b * tiles
+    slots = 8 if p <= 8 else 16
+    return ((WIN_Y + WIN_X) * slots + 4 + tiles) * r + b * tiles
 
 
 def roi_align_fwd_plain(
@@ -118,8 +122,8 @@ def roi_align_fwd(
             raise ValueError("roi_align_fwd: levels must be contiguous (B, H, W, C) "
                              "tensors of one dtype, batch, width and device")
     r, p = wy.shape[0], wy.shape[1]
-    if r != b * rois_per_image or p > _MAXP:
-        raise ValueError(f"roi_align_fwd: R={r} != B*K={b * rois_per_image} or P={p} > {_MAXP}")
+    if r != b * rois_per_image or p > MAX_P:
+        raise ValueError(f"roi_align_fwd: R={r} != B*K={b * rois_per_image} or P={p} > {MAX_P}")
     _check_windows("roi_align_fwd", f0.device, r, p, lvl_idx, y0, x0, wy, wx)
     out = torch.empty((r, p, p, c), dtype=f0.dtype, device=f0.device)
     if out.numel() == 0:
@@ -181,13 +185,13 @@ def roi_align_bwd(
         raise ValueError(f"roi_align_bwd: level shapes {list(shapes)} differ in batch or width")
     r, p = wy.shape[0], wy.shape[1]
     if (g.dim() != 4 or tuple(g.shape) != (r, p, p, c) or not g.is_contiguous()
-            or r != b * rois_per_image or p > _MAXP):
+            or r != b * rois_per_image or p > MAX_P):
         raise ValueError(f"roi_align_bwd: g must be a contiguous (R, P, P, C) = {(r, p, p, c)} "
-                         f"tensor with R = B*K = {b * rois_per_image} and P <= {_MAXP}, "
+                         f"tensor with R = B*K = {b * rois_per_image} and P <= {MAX_P}, "
                          f"got {tuple(g.shape)}")
     _check_windows("roi_align_bwd", g.device, r, p, lvl_idx, y0, x0, wy, wx)
     # every dF element is written once: no accumulator, no zero-fill
-    scratch = torch.empty(bwd_scratch_words(r, b, shapes), dtype=torch.int32, device=g.device)
+    scratch = torch.empty(bwd_scratch_words(r, b, shapes, p), dtype=torch.int32, device=g.device)
     outs = [torch.empty(s, dtype=g.dtype, device=g.device) for s in shapes]
     pad = 4 - len(shapes)
     hs = [s[1] for s in shapes] + [shapes[0][1]] * pad
@@ -244,10 +248,12 @@ def window_inputs(
     canonical_box_size: float = 224.0,
     canonical_level: int = 4,
     s_max: int = 16,
+    levels: Optional[Tensor] = None,
 ):
     """K2's inputs for every RoI, flattened over images: (lvl_idx, y0, x0,
     wy, wx, oow) — level index, window origin, per-axis weights and the
-    out-of-window flag."""
+    out-of-window flag. ``levels`` (B, K) gives each box its level (counted
+    from ``min_level``) in place of the sqrt(area) assignment."""
     num_levels = len(features)
     dev = boxes.device
     hw = [(f.shape[1], f.shape[2]) for f in features]
@@ -258,10 +264,11 @@ def window_inputs(
     pad_ws = torch.tensor([w for _, w in pads], dtype=torch.int32, device=dev)
 
     flat_boxes = boxes.reshape(-1, 4)
-    levels = roi_level_assignment(
-        flat_boxes, min_level, min_level + num_levels - 1, canonical_box_size, canonical_level
-    )
-    lvl_idx = (levels - min_level).clamp(0, num_levels - 1)
+    if levels is None:
+        levels = roi_level_assignment(
+            flat_boxes, min_level, min_level + num_levels - 1, canonical_box_size, canonical_level
+        )
+    lvl_idx = (levels.reshape(-1).to(torch.int32) - min_level).clamp(0, num_levels - 1)
     y0, x0, wy, wx, oow = build_window_weights(
         flat_boxes, lvl_idx, strides, heights, widths, pad_hs, pad_ws, output_size,
         sampling_ratio, s_max
@@ -281,22 +288,42 @@ def multilevel_roi_align(
     s_max: int = 16,
     fallback_capacity: int = 32,
     impl: str = "kernel",
+    levels: Optional[Tensor] = None,
 ) -> Tensor:
     """Batched multi-level RoIAlignV2; (B, K, P, P, C) in the features' dtype,
     differentiable with respect to the features. ``impl="kernel"`` pools
     through K2 and differentiates through K3 on the card, ``"plain"``
-    through both plain versions on any device."""
+    through both plain versions on any device. ``levels`` (B, K): each
+    box's level, as in ``window_inputs``."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown roi_align impl {impl!r}")
     b, k, _ = boxes.shape
     p = output_size
     lvl_idx, y0, x0, wy, wx, oow = window_inputs(
         features, boxes, strides, p, sampling_ratio, min_level, canonical_box_size,
-        canonical_level, s_max,
+        canonical_level, s_max, levels,
     )
     pooled = WindowedRoIAlign.apply(impl, lvl_idx, y0, x0, wy, wx, k, *features)
     pooled = pooled.reshape(b, k, p, p, -1)
     return apply_oow_fallback(
         pooled, oow.reshape(b, k), features, boxes, lvl_idx.reshape(b, k), strides, p,
         sampling_ratio, fallback_capacity,
+    )
+
+
+def single_level_roi_align(
+    feature: Tensor,  # (B, H, W, C), contiguous NHWC
+    boxes: Tensor,  # (B, K, 4) XYXY image coords
+    stride: int,
+    output_size: int = 7,
+    sampling_ratio: int = 0,
+    impl: str = "kernel",
+) -> Tensor:
+    """RoIAlignV2 on one feature map (JAX ``ops/roi_align.py::
+    single_level_roi_align``): ``multilevel_roi_align`` with every box on
+    level 0. (B, K, P, P, C); K2 and K3 on the card, P up to ``MAX_P``."""
+    return multilevel_roi_align(
+        [feature], boxes, [stride], output_size=output_size, sampling_ratio=sampling_ratio,
+        min_level=0, impl=impl, levels=torch.zeros(boxes.shape[:2], dtype=torch.int32,
+                                                  device=boxes.device),
     )

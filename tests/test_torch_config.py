@@ -172,9 +172,9 @@ def test_freeze_and_clone():
 # the implementation names: the JAX package's -> the port's
 IMPLS = {"roi_align_impl": {"pallas": "kernel", "gather": "plain"},
          "stem_impl": {"pallas": "kernel", "wpair": "kernel", "pack24": "kernel", "direct": "plain"}}
-# fields of the JAX configs the port has no counterpart for: memory only
-# (remat_backbone) or implied by the anchors (rpn.num_anchors)
-JAX_ONLY = {"remat_backbone", "num_anchors"}
+# fields of the JAX configs the port has no counterpart for: implied by the
+# anchors (rpn.num_anchors)
+JAX_ONLY = {"num_anchors"}
 
 
 def _compare_fields(jax_obj, port_obj, where=""):
@@ -215,6 +215,9 @@ def test_unknown_implementation_name_raises(key):
 
 
 def test_remat_backbone_is_accepted():
+    """``MODEL.REMAT_BACKBONE`` sets ``remat_backbone`` and nothing else."""
     cfg = get_cfg()
     cfg.MODEL.REMAT_BACKBONE = True
-    assert model_config_from_cfg(cfg) == model_config_from_cfg(get_cfg())
+    got = model_config_from_cfg(cfg)
+    assert got.remat_backbone is True and not model_config_from_cfg(get_cfg()).remat_backbone
+    assert got == model_config_from_cfg(get_cfg()).replace(remat_backbone=True)

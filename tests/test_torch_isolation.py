@@ -37,7 +37,7 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.fusion
         import proben_tpu_torch.fusion.proben_numpy
         import proben_tpu_torch.fusion.proben_torch
-        import proben_tpu_torch.image_io_ab
+        import proben_tpu_torch.kernel_ab
         import proben_tpu_torch.kernel_probe
         import proben_tpu_torch.models
         import proben_tpu_torch.models.gaussian_blur

@@ -66,7 +66,7 @@ HAZARDS = [
 ]
 
 
-def _roi_case(dtype, c=48, k=32, hazards=False):
+def _roi_case(dtype, c=48, k=32, hazards=False, p=7):
     rng = np.random.RandomState(0)
     b, base = 2, 64
     feats = [torch.from_numpy(rng.rand(b, base >> i, base >> i, c).astype(np.float32)).cuda().to(dtype)
@@ -87,7 +87,7 @@ def _roi_case(dtype, c=48, k=32, hazards=False):
     lvl = (t_ra.roi_level_assignment(flat, 2, 5) - 2).clamp(0, 3)
     y0, x0, wy, wx, _ = t_ra.build_window_weights(
         flat, lvl, STRIDES, t([s[0] for s in hw]), t([s[1] for s in hw]),
-        t([p[0] for p in pads]), t([p[1] for p in pads]), 7, 0, 16)
+        t([s[0] for s in pads]), t([s[1] for s in pads]), p, 0, 16)
     return feats, lvl, y0, x0, wy, wx, k
 
 
@@ -134,7 +134,8 @@ def _bwd_case(dtype, seed=1, **kw):
     """K3's inputs: the K2 case's windows plus a seeded cotangent."""
     feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype, **kw)
     rng = np.random.RandomState(seed)
-    g = torch.from_numpy(rng.randn(wy.shape[0], 7, 7, feats[0].shape[-1]).astype(np.float32))
+    p = wy.shape[1]
+    g = torch.from_numpy(rng.randn(wy.shape[0], p, p, feats[0].shape[-1]).astype(np.float32))
     return [tuple(f.shape) for f in feats], lvl, y0, x0, wy, wx, k, g.cuda().to(dtype)
 
 
@@ -254,6 +255,113 @@ def test_roi_align_bwd_kernel_cases(case):
         assert ((a - r).abs()[fin] <= bound[fin]).all()
     assert any(float(a.float().abs().nan_to_num().sum()) > 0 for a in got)
     assert any(torch.isnan(a.float()).any() for a in got) == case.startswith(("hazards", "c="))
+
+
+def _c4_case(dtype, c, k=40, seed=5):
+    """The C4 pooler's inputs at P = 14: one stride-16 level (2, 50, 64, C),
+    the res4 map of an 800x1024 batch, and (2, k, 4) boxes of 16-616 px,
+    every box on that level; the first image's include the hazard boxes,
+    whose non-finite windows cover its whole map."""
+    rng = np.random.RandomState(seed)
+    feat = torch.from_numpy(rng.rand(2, 50, 64, c).astype(np.float32)).cuda().to(dtype)
+    xy = rng.rand(2, k, 2) * [1000.0, 780.0]
+    boxes = np.concatenate([xy, xy + rng.rand(2, k, 2) * 600 + 16], -1).astype(np.float32)
+    boxes[0, :len(HAZARDS)] = HAZARDS
+    bx = torch.from_numpy(boxes).cuda()
+    zero = torch.zeros(bx.shape[:2], dtype=torch.int32, device="cuda")
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs([feat], bx, [16], 14, 0, min_level=0,
+                                                          levels=zero)
+    return [feat], lvl, y0, x0, wy, wx, k
+
+
+def _p14_case(case, dtype):
+    if case == "c4":  # C = 1024 on the 16-byte path; C = 20 on the scalar path
+        return _c4_case(dtype, 1024 if dtype == BF else 256)
+    if case == "c4 ragged":
+        return _c4_case(dtype, 20)
+    assert case == "four levels"
+    return _roi_case(dtype, c=64, k=40, hazards=True, p=14)
+
+
+P14_CASES = [(case, dtype) for case in ("c4", "c4 ragged", "four levels")
+             for dtype in (BF, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", P14_CASES)
+def test_roi_align_kernel_p14(case, dtype):
+    """K2's P = 14 instance (14 warps, q in two blocks of 7) against its
+    plain version: the C4 pooler's single level at C = 1024 (bf16; 256 in
+    f32) and C = 20, and the FPN's four levels, with hazard boxes.
+    Tolerance as in ``test_roi_align_kernel_matches_plain``."""
+    _cuda()
+    feats, lvl, y0, x0, wy, wx, k = _p14_case(case, dtype)
+    before = roi_align_cuda.launches
+    got = roi_align_cuda.roi_align_fwd(feats, lvl, y0, x0, wy, wx, k).float()
+    ref = roi_align_cuda.roi_align_fwd_plain(feats, lvl, y0, x0, wy, wx, k).float()
+    torch.cuda.synchronize()
+    assert roi_align_cuda.launches == before + 1
+    assert got.shape == (2 * k, 14, 14, feats[0].shape[-1])
+    rtol = 2.0 ** -7 if dtype == BF else 1e-5
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5, equal_nan=True)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.isnan(got).any()
+    assert float(got.nan_to_num().abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", P14_CASES)
+def test_roi_align_bwd_kernel_p14(case, dtype):
+    """K3's P = 16 instance (one RoI per step, 16 weight slots; bf16 on the
+    tensor cores with one RoI per MMA) at P = 14 against its plain version
+    on the cases of ``test_roi_align_kernel_p14``, and two calls bitwise
+    equal. Tolerance as in ``test_roi_align_bwd_kernel_matches_plain``."""
+    _cuda()
+    feats, lvl, y0, x0, wy, wx, k = _p14_case(case, dtype)
+    shapes = [tuple(f.shape) for f in feats]
+    rng = np.random.RandomState(6)
+    g = torch.from_numpy(rng.randn(wy.shape[0], 14, 14, shapes[0][-1]).astype(np.float32))
+    g = g.cuda().to(dtype)
+    before = roi_align_cuda.bwd_launches
+    got = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
+    again = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
+    ref = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)
+    mag = _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.bwd_launches == before + 2
+    bf = dtype == BF
+    for a, a2, r, m, s in zip(got, again, ref, mag, shapes):
+        assert a.shape == s and a.dtype == dtype
+        assert torch.equal(_bits(a), _bits(a2))
+        a, r = a.float(), r.float()
+        assert torch.equal(torch.isnan(a), torch.isnan(r))
+        fin = ~torch.isnan(r)
+        bound = (2.0 ** -7 * r.abs() + 2.0 ** -8 * m) if bf else 1e-5 * m + 1e-6
+        assert ((a - r).abs()[fin] <= bound[fin]).all()
+    assert any(torch.isnan(a.float()).any() for a in got)
+    assert any(float(a.float().abs().nan_to_num().sum()) > 0 for a in got)
+
+
+@pytest.mark.cuda
+def test_single_level_roi_align_kernel_gradients_p14():
+    """``single_level_roi_align`` at P = 14 through K2 and K3 (the C4
+    pooler) against both plain versions, forward and gradient, in f32."""
+    _cuda()
+    rng = np.random.RandomState(7)
+    feat = torch.from_numpy(rng.rand(2, 50, 64, 64).astype(np.float32)).cuda().requires_grad_()
+    xy = rng.rand(2, 24, 2) * [900.0, 700.0]
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.rand(2, 24, 2) * 300 + 16], -1)
+                             .astype(np.float32)).cuda()
+    go = torch.randn(2, 24, 14, 14, 64, device="cuda")
+    before = (roi_align_cuda.launches, roi_align_cuda.bwd_launches)
+    outs, grads = {}, {}
+    for impl in ("kernel", "plain"):
+        outs[impl] = roi_align_cuda.single_level_roi_align(feat, boxes, 16, 14, impl=impl)
+        grads[impl], = torch.autograd.grad(outs[impl], feat, go)
+    assert (roi_align_cuda.launches, roi_align_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert outs["kernel"].shape == (2, 24, 14, 14, 64)
+    torch.testing.assert_close(outs["kernel"], outs["plain"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads["kernel"], grads["plain"], rtol=1e-5, atol=1e-5)
+    assert float(grads["kernel"].abs().sum()) > 0
 
 
 @pytest.mark.cuda
