@@ -123,12 +123,34 @@ Phases, each raising on a miss (exit code != 0, no result line):
    the out-of-window fallback apart, with the RoIs out of window, per
    C4 and per Cascade stage), img/s and step times (CUDA events over 15
    calls);
-14. one JSON line per kernel, one for each slice and fusion mode, one for
+14. the other datasets (``datasets_phase``; cv2 and Pillow required): a
+   synthetic Pascal VOC 2007 split (500x375 JPEGs, XML, ``difficult``), an
+   LVIS v1 split (1203 categories, federated fields) over COCO-sized JPEGs
+   and a Cityscapes val split (2048x1024 PNGs, ``gtFine`` rectangle
+   polygons), 16 images each, registered by ``register_all_builtin``;
+   Cityscapes' PNGs decoded on the host by ``decode_host`` and composed
+   by ``image_io`` in one launch per batch, equal to the plain version;
+   each split through ``DefaultTrainer.test`` (R101-FPN, bf16, batch 1,
+   the dataset's opts from detectron2's public configs: 20 classes; 1203
+   classes, score threshold 1e-4, 300 detections; 8 classes at
+   1024x2048) with launches counted (``image_io``, K1, K2 once per
+   image), K1 and K2 held against their plain versions on the split's
+   first canvas and its proposals, the detections held to the plain
+   path's under ``slice_phase``'s limits, and the headline AP of the
+   kernel run at least the plain run's less ``AP_TOLERANCE``, both scored
+   against the plain f32 run's detections; the ground truth as detections
+   at AP 100 (VOC under both metrics); four ``DefaultTrainer`` steps on
+   ``voc_2007_trainval`` watched as the trainer phase's runs (K1, K2, K3
+   once per step, ``image_io`` once per mapped batch, finite losses; K1-K3
+   held on one more batch of 16 at 800x1344); eval img/s and load /
+   infer / process / evaluate seconds per split;
+15. one JSON line per kernel, one for each slice and fusion mode, one for
    the FLIR and one for the KAIST evaluation, one for the trainer, one for
-   the other heads, one listing every kernel (launches per path, the C =
-   512, C = 4 and C = 6 readings, K2 and K3 at P = 14 / C = 1024 and on
-   Cascade's last stage, ``image_io`` with flips at the training shapes);
-   the last line is ``{"ok": true, "device": {...}}``.
+   the other heads, one for the other datasets, one listing every kernel
+   (launches per path, the C = 512, C = 4 and C = 6 readings, K2 and K3 at
+   P = 14 / C = 1024 and on Cascade's last stage, ``image_io`` with flips
+   at the training shapes and on Cityscapes' PNGs); the last line is
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
@@ -2139,12 +2161,13 @@ class TrainWatch:
     it with the model, its state and its step function for
     ``held_batch_checks``, which run after the launch counts are read.
     ``expect_state``: a state the trainer must start from (a resume), bit
-    for bit."""
+    for bit. ``every_step``: count K1-K3 around every step as well
+    (``per_step``), ``count_iter``'s among them."""
 
-    def __init__(self, count_iter, eval_batch=None, hold_batch=False, expect_state=None):
+    def __init__(self, count_iter, eval_batch=None, hold_batch=False, expect_state=None, every_step=False):
         self.count_iter, self.eval_batch, self.hold_batch = count_iter, eval_batch, hold_batch
-        self.expect_state = expect_state
-        self.metrics, self.best_dets, self.launches = [], {}, None
+        self.expect_state, self.every_step = expect_state, every_step
+        self.metrics, self.best_dets, self.launches, self.per_step = [], {}, None, []
 
     def hooks(self):
         from proben_tpu_torch.engine import CallbackHook
@@ -2171,7 +2194,7 @@ class TrainWatch:
         torch.cuda.reset_peak_memory_stats()
 
     def before_step(self, t):
-        if t.iter == self.count_iter:
+        if t.iter == self.count_iter or self.every_step:
             torch.cuda.synchronize()
             self._counts = launch_counts()
 
@@ -2186,11 +2209,13 @@ class TrainWatch:
                 t.model.train()
 
     def after_step(self, t):
-        if t.iter == self.count_iter:
+        if t.iter == self.count_iter or self.every_step:
             torch.cuda.synchronize()
             now = launch_counts()
-            self.launches = {k: now[k] - self._counts[k] for k in ("stem_pool", "roi_align_fwd",
-                                                                  "roi_align_bwd")}
+            step = {k: now[k] - self._counts[k] for k in ("stem_pool", "roi_align_fwd", "roi_align_bwd")}
+            self.per_step.append(step)
+            if t.iter == self.count_iter:
+                self.launches = step
         self.metrics.append({k: v for k, (v, _) in t.storage.latest().items()})
         self._record_best(t)
 
@@ -2285,11 +2310,12 @@ def held_batch_checks(watch, label, stem, bare_steps=6):
     e.record()
     torch.cuda.synchronize()
     bare_img_s = TRAIN_BATCH * bare_steps / (a.elapsed_time(e) / 1e3)
+    shape = [int(v) for v in batch["image"].shape]
     del watch.model, watch.state, watch.step_fn, watch.held
-    log(f"{label}: K1-K3 held against their plain versions on one step of the trainer's batch of "
-        f"{TRAIN_BATCH}: {out}; bare train_step {bare_img_s:.2f} img/s on that batch")
+    log(f"{label}: K1-K3 held against their plain versions on one step of the trainer's batch "
+        f"{shape}: {out}; bare train_step {bare_img_s:.2f} img/s on that batch")
     return dict(max_abs_err=out, k3_grad_gap=gaps, plain_grad_gap_control=control,
-                bare_step_img_s=bare_img_s, bare_steps=bare_steps)
+                bare_step_img_s=bare_img_s, bare_steps=bare_steps, images_shape=shape)
 
 
 def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launches):
@@ -2305,8 +2331,9 @@ def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launc
             np.isfinite(v) for m in losses for v in m.values()) \
             or not all(m["loss_finite"] == 1.0 for m in losses):
         raise AssertionError(f"{label}: {len(watch.metrics)} steps, metrics not all finite: {losses}")
-    if watch.launches != expect_step:
-        raise AssertionError(f"{label}: launches around one step {watch.launches}, expected {expect_step}")
+    if watch.launches != expect_step or any(p != expect_step for p in watch.per_step):
+        raise AssertionError(f"{label}: launches around one step {watch.launches} (per counted step "
+                             f"{watch.per_step}), expected {expect_step}")
     missing = [k for k, v in expect_step.items() if v and not launches_run[k]]
     if missing:
         raise AssertionError(f"{label}: kernels not launched in the run: {missing}, {launches_run}")
@@ -3094,6 +3121,614 @@ def heads_phase(card):
     return dict(k2_c4=k2_c4, k3_c4=k3_c4, k2_cascade=k2_cas, k3_cascade=k3_cas), stats
 
 
+# ---------------------------------------------------------------------------
+# The other datasets: Pascal VOC, LVIS and Cityscapes through DefaultTrainer.test
+# ---------------------------------------------------------------------------
+
+SPLIT_IMAGES = 16  # images per synthetic split
+VOC_HW = (375, 500)  # (H, W) of a typical Pascal VOC 2007 image
+COCO_HW = (480, 640)  # of a typical COCO val2017 image (LVIS's images)
+CITYSCAPES_HW = (1024, 2048)  # of every Cityscapes frame
+LVIS_FREQUENCIES = (("r", 337), ("c", 461), ("f", 405))  # LVIS v1's 1203 categories
+CITIES = ("frankfurt", "lindau", "munster")  # Cityscapes' val cities
+# each split's dataset settings from detectron2's public config for the
+# dataset, as opts over configs/Base-RCNN-FPN.yaml at MODEL.RESNETS.DEPTH 101;
+# INPUT.PAD_SHAPE is the port's static canvas
+DATASET_OPTS = {
+    # PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml
+    "voc_2007_test": ["MODEL.ROI_HEADS.NUM_CLASSES", "20"],
+    # LVISv1-InstanceSegmentation/mask_rcnn_R_101_FPN_1x.yaml
+    "lvis_v1_val": ["MODEL.ROI_HEADS.NUM_CLASSES", "1203", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0001",
+                    "TEST.DETECTIONS_PER_IMAGE", "300"],
+    # Cityscapes/mask_rcnn_R_50_FPN.yaml
+    "cityscapes_fine_instance_seg_val": ["MODEL.ROI_HEADS.NUM_CLASSES", "8", "INPUT.MIN_SIZE_TEST", "1024",
+                                         "INPUT.MAX_SIZE_TEST", "2048", "INPUT.PAD_SHAPE", "[1024, 2048]"],
+}
+HEADLINE = {"voc_2007_test": ("bbox", "AP50"), "lvis_v1_val": ("bbox", "AP"),
+            "cityscapes_fine_instance_seg_val": ("segm", "AP")}
+# headline AP points the kernel run may fall below the plain bf16 run, both
+# scored against the plain f32 run's detections (see ``split_phase``): on
+# these 16-image splits of a random model, whose near-tied detections
+# bf16 rounding reorders, correct kernels measured +10.7 to -8.9 points
+AP_TOLERANCE = 15.0
+# the plain f32 run's detections per image that ``split_phase`` takes as
+# the ground truth its AP check scores against: Cityscapes' native scorer
+# takes a full-frame mask IoU per pair of ground truth and detection of a
+# class, so with ~32 per image the split's scoring outlasted the script's
+# time limit
+REFERENCE_TOPK = 10
+# detections per image the calibration aims at: Cityscapes' evaluator
+# rasterizes, encodes and writes a 2048x1024 mask per detection on the host
+# (as the JAX package does), so its split aims lower, near a street scene's
+# 10-30 instances
+CALIBRATION_TARGET = {"cityscapes_fine_instance_seg_val": (10, 30)}
+
+
+def scene_boxes(rng, h, w, scale=1.0):
+    """1-6 integer boxes (x0, y0, w, h) inside an h x w image, of
+    ``write_flir_tree``'s sizes times ``scale``."""
+    out = []
+    for _ in range(rng.randint(1, 7)):
+        bw, bh = int(rng.randint(16, 120) * scale), int(rng.randint(24, 160) * scale)
+        out.append((int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh)), bw, bh))
+    return out
+
+
+def write_builtin_tree(codec, cv2, root, n=SPLIT_IMAGES, seed=30):
+    """Three splits in detectron2's builtin layouts under ``root``, so that
+    ``register_all_builtin(root)`` finds them under their builtin names, each
+    image a ``flir_scene`` of its boxes (colour):
+
+    - ``VOC2007/``: ``n`` JPEGs at 500x375 (nvJPEG, quality 90), XML with
+      1-based inclusive boxes of the 20 classes, about a fifth
+      ``difficult``, each class present with an object that is not (as in
+      VOC 2007: a class of difficult objects only has no positives, and
+      the evaluator scores it AP 0); the test and trainval lists name all
+      of them;
+    - ``lvis/lvis_v1_val.json`` over ``coco/val2017/`` JPEGs at 640x480:
+      LVIS v1's 1203 categories with their frequency split (337 rare, 461
+      common, 405 frequent), images located by ``coco_url``, 20
+      ``neg_category_ids`` and one ``not_exhaustive_category_ids`` each;
+    - ``cityscapes/leftImg8bit/val/<city>/*_leftImg8bit.png`` at 2048x1024
+      (cv2, lossless) with ``gtFine`` polygon JSONs: integer axis-aligned
+      rectangles of the 8 thing classes (so a box rasterized by the
+      evaluator's adapter equals its ground-truth mask), a crowd group, a
+      stuff region and a deleted object each.
+
+    Returns the source pixels of the first Cityscapes frame (uint8 BGR,
+    host)."""
+    from proben_tpu_torch.data.cityscapes import CITYSCAPES_THING_CLASSES
+    from proben_tpu_torch.data.pascal_voc import VOC_CLASS_NAMES
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jpeg(path, hw, boxes):
+        with open(path, "wb") as f:
+            f.write(codec.encode(flir_scene(gen, *hw, boxes, 3, 1.0, 1.0), quality=90))
+
+    voc = os.path.join(root, "VOC2007")
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    ids = [f"{2 * i + 5:06d}" for i in range(n)]
+    positive = set()  # classes with an object that is not difficult so far
+    for fid in ids:
+        boxes = scene_boxes(rng, *VOC_HW)
+        jpeg(os.path.join(voc, "JPEGImages", fid + ".jpg"), VOC_HW, boxes)
+        objs = ""
+        for x0, y0, bw, bh in boxes:
+            cls = VOC_CLASS_NAMES[rng.randint(20)]
+            difficult = int(rng.rand() < 0.2 and cls in positive)
+            positive |= {cls} if not difficult else set()
+            objs += (f"<object><name>{cls}</name><pose>Unspecified</pose><difficult>{difficult}</difficult>"
+                     f"<bndbox><xmin>{x0 + 1}</xmin><ymin>{y0 + 1}</ymin><xmax>{x0 + bw}</xmax>"
+                     f"<ymax>{y0 + bh}</ymax></bndbox></object>")
+        with open(os.path.join(voc, "Annotations", fid + ".xml"), "w") as f:
+            f.write(f"<annotation><folder>VOC2007</folder><filename>{fid}.jpg</filename><size>"
+                    f"<width>{VOC_HW[1]}</width><height>{VOC_HW[0]}</height><depth>3</depth></size>"
+                    f"{objs}</annotation>")
+    for split in ("test", "trainval"):
+        with open(os.path.join(voc, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+
+    os.makedirs(os.path.join(root, "coco", "val2017"), exist_ok=True)
+    os.makedirs(os.path.join(root, "lvis"), exist_ok=True)
+    freq = [f for f, k in LVIS_FREQUENCIES for _ in range(k)]
+    cats = [{"id": c + 1, "name": f"lvis_category_{c + 1}", "frequency": f} for c, f in enumerate(freq)]
+    images, anns = [], []
+    for i in range(n):
+        img_id = 139 + 1000 * i
+        boxes = scene_boxes(rng, *COCO_HW)
+        jpeg(os.path.join(root, "coco", "val2017", f"{img_id:012d}.jpg"), COCO_HW, boxes)
+        present = [int(c) for c in rng.randint(1, len(cats) + 1, len(boxes))]
+        absent = np.setdiff1d(np.arange(1, len(cats) + 1), present)
+        images.append({"id": img_id, "height": COCO_HW[0], "width": COCO_HW[1],
+                       "coco_url": f"http://images.cocodataset.org/val2017/{img_id:012d}.jpg",
+                       "neg_category_ids": [int(c) for c in rng.choice(absent, 20, replace=False)],
+                       "not_exhaustive_category_ids": present[:1]})
+        for c, (x0, y0, bw, bh) in zip(present, boxes):
+            anns.append({"id": len(anns) + 1, "image_id": img_id, "category_id": c,
+                         "bbox": [float(x0), float(y0), float(bw), float(bh)], "area": float(bw * bh)})
+    with open(os.path.join(root, "lvis", "lvis_v1_val.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+
+    first = None
+    h, w = CITYSCAPES_HW
+    for i in range(n):
+        city = CITIES[i % len(CITIES)]
+        stem = f"{city}_{i:06d}_000019_"
+        for sub in ("leftImg8bit", "gtFine"):
+            os.makedirs(os.path.join(root, "cityscapes", sub, "val", city), exist_ok=True)
+        boxes = scene_boxes(rng, h, w, scale=3.2)
+        pixels = flir_scene(gen, h, w, boxes, 3, 1.0, 1.0).cpu().numpy()
+        path = os.path.join(root, "cityscapes", "leftImg8bit", "val", city, stem + "leftImg8bit.png")
+        if not cv2.imwrite(path, pixels):
+            raise AssertionError(f"cv2 could not write {path}")
+        first = pixels if first is None else first
+        objects = [{"label": CITYSCAPES_THING_CLASSES[rng.randint(8)],
+                    "polygon": [[x0, y0], [x0 + bw - 1, y0], [x0 + bw - 1, y0 + bh - 1], [x0, y0 + bh - 1]]}
+                   for x0, y0, bw, bh in boxes]
+        objects += [{"label": "cargroup", "polygon": [[0, 900], [300, 900], [300, 1023], [0, 1023]]},
+                    {"label": "road", "polygon": [[0, 1000], [w - 1, 1000], [w - 1, h - 1], [0, h - 1]]},
+                    {"label": "person", "deleted": 1, "polygon": [[5, 5], [50, 5], [50, 90]]}]
+        with open(os.path.join(root, "cityscapes", "gtFine", "val", city, stem + "gtFine_polygons.json"),
+                  "w") as f:
+            json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, f)
+    return first
+
+
+def check_png_batch(codec, cv2, dicts, source):
+    """Cityscapes' PNGs on the card: ``decode_host`` gives the written
+    pixels (lossless) and cv2's, and ``image_io``'s canvas of a batch of
+    two, at scale 1 through the test mapper and downscaled through
+    ``load_batch`` (one launch each), equals ``compose_resize_pad_plain``
+    of the same host-decoded pixels within the JPEG check's 1e-3 (both run
+    the same float operations; 0 expected). Times: ``decode_host`` per
+    PNG, the compose kernel at the Cityscapes path's own sizes (scale 1
+    into the 1024x2048 canvas, as the mapper ran it) against its bound."""
+    from proben_tpu_torch.data import DatasetMapper, MapperConfig
+    from proben_tpu_torch.data.transforms import resize_shortest_edge_size
+    from proben_tpu_torch.native import io
+
+    paths = [d["file_name"] for d in dicts[:2]]
+    host = [io.decode_host(p) for p in paths]
+    if not (np.array_equal(host[0].cpu().numpy(), source)
+            and np.array_equal(host[0].cpu().numpy(), cv2.imread(paths[0], cv2.IMREAD_COLOR))):
+        raise AssertionError("decode_host's pixels differ from the written PNG's or from cv2.imread's")
+    mapper = DatasetMapper(MapperConfig(pad_shape=CITYSCAPES_HW, min_size_test=CITYSCAPES_HW[0],
+                                        max_size_test=CITYSCAPES_HW[1]), is_train=False)
+    try:
+        samples, launches = counted(lambda: mapper.map_batch(dicts[:2]))
+    finally:
+        mapper.close()
+    canvas = torch.stack([s["image"] for s in samples])
+    sizes = [tuple(int(v) for v in s["image_size"]) for s in samples]
+    err = float((canvas - io.compose_resize_pad_plain(host, None, "BGR", sizes, CITYSCAPES_HW)).abs().max())
+    down = [resize_shortest_edge_size(*CITYSCAPES_HW, 800, 1333)] * 2
+    (images, _, _), launches2 = counted(lambda: io.load_batch(codec, paths, None, "BGR",
+                                                              lambda h, w: down[0], (800, 1344)))
+    err = max(err, float((images - io.compose_resize_pad_plain(host, None, "BGR", down, (800, 1344))).abs().max()))
+    if launches["image_io"] != 1 or launches2["image_io"] != 1 or err > 1e-3:
+        raise AssertionError(f"PNG batch: image_io launches {launches['image_io']} and "
+                             f"{launches2['image_io']}, max |err| {err} against the plain version")
+    ms = cuda_ms(lambda: io.compose_resize_pad(host, None, "BGR", sizes, CITYSCAPES_HW), 30)
+    plain_ms = cuda_ms(lambda: io.compose_resize_pad_plain(host, None, "BGR", sizes, CITYSCAPES_HW), 5)
+    nbytes = canvas.numel() * 4 + sum(x.numel() for x in host)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_S * 1e3,
+               mbytes=nbytes / 1e6, sizes=sizes, checked_sizes=[sizes, down],
+               decode_host_ms=host_ms(lambda: io.decode_host(paths[0])))
+    log(f"PNG batch (2 Cityscapes frames): image_io launches 1 and 1, max |err| {err} against the plain "
+        f"version on cv2's pixels at {sizes[0]} and {down[0]}; decode_host {row['decode_host_ms']:.4g} ms per "
+        f"2048x1024 PNG; kernel {ms:.4g} ms at {sizes[0]} into {CITYSCAPES_HW}, plain {plain_ms:.4g} ms, "
+        f"bound {row['bound_ms']:.4g} ms")
+    return row
+
+
+class recorded_predictions:
+    """While active, records what ``Predictor.predict_batch`` returns: the
+    detections ``DefaultTrainer.test`` hands its evaluator, image by image."""
+
+    def __enter__(self):
+        from proben_tpu_torch.engine.predictor import Predictor
+
+        self.records, self._orig = [], Predictor.predict_batch
+
+        def predict_batch(predictor, batch):
+            out = self._orig(predictor, batch)
+            self.records.extend(out)
+            return out
+
+        Predictor.predict_batch = predict_batch
+        return self.records
+
+    def __exit__(self, *exc):
+        from proben_tpu_torch.engine.predictor import Predictor
+
+        Predictor.predict_batch = self._orig
+
+
+def gt_records(dicts):
+    """Each image's non-crowd ground truth as detections of score 1 (XYXY,
+    contiguous classes), as ``Predictor.predict_batch`` gives them."""
+    from proben_tpu_torch.structures.boxes import BoxMode, convert_box_mode
+
+    out = []
+    for d in dicts:
+        anns = [a for a in d["annotations"] if not a.get("iscrowd", 0)]
+        boxes = np.array([convert_box_mode(np.asarray(a["bbox"], np.float32), a["bbox_mode"],
+                                           BoxMode.XYXY_ABS) for a in anns], np.float32).reshape(-1, 4)
+        out.append({"image_id": d["image_id"], "boxes": boxes, "scores": np.ones(len(anns), np.float32),
+                    "classes": np.array([a["category_id"] for a in anns], np.int64)})
+    return out
+
+
+class ReplayPredictor:
+    """``predict_batch`` giving recorded detections by image id."""
+
+    def __init__(self, records):
+        self.by_id = {r["image_id"]: r for r in records}
+
+    def predict_batch(self, batch):
+        return [self.by_id[i] for i in batch["image_id"]]
+
+
+def reference_split(name, dicts, records, topk=REFERENCE_TOPK):
+    """Registers ``name + "_reference"``: the split's images and metadata
+    with ``records`` (a run's detections, the ``topk`` highest-scoring of
+    each image) as its ground truth, so that the split's evaluator scores
+    another run against that one. Each detection becomes a non-crowd,
+    non-difficult object of its class: XYXY_ABS for VOC; for LVIS an
+    annotation of its 1-based category in an annotation dict, each
+    image's other categories verified absent (``neg_category_ids``), none
+    not exhaustive; for Cityscapes a rectangle polygon on the integer
+    pixels the evaluator's adapter fills for the box, scored by the native
+    scorer (no ``gt_dir``). Returns the new name."""
+    from proben_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from proben_tpu_torch.structures.boxes import BoxMode
+
+    ref = name + "_reference"
+    meta = {k: v for k, v in vars(MetadataCatalog.get(name)).items() if k not in ("name", "gt_dir")}
+    by_id = {}
+    for r in records:
+        keep = np.argsort(-r["scores"], kind="stable")[:topk]
+        by_id[r["image_id"]] = {k: r[k][keep] for k in ("boxes", "scores", "classes")}
+    out, anns = [], []
+    for d in dicts:
+        r, h, w = by_id[d["image_id"]], d["height"], d["width"]
+        objs = []
+        for (x0, y0, x1, y1), c in zip(r["boxes"].tolist(), r["classes"].tolist()):
+            px0, py0, px1, py1 = int(max(x0, 0)), int(max(y0, 0)), int(min(x1, w)), int(min(y1, h))
+            objs.append({"bbox": [x0, y0, x1, y1], "bbox_mode": BoxMode.XYXY_ABS, "category_id": int(c),
+                         "iscrowd": 0, "difficult": 0,
+                         "segmentation": [[px0, py0, px1, py0, px1, py1, px0, py1]]})
+            anns.append({"id": len(anns) + 1, "image_id": d["image_id"], "category_id": int(c) + 1,
+                         "bbox": [x0, y0, x1 - x0, y1 - y0], "area": (x1 - x0) * (y1 - y0)})
+        out.append(dict(d, annotations=objs))
+    if meta.get("evaluator_type") == "lvis":
+        with open(meta["json_file"]) as f:
+            cats = json.load(f)["categories"]
+        images = [{"id": d["image_id"], "height": d["height"], "width": d["width"],
+                   "neg_category_ids": sorted({c["id"] for c in cats} - {int(k) + 1 for k in
+                                                                         by_id[d["image_id"]]["classes"]}),
+                   "not_exhaustive_category_ids": []} for d in dicts]
+        meta["json_file"] = {"images": images, "annotations": anns, "categories": cats}
+    DatasetCatalog.remove(ref)
+    DatasetCatalog.register(ref, lambda: out)
+    MetadataCatalog.get(ref).__dict__.update(meta)
+    return ref
+
+
+def replay_ap(name, records, out_dir, headline):
+    """The ``headline`` (task, metric) of ``records`` through a
+    ``build_evaluator`` object of split ``name`` and
+    ``inference_on_dataset`` (which resets it first)."""
+    from proben_tpu_torch.evaluation import build_evaluator, inference_on_dataset
+
+    task, metric = headline
+    loader = [{"image_id": [r["image_id"]]} for r in records]
+    return float(inference_on_dataset(ReplayPredictor(records), loader,
+                                      build_evaluator(name, output_dir=out_dir))[task][metric])
+
+
+def dataset_cfg(opts, out_dir):
+    """``configs/Base-RCNN-FPN.yaml`` at R101 (bf16, as the YAML sets it)
+    with a split's opts."""
+    from proben_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(HERE, "configs", "Base-RCNN-FPN.yaml"))
+    cfg.merge_from_list(["MODEL.RESNETS.DEPTH", "101", "OUTPUT_DIR", out_dir] + list(opts))
+    return cfg
+
+
+def oracle_phase(name, dicts, out_dir):
+    """The split's ground truth as detections of score 1 through
+    ``build_evaluator``'s object and ``inference_on_dataset`` (which resets
+    it first): the headline AP must be 100; for VOC under the 07 11-point
+    metric (the split's year) and the continuous one."""
+    from proben_tpu_torch.evaluation import build_evaluator, inference_on_dataset
+
+    loader = [{"image_id": [d["image_id"]]} for d in dicts]
+    task, metric = HEADLINE[name]
+    evaluators = {"": build_evaluator(name, output_dir=out_dir)}
+    if name.startswith("voc"):
+        evaluators[" (continuous)"] = build_evaluator(name, output_dir=out_dir)
+        evaluators[" (continuous)"].use_07 = False
+    got = {}
+    for label, ev in evaluators.items():
+        got[metric + label] = inference_on_dataset(ReplayPredictor(gt_records(dicts)), loader,
+                                                   ev)[task][metric]
+    log(f"{name}: ground truth as detections gives {got}")
+    if any(abs(v - 100.0) > 1e-6 for v in got.values()):
+        raise AssertionError(f"{name}: the ground truth as detections gives {got}, not 100")
+    return got
+
+
+def split_predictions(model, mcfg, cfg, dicts):
+    """The split through ``Predictor.predict_batch`` at batch 1, as
+    ``DefaultTrainer.test`` maps it, with no evaluator."""
+    from proben_tpu_torch.config import mapper_config_from_cfg
+    from proben_tpu_torch.data import DatasetMapper, build_test_loader
+    from proben_tpu_torch.engine import Predictor
+
+    pred, out = Predictor(model, mcfg), []
+    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+    try:
+        for batch in build_test_loader(dicts, mapper, batch_size=1):
+            out.extend(pred.predict_batch(batch))
+    finally:
+        mapper.close()
+    return out
+
+
+def split_kernel_checks(name, model, cfg, batch):
+    """K1 and K2 against their plain versions on a split's mapped batch:
+    its canvas into the stem (``model_stem_check``), the FPN maps and the
+    calibrated model's proposals (``check_roi``). The largest error per
+    kernel."""
+    from proben_tpu_torch.models import rcnn
+    from proben_tpu_torch.ops import roi_align_cuda
+
+    with torch.inference_mode():
+        out = {"stem_pool": model_stem_check(model, cfg, batch["image"])}
+        feats = rcnn.extract_features(model, cfg, rcnn.preprocess(cfg, batch["image"]))
+        levels = rcnn.roi_levels(feats)
+        boxes = rcnn.propose(model, cfg, feats, batch["image_size"])[0]
+        lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(levels, boxes, **cfg.roi.pooler_args)
+        out["roi_align_fwd"] = check_roi(levels, lvl, y0, x0, wy, wx, boxes.shape[1],
+                                         f"{name} canvas {tuple(batch['image'].shape)}, its "
+                                         f"{boxes.shape[0]} x {boxes.shape[1]} proposals")
+    return out
+
+
+def split_phase(name, seed, root, card):
+    """One split through ``DefaultTrainer.test`` on the card, R101-FPN in
+    bf16 with the dataset's opts, random affines, RPN and head calibrated on
+    the split's first 8 images (as ``flir_model``; ``CALIBRATION_TARGET``).
+    Checks:
+
+    - launches counted around the whole call: ``image_io``, K1 and K2 once
+      per image (batch 1);
+    - K1 and K2 against their plain versions on the split's own inputs at
+      batch 1 (``split_kernel_checks``: the first image's canvas as the
+      path maps it, 1024x2048 for Cityscapes, and its proposals);
+    - the kernels against their plain versions on the split, under
+      ``slice_phase``'s limits: with only the stem plain (K2 the only
+      difference) >= 95% of the detections match the plain run's both ways;
+      with both kernels, at least as well as the plain bf16 run matches the
+      plain f32 run, less 5 points; each FPN map within 1.5x the bf16-vs-f32
+      gap;
+    - the headline AP of the kernel run at least the plain bf16 run's
+      less ``AP_TOLERANCE`` points (one-sided, as the detection check;
+      the kernel run may land on either side), each scored by the split's
+      evaluator against the plain f32 run's ``REFERENCE_TOPK`` detections
+      per image as ground truth (``reference_split``, ``replay_ap``): the
+      random model's classes are random, so against the split's own
+      ground truth both score 0 whatever the kernels do; and the score
+      must see the detections: the plain run's above that of the kernel
+      run's detections moved to the next image by more than
+      ``AP_TOLERANCE``;
+    - the ground truth as detections at AP 100 (``oracle_phase``).
+
+    Readings: eval img/s end to end (the whole call, evaluator build and
+    ``evaluate()`` included; with the kernels the median of three runs,
+    each counted) and ``inference_on_dataset``'s load / infer / process /
+    evaluate seconds (first image excluded) of that run; the plain run's
+    once."""
+    from proben_tpu_torch.config import mapper_config_from_cfg, model_config_from_cfg
+    from proben_tpu_torch.data import DatasetCatalog, DatasetMapper, collate
+    from proben_tpu_torch.engine import DefaultTrainer, Predictor
+    from proben_tpu_torch.models import build_model, init_rcnn, random_affines
+
+    cfg = dataset_cfg(DATASET_OPTS[name], os.path.join(root, "out", name))
+    cfg.DATASETS.TEST = (name,)
+    dicts = DatasetCatalog.get(name)
+    mcfg = model_config_from_cfg(cfg)
+    model = build_model(mcfg, params=random_affines(init_rcnn(seed, mcfg), seed))
+    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+    try:
+        batch = collate(mapper.map_batch(dicts[:BATCH]))
+        first = collate(mapper.map_batch(dicts[:1]))
+    finally:
+        mapper.close()
+    calibrate_rpn(model, batch["image"])
+    bias, n_cal = calibrate(model, Predictor(model, mcfg), batch["image"], batch["image_size"], hi=32.0,
+                            target=CALIBRATION_TARGET.get(name, (20, 80)))
+    log(f"{name}: {mcfg.num_classes} classes, background bias {bias:.4g} -> {n_cal:.1f} dets/img")
+
+    plain = cfg.clone()
+    plain.merge_from_list(["MODEL.STEM_IMPL", "direct", "MODEL.ROI_ALIGN_IMPL", "gather",
+                           "OUTPUT_DIR", cfg.OUTPUT_DIR + "_plain"])
+    timing = TimingRecords()
+
+    def run(run_cfg):
+        timing.records.clear()
+        with recorded_predictions() as recs:
+            t = time.time()
+            results, launches = counted(lambda: DefaultTrainer.test(run_cfg, model))
+            wall = time.time() - t
+        if len(timing.records) != 1 or len(recs) != len(dicts):
+            raise AssertionError(f"{name}: {len(recs)} images predicted, timing {timing.records}")
+        return dict(results=results, launches=launches, wall_s=wall, dets=list(recs), timing=timing.records[0])
+
+    try:
+        runs = {"kernels": run(cfg), "plain": run(plain)}
+        # two more kernel runs: the rate is the median of three
+        repeats = sorted([runs["kernels"], run(cfg), run(cfg)], key=lambda r: r["wall_s"])
+    finally:
+        timing.close()
+    n = len(dicts)
+    if any(r["launches"] != runs["kernels"]["launches"] for r in repeats):
+        raise AssertionError(f"{name}: launches differ between runs: {[r['launches'] for r in repeats]}")
+    expect_launches(f"{name}: DefaultTrainer.test over {n} images", runs["kernels"]["launches"],
+                    {"stem_pool": n, "roi_align_fwd": n, "image_io": n})
+    expect_launches(f"{name}: the plain run", runs["plain"]["launches"], {"image_io": n})
+    out_k, out_p = runs["kernels"]["dets"], runs["plain"]["dets"]
+    for r in out_k:
+        if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()) or \
+                r["boxes"].shape[1:] != (4,) or len(r["boxes"]) > cfg.TEST.DETECTIONS_PER_IMAGE:
+            raise AssertionError(f"{name}: bad detections of shape {r['boxes'].shape}")
+    plain_mcfg = mcfg.replace(stem_impl="plain", roi_align_impl="plain")
+    out_k2 = split_predictions(model, mcfg.replace(stem_impl="plain"), cfg, dicts)
+    out_32 = split_predictions(model, plain_mcfg.replace(compute_dtype="float32"), cfg, dicts)
+
+    def both(a, b):
+        return min(match_fraction(a, b), match_fraction(b, a))
+
+    m_k2, m_all, m_32 = both(out_k2, out_p), both(out_k, out_p), both(out_p, out_32)
+    gap_k = feature_gap(model, mcfg, plain_mcfg, batch["image"])
+    gap_32 = feature_gap(model, plain_mcfg, plain_mcfg.replace(compute_dtype="float32"), batch["image"])
+    task, metric = HEADLINE[name]
+    ap_k, ap_p = runs["kernels"]["results"][task][metric], runs["plain"]["results"][task][metric]
+    dets_k = float(np.mean([len(r["scores"]) for r in out_k]))
+    log(f"{name}: {dets_k:.1f} dets/img; matched (worse direction): K2 only {100 * m_k2:.2f}%, both kernels "
+        f"{100 * m_all:.2f}%, bf16 vs f32 control {100 * m_32:.2f}%; {task} {metric} kernels {ap_k:.4f}, "
+        f"plain {ap_p:.4f}; FPN gap kernels-vs-plain / bf16-vs-f32: "
+        + ", ".join(f"{k} {gap_k[k]:.3g}/{gap_32[k]:.3g}" for k in gap_k))
+    if m_k2 < 0.95 or dets_k == 0:
+        raise AssertionError(f"{name}: K2 and plain detections disagree")
+    if any(gap_k[k] > 1.5 * gap_32[k] for k in gap_k):
+        raise AssertionError(f"{name}: kernel-path features differ from the plain path's beyond bf16 rounding")
+    if m_all < m_32 - 0.05:
+        raise AssertionError(f"{name}: kernel-path detections agree worse than the bf16-vs-f32 control")
+    if not (np.isfinite(ap_k) and np.isfinite(ap_p)):
+        raise AssertionError(f"{name}: {metric} {ap_k} with the kernels, {ap_p} plain")
+    # the plain f32 run's detections as the split's ground truth: the
+    # random model's own classes and boxes, which the kernel run must find
+    # again at least as well as the plain bf16 run
+    ref = reference_split(name, dicts, out_32)
+    moved = [dict(r, image_id=out_k[(i + 1) % n]["image_id"]) for i, r in enumerate(out_k)]
+    ap_ref = {key: replay_ap(ref, recs, os.path.join(root, "out", f"{ref}_{key}"), HEADLINE[name])
+              for key, recs in (("kernels", out_k), ("plain", out_p), ("kernels_next_image", moved))}
+    log(f"{name}: {task} {metric} against the plain f32 run's detections as ground truth: {ap_ref}; "
+        f"kernels - plain {ap_ref['kernels'] - ap_ref['plain']:.4g} points, tolerance -{AP_TOLERANCE}")
+    if not all(np.isfinite(v) for v in ap_ref.values()) or ap_ref["kernels"] < ap_ref["plain"] - AP_TOLERANCE:
+        raise AssertionError(f"{name}: {metric} against the f32 run's detections {ap_ref}: the kernel run's "
+                             f"is below the plain run's by more than {AP_TOLERANCE} points")
+    if ap_ref["plain"] - ap_ref["kernels_next_image"] <= AP_TOLERANCE:
+        raise AssertionError(f"{name}: {metric} against the f32 run's detections {ap_ref}: the score does not "
+                             f"tell the detections from another image's by more than {AP_TOLERANCE} points")
+    kernel_errs = split_kernel_checks(name, model, mcfg, first)
+    oracle = oracle_phase(name, dicts, os.path.join(root, "out", name + "_oracle"))
+
+    def reading(run):
+        tm = run["timing"]
+        return dict(eval_img_s=n / run["wall_s"], wall_s=run["wall_s"], **tm,
+                    model_img_s=tm["images"] / tm["infer_s"])
+
+    stats = dict(images=n, classes=mcfg.num_classes, canvas=list(cfg.INPUT.PAD_SHAPE), dets_per_img=dets_k,
+                 kernels=dict(reading(repeats[1]), eval_img_s_min_max=[n / repeats[2]["wall_s"],
+                                                                       n / repeats[0]["wall_s"]]),
+                 plain=reading(runs["plain"]),
+                 launches=runs["kernels"]["launches"], results=runs["kernels"]["results"],
+                 results_plain=runs["plain"]["results"], ap_against_f32_run=ap_ref, max_abs_err=kernel_errs,
+                 matched_k2=m_k2, matched=m_all,
+                 matched_bf16_f32=m_32, fpn_gap=gap_k, fpn_gap_bf16_f32=gap_32, oracle=oracle, card=card)
+    k = stats["kernels"]
+    log(f"{name} ({card}): eval {k['eval_img_s']:.4g} img/s end to end over {n} images at batch 1, median "
+        f"of 3 runs (min {k['eval_img_s_min_max'][0]:.4g}, max {k['eval_img_s_min_max'][1]:.4g}; plain, one "
+        f"run: {stats['plain']['eval_img_s']:.4g}); median run: load {k['load_s']:.4g} s, infer "
+        f"{k['infer_s']:.4g} s, process {k['process_s']:.4g} s, evaluate {k['evaluate_s']:.4g} s over the "
+        f"last {k['images']} images")
+    del model
+    torch.cuda.empty_cache()
+    return stats
+
+
+def voc_train_phase(root, card, steps=4, seed=45):
+    """Four ``DefaultTrainer`` steps on ``voc_2007_trainval`` (boxes
+    XYXY_ABS from the XML, ``difficult`` kept), R101-FPN bf16 from
+    ``Base-RCNN-FPN.yaml`` as shipped (batch 16, 640-800 with flips at
+    its 800x1344 canvas, FREEZE_AT 2) with 20 classes and detectron2
+    weights of random affines, watched as the trainer phase's runs
+    (``TrainWatch``, every step counted): each step launches K1, K2 and
+    K3 once, the run's ``image_io`` launches equal the batches the loader
+    mapped (no evaluation), every loss finite (``train_run_stats``); then
+    K1-K3 held against their plain versions on one more batch of 16 from
+    the trainer's loader (``held_batch_checks``)."""
+    from proben_tpu_torch.engine import DefaultTrainer
+
+    out = os.path.join(root, "out", "voc_train")
+    os.makedirs(out, exist_ok=True)
+    cfg = dataset_cfg(DATASET_OPTS["voc_2007_test"], out)
+    cfg.merge_from_list(["DATASETS.TRAIN", "['voc_2007_trainval']", "DATASETS.TEST", "[]",
+                         "SOLVER.MAX_ITER", str(steps), "TEST.EVAL_PERIOD", "0", "SEED", str(seed)])
+    cfg.MODEL.WEIGHTS = d2_weights(cfg, seed, os.path.join(out, "init.pth"))
+    if cfg.SOLVER.IMS_PER_BATCH != TRAIN_BATCH:
+        raise AssertionError(f"VOC training: batch {cfg.SOLVER.IMS_PER_BATCH}, the checks take {TRAIN_BATCH}")
+    label = "voc_2007_trainval training"
+    watch = TrainWatch(count_iter=1, hold_batch=True, every_step=True)
+    zero_launch_counts()
+    t = time.time()
+    trainer = DefaultTrainer(cfg)
+    trainer.register_hooks(watch.hooks())
+    trainer.train()
+    wall = time.time() - t
+    one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1}
+    stats = train_run_stats(label, watch, launch_counts(), one, steps, 0)
+    held = held_batch_checks(watch, label, stem=True)
+    stats.update(held_batch=held, wall_s=wall, per_step=watch.per_step, card=card)
+    log(f"{label} ({card}): {steps} steps of {TRAIN_BATCH} in {wall:.1f} s, step s {stats['step_s']}")
+    return stats
+
+
+def datasets_phase(card):
+    """The other datasets on the card: three synthetic splits in the
+    builtin layouts (``write_builtin_tree``) registered by
+    ``register_all_builtin``, Cityscapes' PNG batch through ``image_io``
+    (``check_png_batch``), each split through ``DefaultTrainer.test``
+    (``split_phase``), four VOC training steps (``voc_train_phase``). cv2
+    (the PNG decode) and Pillow (the Cityscapes evaluator) must be
+    installed: without them the phase fails. One ``datasets`` JSON line."""
+    import importlib
+    import tempfile
+
+    try:
+        cv2 = importlib.import_module("cv2")
+        pil = importlib.import_module("PIL")
+    except ImportError as e:
+        raise AssertionError(f"the datasets phase needs cv2 (PNG decode on the host) and Pillow (the "
+                             f"Cityscapes evaluator's masks), as the JAX package does: {e}")
+    from proben_tpu_torch.data import DatasetCatalog, register_all_builtin
+    from proben_tpu_torch.native import io
+
+    stats = {"card": card, "cv2": cv2.__version__, "Pillow": pil.__version__}
+    log(f"datasets phase ({card}): cv2 {cv2.__version__}, Pillow {pil.__version__}")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="builtin_") as root, io.JpegCodec() as codec:
+        t = time.time()
+        first = write_builtin_tree(codec, cv2, root)
+        stats["tree_s"] = time.time() - t
+        log(f"builtin tree: {SPLIT_IMAGES} images per split written in {stats['tree_s']:.1f} s")
+        register_all_builtin(root)
+        stats["png"] = check_png_batch(codec, cv2, DatasetCatalog.get("cityscapes_fine_instance_seg_val"), first)
+        for i, name in enumerate(DATASET_OPTS):
+            stats[name] = split_phase(name, 40 + i, root, card)
+        stats["voc_2007_trainval_train"] = voc_train_phase(root, card)
+    stats["seconds"] = time.time() - t0
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3183,6 +3818,7 @@ def main() -> int:
     kaist_stats = kaist_phase(card)
     trainer_stats = trainer_phase(card)
     heads_k, heads_stats = heads_phase(card)
+    datasets_stats = datasets_phase(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
              "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
@@ -3195,7 +3831,12 @@ def main() -> int:
                  **trainer_stats[key]["launches_per_step"],
                  "image_io": trainer_stats[key]["image_io"]["per_train_batch"]}
                 for key in ("flir_thermal_only", "flir_middle_fusion", "kaist_thermal_only_f32")},
-             **heads_stats["launches"]}
+             **heads_stats["launches"],
+             **{f"{name}_eval ({datasets_stats[name]['images']} batches of 1)": datasets_stats[name]["launches"]
+                for name in DATASET_OPTS},
+             "voc_2007_trainval_train (K1-K3 per step, image_io per training batch)": {
+                 **datasets_stats["voc_2007_trainval_train"]["launches_per_step"],
+                 "image_io": datasets_stats["voc_2007_trainval_train"]["image_io"]["per_train_batch"]}}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -3227,14 +3868,17 @@ def main() -> int:
     print(json.dumps({"kaist_eval": {**kaist_stats, "seconds": time.time() - t0}}))
     print(json.dumps({"trainer": {**trainer_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"heads": {**heads_stats, "total_seconds": time.time() - t0}}))
+    print(json.dumps({"datasets": {**datasets_stats, "total_seconds": time.time() - t0}}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
     k_io["launches_per_path"] = {p: n["image_io"] for p, n in paths.items() if "image_io" in n}
     k_io["train_flips"] = {fmt: {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "mbytes",
                                                      "flipped")}
                            for fmt, row in trainer_stats["train_mapper"].items()}
+    k_io["png_cityscapes"] = {k: datasets_stats["png"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                                                      "mbytes", "decode_host_ms", "sizes")}
     print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
                                                              "p14_c1024", "cascade_stage2",
-                                                             "c4", "c6", "train_flips")
+                                                             "c4", "c6", "train_flips", "png_cityscapes")
                                    if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-"""COCO-json dataset loading and registration (counterpart of
-``proben_tpu/data/coco.py``; ``load_sem_seg`` is not ported)."""
+"""COCO-json dataset loading and registration, and semantic-segmentation
+dataset dicts (counterpart of ``proben_tpu/data/coco.py``)."""
 
 from __future__ import annotations
 
@@ -62,3 +62,38 @@ def register_coco_instances(name: str, metadata: Dict, json_file: str, image_roo
     meta.evaluator_type = "coco"
     for k, v in metadata.items():
         setattr(meta, k, v)
+
+
+def load_sem_seg(
+    gt_root: str, image_root: str, gt_ext: str = "png", image_ext: str = "jpg"
+) -> List[dict]:
+    """Semantic-segmentation dataset dicts (reference
+    ``data/datasets/coco.py:198`` load_sem_seg): every ``image_ext`` file
+    under image_root matched to the ``gt_ext`` label map sharing its
+    extension-less relative path. Unpaired files are dropped with a warning
+    (reference behavior: intersect on ids)."""
+    import logging
+
+    logger = logging.getLogger(__name__)
+
+    def by_id(root, ext):
+        out = {}
+        for dirpath, _, files in os.walk(root):
+            for f in files:
+                if f.endswith(ext):
+                    p = os.path.join(dirpath, f)
+                    rid = os.path.splitext(os.path.relpath(p, root))[0]
+                    out[rid] = p
+        return out
+
+    inputs = by_id(image_root, image_ext)
+    gts = by_id(gt_root, gt_ext)
+    ids = sorted(set(inputs) & set(gts))
+    if len(ids) != len(inputs) or len(ids) != len(gts):
+        logger.warning(
+            "load_sem_seg: using %d matched pairs of %d images / %d gts",
+            len(ids), len(inputs), len(gts),
+        )
+    return [
+        {"file_name": inputs[i], "sem_seg_file_name": gts[i]} for i in ids
+    ]

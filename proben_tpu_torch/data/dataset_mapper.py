@@ -5,7 +5,8 @@ Every mapped sample is padded to one static ``pad_shape`` and its GT to
 ``max_gt`` with a validity mask, so batches have identical shapes. On the
 CPU the image is read, augmented (training) or resized (test) with cv2
 exactly as the JAX package does; on the card (``device="cuda"``, the
-default) it is decoded with nvJPEG and composed, resized, flipped (training)
+default) it is decoded (a JPEG with nvJPEG, any other file with cv2 on the
+host, ``native/io.py::load_batch``) and composed, resized, flipped (training)
 and padded by the ``image_io`` kernel, one launch per ``map_batch`` call,
 and stays on the card. The training draws come from one
 ``np.random.RandomState(seed)`` in the JAX package's order on both devices

@@ -8,9 +8,10 @@ channels are stacked: BGRT = BGR + thermal channel 0 (4), BGRTTT = BGR + the thr
 thermal channels (6). Grayscale files read as three equal channels.
 
 On the CPU ``read_image`` does exactly what the JAX package does, with cv2.
-On the card it decodes with nvJPEG and composes with the ``image_io`` kernel
-(``native/io.py``); its pixels then differ from cv2's by the two decoders'
-IDCT and chroma upsampling.
+On the card it decodes JPEGs with nvJPEG (other files, such as PNGs, with
+cv2 on the host) and composes with the ``image_io`` kernel
+(``native/io.py``); a JPEG's pixels then differ from cv2's by the two
+decoders' IDCT and chroma upsampling, a PNG's equal them.
 """
 
 from __future__ import annotations

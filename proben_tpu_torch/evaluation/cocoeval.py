@@ -1,6 +1,6 @@
-"""Pure-numpy COCO detection evaluation (bbox mAP), a copy of
-``proben_tpu/evaluation/cocoeval.py`` for boxes (the segm task, which needs
-the RLE module, is not ported).
+"""Pure-numpy COCO detection evaluation, bbox and segm mAP (a copy of
+``proben_tpu/evaluation/cocoeval.py``; the segm task scores RLE masks
+through ``evaluation/rle.py``).
 
 From-scratch implementation of the standard COCO evaluation protocol (the
 algorithm of the reference's vendored ``detectron2/pycocotools/cocoeval.py``,
@@ -66,10 +66,13 @@ class EvalParams:
 
 
 class COCOEvaluator:
-    """Box mAP evaluator.
+    """Detection mAP evaluator (``iou_type`` "bbox" or "segm").
 
     ground_truth: list of dicts with keys image_id, category_id, bbox (XYWH),
     area (optional; defaults to w*h), iscrowd (optional), ignore (optional).
+    For iou_type="segm" both gts and detections carry "segmentation" (an RLE
+    dict from evaluation.rle) and areas default to the mask area, matching
+    the vendored ``cocoeval.py`` segm task.
     detections: dicts with image_id, category_id, bbox (XYWH), score.
     """
 
@@ -79,8 +82,12 @@ class COCOEvaluator:
         image_ids: Sequence,
         category_ids: Sequence,
         params: Optional[EvalParams] = None,
+        iou_type: str = "bbox",
     ):
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"iou_type {iou_type!r}")
         self.p = params or EvalParams()
+        self.iou_type = iou_type
         self.img_ids = list(image_ids)
         self.cat_ids = list(category_ids)
         self._gts = defaultdict(list)
@@ -91,8 +98,11 @@ class COCOEvaluator:
             g["ignore"] = g.get("ignore", 0) or g["iscrowd"]
             self._gts[(g["image_id"], g["category_id"])].append(g)
 
-    @staticmethod
-    def _area(obj: dict) -> float:
+    def _area(self, obj: dict) -> float:
+        if self.iou_type == "segm":
+            from . import rle
+
+            return float(rle.area(obj["segmentation"]))
         return obj["bbox"][2] * obj["bbox"][3]
 
     # -- per-(image, category) matching ------------------------------------
@@ -120,9 +130,18 @@ class COCOEvaluator:
         dets = [dets[i] for i in d_order]
         dt_scores = np.array([d["score"] for d in dets])
 
-        gt_boxes = np.array([g["bbox"] for g in gts], float).reshape(-1, 4)
-        dt_boxes = np.array([d["bbox"] for d in dets], float).reshape(-1, 4)
-        ious = bbox_iou_xywh(dt_boxes, gt_boxes, iscrowd)
+        if self.iou_type == "segm":
+            from . import rle
+
+            ious = rle.iou(
+                [d["segmentation"] for d in dets],
+                [g["segmentation"] for g in gts],
+                iscrowd,
+            ) if dets and gts else np.zeros((len(dets), len(gts)))
+        else:
+            gt_boxes = np.array([g["bbox"] for g in gts], float).reshape(-1, 4)
+            dt_boxes = np.array([d["bbox"] for d in dets], float).reshape(-1, 4)
+            ious = bbox_iou_xywh(dt_boxes, gt_boxes, iscrowd)
 
         D, G = len(dets), len(gts)
         dtm = np.zeros((T, D), dtype=np.int64)  # 1 + matched gt index, 0 = unmatched
@@ -164,6 +183,12 @@ class COCOEvaluator:
 
     # -- accumulate ---------------------------------------------------------
 
+    def _imgs_for_cat(self, cat):
+        """Images on which category ``cat`` is evaluable. COCO: all images;
+        LVIS overrides this with the federated pos/neg sets (detections on
+        other images are ignored entirely)."""
+        return self.img_ids
+
     def evaluate(self, detections: Sequence[dict]) -> Dict[str, float]:
         p = self.p
         dts = defaultdict(list)
@@ -178,6 +203,7 @@ class COCOEvaluator:
 
         max_det_cap = p.max_dets[-1]
         for ki, cat in enumerate(self.cat_ids):
+            cat_imgs = self._imgs_for_cat(cat)
             for ai, arng in enumerate(p.area_rng):
                 # evaluate every image once per (cat, area) at the largest cap;
                 # smaller maxDets re-slice the per-image results
@@ -185,7 +211,7 @@ class COCOEvaluator:
                     self._evaluate_img(
                         dts[(img, cat)], self._gts[(img, cat)], arng, max_det_cap
                     )
-                    for img in self.img_ids
+                    for img in cat_imgs
                 ]
                 per_img = [e for e in per_img if e is not None]
                 if not per_img:

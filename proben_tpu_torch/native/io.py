@@ -7,8 +7,12 @@ canvas (``csrc/image_io.cu``).
 ``compose_resize_pad`` launches the kernel for CUDA tensors and runs
 ``compose_resize_pad_plain``, the same arithmetic in PyTorch, only for CPU
 tensors. ``JpegCodec`` owns an nvJPEG handle; ``load_batch`` reads files,
-decodes them on the card and makes the canvas there. Nothing here falls back
-to the host: without a card, or if nvJPEG or the kernel fail, they raise.
+decodes them and makes the canvas on the card. The decoder is chosen by the
+file's first bytes: a JPEG (SOI marker ``FF D8``) goes to nvJPEG, any other
+file (Cityscapes' PNGs) is decoded on the host by ``cv2.imread`` exactly as
+the CPU path reads it (``decode_host``) and copied to the card; both feed
+the same launch. Nothing falls back: without a card, or if nvJPEG, cv2 or
+the kernel fail, they raise.
 """
 
 from __future__ import annotations
@@ -284,6 +288,23 @@ def compose_resize_pad(
     return out
 
 
+JPEG_SOI = b"\xff\xd8"  # the first two bytes of every JPEG file
+
+
+def decode_host(path: str) -> torch.Tensor:
+    """A file that is not a JPEG, decoded on the host as the CPU path reads
+    it (``data/detection_utils.py::_read_image_cpu``: ``cv2.imread`` with
+    ``IMREAD_COLOR``, BGR, a grayscale file as three equal channels) and
+    copied to the current CUDA device: (H, W, 3) uint8. Raises
+    ``FileNotFoundError`` where cv2 cannot read the file, as on the CPU."""
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(path)
+    return torch.from_numpy(np.ascontiguousarray(img)).cuda()
+
+
 def load_batch(
     codec: JpegCodec,
     thermal_paths: Sequence[str],
@@ -292,17 +313,18 @@ def load_batch(
     sizes_fn,
     pad_shape: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
-    """Read and decode a batch on the card and make its canvas in one
-    launch. ``sizes_fn(h, w)`` gives an image's resized (h, w) from its
+    """Read and decode a batch (JPEGs with nvJPEG, other files with
+    ``decode_host``) and make its canvas on the card in one launch.
+    ``sizes_fn(h, w)`` gives an image's resized (h, w) from its
     thermal-frame size, or (h, w, flip) to flip the resized image
     horizontally; it is called image by image, in order. ``pad_shape``
     None pads to the largest. Returns (images (N, PH, PW, C) float32 CUDA,
     sizes (N, 2) int32 resized hw, orig (N, 2) int32 thermal-frame hw)."""
-    files: List[bytes] = []
+    decoded: List[torch.Tensor] = []
     for p in list(thermal_paths) + list(rgb_paths or []):
         with open(p, "rb") as f:
-            files.append(f.read())
-    decoded = [codec.decode(b) for b in files]
+            data = f.read()
+        decoded.append(codec.decode(data) if data[:2] == JPEG_SOI else decode_host(p))
     n = len(thermal_paths)
     thermal, rgb = decoded[:n], (decoded[n:] if rgb_paths is not None else None)
     orig = np.array([t.shape[:2] for t in thermal], np.int32).reshape(-1, 2)

@@ -1,5 +1,6 @@
-"""Fixed-shape, masked detection and ground-truth containers (counterparts
-of ``proben_tpu/structures/detections.py:27,80``)."""
+"""Fixed-shape, masked detection and ground-truth containers and the
+host-side padding helper (counterparts of
+``proben_tpu/structures/detections.py:27,80,113``)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,43 @@ class GroundTruth:
 
     def to(self, device: Union[str, torch.device]) -> "GroundTruth":
         return GroundTruth(self.boxes.to(device), self.classes.to(device), self.valid.to(device))
+
+
+def pad_detections_numpy(
+    boxes: np.ndarray,
+    scores: np.ndarray,
+    classes: np.ndarray,
+    capacity: int,
+    probs: Optional[np.ndarray] = None,
+    class_logits: Optional[np.ndarray] = None,
+    variance: Optional[np.ndarray] = None,
+) -> Detections:
+    """Host-side helper (``proben_tpu/structures/detections.py:113``): a
+    padded ``Detections`` of CPU tensors from ragged numpy arrays, the
+    first ``capacity`` rows kept."""
+    n = min(len(boxes), capacity)
+
+    def pad(x, shape, dtype):
+        out = np.zeros(shape, dtype)
+        if n:
+            out[:n] = np.asarray(x, dtype)[:n]
+        return torch.from_numpy(out)
+
+    num_c = probs.shape[1] if probs is not None and probs.ndim == 2 else 0
+    return Detections(
+        boxes=pad(boxes, (capacity, 4), np.float32),
+        scores=pad(scores, (capacity,), np.float32),
+        classes=pad(classes, (capacity,), np.int32),
+        valid=torch.from_numpy(np.arange(capacity) < n),
+        probs=pad(probs, (capacity, num_c), np.float32) if probs is not None else None,
+        class_logits=(
+            pad(class_logits, (capacity, class_logits.shape[1]), np.float32)
+            if class_logits is not None
+            else None
+        ),
+        variance=(
+            pad(np.asarray(variance).reshape(-1, 1), (capacity, 1), np.float32)
+            if variance is not None
+            else None
+        ),
+    )

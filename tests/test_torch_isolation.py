@@ -58,8 +58,18 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.engine.defaults
         import proben_tpu_torch.engine.hooks
         import proben_tpu_torch.evaluation
+        import proben_tpu_torch.data.builtin
+        import proben_tpu_torch.data.cityscapes
+        import proben_tpu_torch.data.lvis
+        import proben_tpu_torch.data.pascal_voc
         import proben_tpu_torch.evaluation.build
+        import proben_tpu_torch.evaluation.cityscapes
         import proben_tpu_torch.evaluation.kaist
+        import proben_tpu_torch.evaluation.lvis
+        import proben_tpu_torch.evaluation.panoptic
+        import proben_tpu_torch.evaluation.pascal_voc
+        import proben_tpu_torch.evaluation.rle
+        import proben_tpu_torch.evaluation.sem_seg
         import proben_tpu_torch.evaluation.testing
         import proben_tpu_torch.models.batch_norm
         import proben_tpu_torch.models.layers
@@ -115,11 +125,17 @@ def test_imports_load_no_cv2_yaml_or_pil():
 
 
 # cv2 only inside the CPU branches that read and resize with it, as the JAX
-# package does; matplotlib only where the PR-curve plot is asked for
+# package does, and inside the host decode of a file that is not a JPEG
+# (``native/io.py::decode_host``, the CPU path's ``cv2.imread``); Pillow only
+# where the JAX package draws polygons and writes Cityscapes' mask PNGs with
+# it; matplotlib only where the PR-curve plot is asked for
 ALLOWED_IMPORTS = {
     ("proben_tpu_torch/data/detection_utils.py", "cv2"),
     ("proben_tpu_torch/data/transforms.py", "cv2"),
+    ("proben_tpu_torch/evaluation/build.py", "PIL"),
+    ("proben_tpu_torch/evaluation/cityscapes.py", "PIL"),
     ("proben_tpu_torch/evaluation/flir.py", "matplotlib"),
+    ("proben_tpu_torch/native/io.py", "cv2"),
 }
 
 
@@ -150,6 +166,34 @@ def test_kaist_app_imports_cv2_only_in_its_cpu_reader():
 
     assert cv2_imports("proben_tpu_torch/apps/kaist.py") == ([], [])
     assert cv2_imports("proben_tpu_torch/data/detection_utils.py") == (["_read_image_cpu"], [])
+
+
+def test_datasets_import_cv2_and_pil_only_inside_their_functions():
+    """The other datasets' slice adds exactly three such imports, each
+    inside one function and none at module level: cv2 in
+    ``native/io.py::decode_host`` (a file that is not a JPEG, read as the
+    CPU path reads it), Pillow in ``evaluation/build.py::_rasterize_polygons``
+    and in ``evaluation/cityscapes.py``'s ``process`` (as in the JAX
+    package). The loaders and the other evaluators import neither."""
+    def owners(rel, module):
+        tree = ast.parse((ROOT / rel).read_text())
+
+        def imports(node):
+            return (isinstance(node, ast.Import) and any(a.name.split(".")[0] == module for a in node.names)) \
+                or (isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == module)
+
+        assert not [node for node in tree.body if imports(node)], rel
+        return sorted({fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+                       for node in ast.walk(fn) if imports(node)})
+
+    assert owners("proben_tpu_torch/native/io.py", "cv2") == ["decode_host"]
+    assert owners("proben_tpu_torch/native/io.py", "PIL") == []
+    assert owners("proben_tpu_torch/evaluation/build.py", "PIL") == ["_rasterize_polygons"]
+    assert owners("proben_tpu_torch/evaluation/cityscapes.py", "PIL") == ["process"]
+    for rel in ("data/builtin.py", "data/cityscapes.py", "data/coco.py", "data/lvis.py", "data/pascal_voc.py",
+                "evaluation/lvis.py", "evaluation/panoptic.py", "evaluation/pascal_voc.py", "evaluation/rle.py",
+                "evaluation/sem_seg.py", "evaluation/cocoeval.py"):
+        assert owners(f"proben_tpu_torch/{rel}", "cv2") == owners(f"proben_tpu_torch/{rel}", "PIL") == [], rel
 
 
 def test_training_modules_import_cv2_only_in_the_cpu_resize():

@@ -154,7 +154,7 @@ def _logged(name, fn, *args):
 
 def test_build_evaluator_and_testing_match_jax(tmp_path):
     """``build_evaluator`` picks the same evaluator as JAX's for the kaist,
-    flir and coco types and names ROADMAP 13 for the ones not ported;
+    flir, coco and lvis types;
     ``verify_results`` gives the same verdicts, ``print_csv_format`` the
     same lines."""
     from proben_tpu.config import get_cfg as jax_get_cfg
@@ -187,8 +187,8 @@ def test_build_evaluator_and_testing_match_jax(tmp_path):
         assert type(got).__name__ == type(want).__name__ == "FLIREvaluator"
         assert (got.valid_classes, got.class_remap, got.output_dir) == (
             want.valid_classes, want.class_remap, want.output_dir)
-    with pytest.raises(NotImplementedError, match="ROADMAP 13"):
-        build_evaluator("lvis_t")
+    got, want = build_evaluator("lvis_t"), jax_build_evaluator("lvis_t")
+    assert type(got).__name__ == type(want).__name__ == "LVISEvaluator"
     with pytest.raises(ValueError, match="no evaluator"):
         build_evaluator("odd_t")
 

@@ -647,6 +647,39 @@ def test_load_batch_reads_files(tmp_path):
     assert torch.equal(images, ref)
 
 
+@pytest.mark.cuda
+def test_png_batch_canvas_equals_plain(tmp_path):
+    """A PNG and a JPEG in one ``load_batch``: the JPEG goes to nvJPEG, the
+    PNG (chosen by its bytes, whatever its name) to ``cv2.imread`` on the
+    host, and both feed one ``image_io`` launch. The PNG's canvas equals
+    ``compose_resize_pad_plain`` of ``cv2.imread``'s pixels bit for bit."""
+    _cuda()
+    import cv2
+
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(5)
+    png_pixels = _u8(rng, 100, 200, 3)
+    png = tmp_path / "frame_leftImg8bit.jpg"  # a PNG under a JPEG's name
+    png.write_bytes(cv2.imencode(".png", png_pixels)[1].tobytes())
+    with io.JpegCodec() as codec:
+        jpeg = tmp_path / "b.jpg"
+        jpeg.write_bytes(codec.encode(torch.from_numpy(_u8(rng, 60, 80, 3)).cuda()))
+        before = io.launches
+        images, sizes, orig = io.load_batch(codec, [str(png), str(jpeg)], None, "BGR",
+                                            lambda h, w: (h // 2 * 3, w // 2 * 3), (160, 304))
+        torch.cuda.synchronize()
+        assert io.launches == before + 1
+        host = cv2.imread(str(png), cv2.IMREAD_COLOR)
+        assert np.array_equal(host, png_pixels)
+        ref = io.compose_resize_pad_plain([torch.from_numpy(host).cuda()], None, "BGR", [(150, 300)],
+                                          (160, 304))
+        jpeg_ref = io.compose_resize_pad_plain([codec.decode(jpeg.read_bytes())], None, "BGR", [(90, 120)],
+                                               (160, 304))
+    assert orig.tolist() == [[100, 200], [60, 80]] and sizes.tolist() == [[150, 300], [90, 120]]
+    assert torch.equal(images[0], ref[0]) and torch.equal(images[1], jpeg_ref[0])
+
+
 def test_image_io_wrapper_rejects_unsupported_input():
     from proben_tpu_torch.native import io
 
