@@ -144,12 +144,26 @@ Phases, each raising on a miss (exit code != 0, no result line):
    once per step, ``image_io`` once per mapped batch, finite losses; K1-K3
    held on one more batch of 16 at 800x1344); eval img/s and load /
    infer / process / evaluate seconds per split;
-15. one JSON line per kernel, one for each slice and fusion mode, one for
+15. the rest of the library surface (``surface_phase``): a synthetic FLIR
+   tree of 32 train pairs; the train mapper with ``INPUT.CROP`` (BGR and
+   BGRTTT, a batch of 16: one ``image_io`` launch, the crop windows, sizes
+   and flips equal to ``TrainAugment``'s replayed draws, the canvas equal
+   to the plain version bit for bit, the GT to the CPU mapper's; the
+   kernel with crops timed); ``train_flir("thermal_only")`` with
+   ``INPUT.CROP.ENABLED`` for 4 steps (K1-K3 once per step, ``image_io``
+   once per mapped batch, the trainer's first batch equal to the plain
+   version of its replayed windows); ``paste_masks_in_image`` on the card
+   against the CPU; ``flop_count`` of R101-FPN inference on one 800x1024
+   image through the kernels and through the plain versions (equal);
+   ``apps/flir.py draw`` on 4 val images (K1 and K2 once per image, both
+   overlays written for each);
+16. one JSON line per kernel, one for each slice and fusion mode, one for
    the FLIR and one for the KAIST evaluation, one for the trainer, one for
-   the other heads, one for the other datasets, one listing every kernel
-   (launches per path, the C = 512, C = 4 and C = 6 readings, K2 and K3 at
-   P = 14 / C = 1024 and on Cascade's last stage, ``image_io`` with flips
-   at the training shapes and on Cityscapes' PNGs); the last line is
+   the other heads, one for the other datasets, one for the surface phase,
+   one listing every kernel (launches per path, the C = 512, C = 4 and
+   C = 6 readings, K2 and K3 at P = 14 / C = 1024 and on Cascade's last
+   stage, ``image_io`` with flips and with crops at the training shapes
+   and on Cityscapes' PNGs); the last line is
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -3729,6 +3743,357 @@ def datasets_phase(card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the rest of the library surface: crop on the card, structures, analysis, draw
+# ---------------------------------------------------------------------------
+
+
+CROP_STEPS = 4  # train_flir steps with INPUT.CROP on
+# A crop of relative size 0.9 widens a 640x512 frame's aspect ratio to up to
+# 640/461, so at the 800 short side an image is up to 1111 wide: the FLIR
+# YAMLs' 800x1024 canvas does not hold it (the mapper raises, as JAX's does)
+CROP_PAD = (800, 1120)
+DRAW_IMAGES = 4  # images through ``apps/flir.py draw``
+
+
+def rgb_rows_read_window(rh, th, y0, ch):
+    """``rgb_rows_read`` for the thermal-frame rows y0 .. y0 + ch - 1 of a
+    crop window and the row below it (a tap's second row)."""
+    from proben_tpu_torch.native import io
+
+    t0, t1, b0, b1 = io._fixed_taps(th, rh, False, "cpu")
+    rows = set()
+    for y in range(y0, min(y0 + ch + 1, th)):
+        if b0[y]:
+            rows.add(int(t0[y]))
+        if b1[y]:
+            rows.add(int(t1[y]))
+    return len(rows)
+
+
+def check_crop_mapper(codec, cfg, dicts, seed):
+    """One training batch of ``TRAIN_BATCH`` FLIR files through
+    ``DatasetMapper(is_train=True)`` with ``INPUT.CROP`` on the card: one
+    ``image_io`` launch; crop windows, sizes and flips equal to
+    ``TrainAugment``'s replayed draws from ``RandomState(seed)`` (the
+    crop's four, the size, the flip, image by image), some windows off the
+    frame's origin and flipped and unflipped images; the canvas equal to
+    ``compose_resize_pad_plain`` with those windows bit for bit; the GT
+    equal to the CPU mapper's (``random_crop`` on cv2's read), exactly.
+    Then the kernel with crops timed, with its bound."""
+    from proben_tpu_torch.config import mapper_config_from_cfg
+    from proben_tpu_torch.data import DatasetMapper, collate
+    from proben_tpu_torch.data.transforms import TrainAugment
+    from proben_tpu_torch.native import io
+
+    mcfg = mapper_config_from_cfg(cfg)
+    fmt, pad = mcfg.input_format, tuple(mcfg.pad_shape)
+    mapper = DatasetMapper(mcfg, is_train=True, seed=seed)
+    try:
+        io.launches = 0
+        batch = collate(mapper.map_batch(dicts))
+        torch.cuda.synchronize()
+        one_launch = io.launches
+    finally:
+        mapper.close()
+    if one_launch != 1:
+        raise AssertionError(f"crop mapper {fmt}: {one_launch} image_io launches for one batch")
+    aug = TrainAugment(mcfg.min_size_train, mcfg.max_size_train, mcfg.flip, np.random.RandomState(seed),
+                       crop=mcfg.crop)
+    windows, sizes, flips = [], [], []
+    for _ in dicts:
+        windows.append(aug.crop_window(*FLIR_T_HW))
+        nh, nw, flip = aug.draw(*windows[-1][2:])
+        sizes.append((nh, nw))
+        flips.append(flip)
+    if batch["image_size"].cpu().numpy().tolist() != [list(x) for x in sizes] \
+            or batch["flip"].tolist() != flips:
+        raise AssertionError(f"crop mapper {fmt}: sizes or flips are not TrainAugment's draws")
+    if not any(w[0] or w[1] for w in windows) or all(flips) or not any(flips):
+        raise AssertionError(f"crop mapper {fmt}: the batch needs windows off the origin and flipped "
+                             f"and unflipped images ({windows}, {flips})")
+    thermal, rgb = decoded_files(codec, dicts, fmt)
+    want = io.compose_resize_pad_plain(thermal, rgb, fmt, sizes, pad, flips, windows)
+    err = float((batch["image"] - want).abs().max())
+    if not torch.equal(batch["image"], want):
+        raise AssertionError(f"crop mapper {fmt}: canvas differs from the plain version by {err}")
+    cpu = collate(DatasetMapper(mcfg, is_train=True, seed=seed, device="cpu").map_batch(dicts))
+    if not all(torch.equal(getattr(cpu["gt"], k), getattr(batch["gt"], k).cpu())
+               for k in ("boxes", "classes", "valid")) \
+            or not torch.equal(cpu["image_size"], batch["image_size"].cpu()) or cpu["flip"].tolist() != flips:
+        raise AssertionError(f"crop mapper {fmt}: GT, sizes or flips differ from the CPU mapper's")
+    ms = cuda_ms(lambda: io.compose_resize_pad(thermal, rgb, fmt, sizes, pad, flips, windows), 30)
+    # the same launch without the crops (each whole frame to the same size): what a crop changes
+    uncropped_ms = cuda_ms(lambda: io.compose_resize_pad(thermal, rgb, fmt, sizes, pad, flips), 30)
+    plain_ms = cuda_ms(lambda: io.compose_resize_pad_plain(thermal, rgb, fmt, sizes, pad, flips, windows), 3)
+    nbytes = want.numel() * 4 + sum(w[2] * w[3] * t.shape[2] for w, t in zip(windows, thermal)) + (
+        sum(rgb_rows_read_window(x.shape[0], t.shape[0], w[0], w[2]) * x.shape[1] * x.shape[2]
+            for x, t, w in zip(rgb, thermal, windows)) if rgb is not None else 0)
+    bound = nbytes / HBM_BYTES_S * 1e3
+    log(f"crop mapper {fmt}: batch of {len(dicts)} equal to the plain version (windows "
+        f"{sorted(set(w[2:] for w in windows))[:3]}..., flipped {sum(flips)}), GT equal to the CPU "
+        f"mapper's; image_io with crops {ms:.4g} ms (without them {uncropped_ms:.4g}, plain {plain_ms:.4g}, "
+        f"bound {bound:.4g} ms, {ms / bound:.1f}x)")
+    return dict(max_abs_err=err, ms=ms, uncropped_ms=uncropped_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", mbytes=nbytes / 1e6, flipped=int(sum(flips)),
+                launches_per_batch=one_launch, pad_shape=list(pad), windows=[list(w) for w in windows])
+
+
+class FirstBatch:
+    """A trainer's loader that keeps a copy of the first batch it hands out
+    (``before_train`` puts it in place); everything else is the loader's."""
+
+    def __init__(self, loader):
+        self.loader, self.first = loader, None
+
+    def __next__(self):
+        batch = next(self.loader)
+        if self.first is None:
+            self.first = {k: v.clone() if torch.is_tensor(v) else v for k, v in batch.items()}
+        return batch
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+
+def crop_train_run(codec, root, dicts, val):
+    """``train_flir("thermal_only")`` from ``faster_rcnn_R_101_FLIR.yaml``
+    with ``INPUT.CROP.ENABLED`` (detectron2's relative_range 0.9) for
+    ``CROP_STEPS`` steps, one loader thread (so the mapper's draws come in
+    the stream's order and the first batch's windows replay): K1-K3
+    counted around every step, ``image_io`` once per mapped batch; the
+    trainer's first batch equal bit for bit to the plain version on its
+    own indices and the replayed windows, sizes and flips, its GT equal to
+    the CPU mapper's; then K1-K3 held against their plain versions on one
+    more cropped batch of 16 from the trainer's loader, at the crop's
+    800x1120 canvas (``held_batch_checks``)."""
+    from proben_tpu_torch.apps import flir
+    from proben_tpu_torch.config import get_cfg, mapper_config_from_cfg
+    from proben_tpu_torch.data import DatasetMapper, collate
+    from proben_tpu_torch.data.transforms import TrainAugment
+    from proben_tpu_torch.engine import CallbackHook
+    from proben_tpu_torch.native import io
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(HERE, "configs", "FLIR-Detection", "faster_rcnn_R_101_FLIR.yaml"))
+    cfg.INPUT.CROP.ENABLED = True
+    cfg.INPUT.PAD_SHAPE = CROP_PAD
+    cfg.DATALOADER.NUM_WORKERS = 1
+    cfg.MODEL.WEIGHTS = d2_weights(cfg, 34, os.path.join(root, "crop.pth"))
+    recorder = {}
+
+    def wrap(t):
+        recorder["loader"] = t.train_loader = FirstBatch(t.train_loader)
+
+    label = "train_flir thermal_only, INPUT.CROP"
+    watch = TrainWatch(count_iter=1, every_step=True, hold_batch=True)
+    zero_launch_counts()
+    flir.train_flir("thermal_only", root, os.path.join(root, "out_crop"), max_iter=CROP_STEPS,
+                    eval_every=1000, cfg=cfg, hooks=[CallbackHook(before_train=wrap)] + watch.hooks())
+    one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1}
+    stats = train_run_stats(label, watch, launch_counts(), one, CROP_STEPS,
+                            eval_runs(0, CROP_STEPS, 1000) * len(val))
+    if tuple(watch.held["image"].shape[1:3]) != CROP_PAD:
+        raise AssertionError(f"{label}: held batch {tuple(watch.held['image'].shape)}, canvas {CROP_PAD} expected")
+    stats["held_batch"] = held_batch_checks(watch, label, stem=True)
+    first = recorder["loader"].first
+    mcfg = mapper_config_from_cfg(cfg)
+    aug = TrainAugment(mcfg.min_size_train, mcfg.max_size_train, mcfg.flip,
+                       np.random.RandomState(max(cfg.SEED, 0)), crop=mcfg.crop)
+    chosen = [dicts[i] for i in first["indices"]]
+    windows, sizes, flips = [], [], []
+    for d in chosen:
+        windows.append(aug.crop_window(d["height"], d["width"]))
+        nh, nw, flip = aug.draw(*windows[-1][2:])
+        sizes.append((nh, nw))
+        flips.append(flip)
+    thermal, rgb = decoded_files(codec, chosen, "BGR")
+    want = io.compose_resize_pad_plain(thermal, rgb, "BGR", sizes, tuple(mcfg.pad_shape), flips, windows)
+    cpu = collate(DatasetMapper(mcfg, is_train=True, seed=max(cfg.SEED, 0), device="cpu").map_batch(chosen))
+    if first["image_size"].cpu().numpy().tolist() != [list(s) for s in sizes] \
+            or first["flip"].tolist() != flips or not torch.equal(first["image"], want) \
+            or not all(torch.equal(getattr(cpu["gt"], k), getattr(first["gt"], k).cpu())
+                       for k in ("boxes", "classes", "valid")):
+        raise AssertionError("train_flir with INPUT.CROP: the trainer's first batch differs from the plain "
+                             "version of its replayed windows, or its GT from the CPU mapper's")
+    log(f"train_flir with INPUT.CROP: the trainer's first batch of {len(chosen)} equal to the plain version "
+        f"of its replayed windows bit for bit, its GT to the CPU mapper's")
+    stats.update(first_batch_equal=True, crop_size=list(mcfg.crop), loader_threads=1)
+    return stats, cfg.MODEL.WEIGHTS
+
+
+def paste_masks_check():
+    """``paste_masks_in_image`` on the card against the CPU on the same
+    inputs (100 soft 28x28 masks, boxes across an 800x1000 image and its
+    edges): the float values within 1e-6, the masks at 0.5 equal wherever
+    a value is not within 1e-6 of the threshold; the card's time."""
+    from proben_tpu_torch.structures.masks import paste_masks_in_image
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    m = torch.rand(100, 28, 28, generator=gen, device="cuda")
+    xy = torch.rand(100, 2, generator=gen, device="cuda") * torch.tensor([1100.0, 900.0], device="cuda") - 50
+    boxes = torch.cat([xy, xy + torch.rand(100, 2, generator=gen, device="cuda") * 300 + 0.5], 1)
+    got = paste_masks_in_image(m, boxes, TRUE_HW, None)
+    want = paste_masks_in_image(m.cpu(), boxes.cpu(), TRUE_HW, None)
+    err = float((got.cpu() - want).abs().max())
+    hard = paste_masks_in_image(m, boxes, TRUE_HW).cpu() != (want >= 0.5)
+    near = (want - 0.5).abs() <= 1e-6
+    if err > 1e-6 or bool((hard & ~near).any()):
+        raise AssertionError(f"paste_masks_in_image on the card: values {err} from the CPU's, "
+                             f"{int(hard.sum())} masked pixels differ")
+    ms = cuda_ms(lambda: paste_masks_in_image(m, boxes, TRUE_HW), 10)
+    log(f"paste_masks_in_image: card against CPU max abs err {err}, masks equal; {ms:.4g} ms for 100 "
+        f"masks into {TRUE_HW}")
+    return dict(max_abs_err=err, mask_pixels_differing=int(hard.sum()), ms=ms, masks=100, image_hw=list(TRUE_HW))
+
+
+def flops_check():
+    """``utils.analysis.flop_count`` of one 800x1024 image (true 800x1000)
+    through R101-FPN bf16 inference, the kernel path (K1 and K2 launched
+    once each, their work reported by the wrappers) and the plain path
+    (``stem_impl``, ``roi_align_impl`` "plain": the mode counts the plain
+    stem's convolution, and the plain RoIAlign reports ``roi_align_flops``
+    as K2 does). RoIAlign's count reads the RoIs, and each path pools its
+    own proposals (K1's bf16 rounding moves a few), so the checks are: the
+    two counts without each path's RoIAlign share (``roi_align_flops`` on
+    that path's proposals) equal; K2's wrapper and the plain version count
+    the same on the kernel path's window inputs. K1's share against
+    ``stem_flops`` (30.8 GFLOP per batch of 8 is its bound's numerator)."""
+    from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines, rcnn
+    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+    from proben_tpu_torch.utils.analysis import flop_count
+
+    cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
+    model = build_model(cfg, params=random_affines(init_rcnn(0, cfg), 0))
+    image = torch.from_numpy(structured_images(np.random.RandomState(41), 1, 1, H, W, 3)[0]).cuda()
+    sizes = torch.tensor([TRUE_HW], dtype=torch.int32, device="cuda")
+    counts, launches, k2, pool_args = {}, {}, {}, {}
+    for impl in ("kernel", "plain"):
+        c = dataclasses.replace(cfg, stem_impl=impl, roi_align_impl=impl)
+        with torch.inference_mode():
+            counts[impl], launches[impl] = counted(lambda: flop_count(rcnn.rcnn_inference, model, c, image, sizes))
+            feats = rcnn.extract_features(model, c, rcnn.preprocess(c, image))
+            levels = rcnn.roi_levels(feats)
+            boxes = rcnn.propose(model, c, feats, sizes)[0]
+            lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(levels, boxes, **cfg.roi.pooler_args)
+            k2[impl] = roi_align_cuda.roi_align_flops(wy, wx, levels[0].shape[-1])
+            pool_args[impl] = (levels, lvl, y0, x0, wy, wx, boxes.shape[1])
+            del feats
+    if launches["kernel"]["stem_pool"] != 1 or launches["kernel"]["roi_align_fwd"] != 1 \
+            or launches["plain"]["stem_pool"] or launches["plain"]["roi_align_fwd"]:
+        raise AssertionError(f"flop_count: launches {launches}")
+    rest = {impl: counts[impl] - k2[impl] for impl in counts}
+    with torch.inference_mode():
+        k2_wrapper = (flop_count(roi_align_cuda.roi_align_fwd, *pool_args["kernel"]),
+                      flop_count(roi_align_cuda.roi_align_fwd_plain, *pool_args["kernel"]))
+    del pool_args
+    if rest["kernel"] != rest["plain"] or k2_wrapper != (k2["kernel"], k2["kernel"]):
+        raise AssertionError(f"flop_count: kernel path {counts['kernel']}, plain path {counts['plain']}, "
+                             f"their RoIAlign shares {k2}; K2 and its plain version on the same inputs "
+                             f"{k2_wrapper}")
+    k1 = stem_cuda.stem_flops(1, H, W, 3)
+    log(f"flop_count R101-FPN, one {H}x{W} image: {counts['kernel'] / 1e9:.7g} GFLOP on the kernel path, "
+        f"{counts['plain'] / 1e9:.7g} on the plain path, equal but for RoIAlign's share on each path's own "
+        f"proposals ({k2['kernel']} / {k2['plain']}; K2 and its plain version count {k2_wrapper[0]} on the "
+        f"same inputs); K1 {k1 / 1e9:.4g} (x8 = {8 * k1 / 1e9:.4g}), K2 {k2['kernel'] / 1e9:.4g}")
+    del model
+    return dict(gflop_per_image=counts["kernel"] / 1e9, flops_kernel_path=counts["kernel"],
+                flops_plain_path=counts["plain"], flops_without_roi_align=rest["kernel"],
+                roi_align_flops=k2, k1_gflop=k1 / 1e9, k2_gflop=k2["kernel"] / 1e9,
+                launches=launches, image_hw=[H, W])
+
+
+def draw_check(root, weights, n_val):
+    """``python -m proben_tpu_torch.apps.flir draw`` on the synthetic val
+    tree (``faster_rcnn_R_101_FLIR`` as ``build_flir_cfg`` makes it, in
+    bf16 as the YAMLs run it (the command's own config is float32, as the
+    JAX demo's, and runs K1 0 times), the crop run's detectron2 weights,
+    score threshold 0.05 so boxes are drawn), ``DRAW_IMAGES`` images at
+    batch 1, launches counted from 0:
+    K1 and K2 once per image, ``image_io`` twice (the mapper's canvas and
+    the drawn frames); a thermal and an RGB overlay written for every
+    image, each a 640x512 colour image. Then K1 and K2 against their plain
+    versions on the first image's canvas as the command maps it and its
+    proposals, with the command's model (``split_kernel_checks``)."""
+    from proben_tpu_torch.apps import flir
+    from proben_tpu_torch.config import mapper_config_from_cfg
+    from proben_tpu_torch.data import DatasetCatalog, DatasetMapper, build_test_loader
+
+    out = os.path.join(root, "draw")
+    cfg = flir.build_flir_cfg("thermal_only")
+    cfg.MODEL.COMPUTE_DTYPE = "bfloat16"  # as configs/Base-RCNN-FPN.yaml (K1 is bf16 only)
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
+    t = time.time()
+    written, launches = counted(lambda: flir.draw_predictions(
+        "thermal_only", root, weights, out, max_images=DRAW_IMAGES, cfg=cfg))
+    wall = time.time() - t
+    n = min(DRAW_IMAGES, n_val)
+    expect = {"stem_pool": n, "roi_align_fwd": n, "roi_align_bwd": 0, "image_io": 2 * n}
+    expect_launches("apps/flir.py draw", launches, expect)
+    import importlib
+
+    cv2 = importlib.import_module("cv2")  # the card's machine has it (as the datasets phase needs it)
+
+    names = sorted(os.listdir(out))
+    if len(written) != 2 * n or sorted(os.path.basename(p) for p in written) != names:
+        raise AssertionError(f"draw: wrote {names}, expected a thermal and an RGB overlay for {n} images")
+    for p in written:
+        img = cv2.imread(p)
+        if img is None or img.shape != FLIR_T_HW + (3,):
+            raise AssertionError(f"draw: {p} is not a {FLIR_T_HW} colour image")
+    log(f"apps/flir.py draw: {len(written)} overlays for {n} images in {wall:.2f} s; launches {launches}")
+    pred = flir._predictor(cfg, weights, None, "cuda")
+    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False)
+    try:
+        first = next(iter(build_test_loader(DatasetCatalog.get("FLIR_draw")[:1], mapper, batch_size=1)))
+    finally:
+        mapper.close()
+    errs = split_kernel_checks("apps/flir.py draw", pred.model, pred.cfg, first)
+    del pred
+    return dict(images=n, files=len(written), launches=launches, wall_s=wall, max_abs_err=errs,
+                canvas=[int(v) for v in first["image"].shape])
+
+
+def surface_phase(card):
+    """Crop on the card (the train mapper for BGR and BGRTTT with
+    ``INPUT.CROP`` against its plain version and the CPU mapper, the
+    kernel with crops timed; ``crop_train_run``), ``paste_masks_in_image``
+    on the card, ``flop_count`` of R101-FPN through both paths, and the
+    ``draw`` command; on a synthetic FLIR tree of 32 train pairs, the first
+    8 also the val split."""
+    import tempfile
+
+    from proben_tpu_torch.apps import flir
+    from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
+    from proben_tpu_torch.config import get_cfg
+    from proben_tpu_torch.data import DatasetCatalog
+    from proben_tpu_torch.native import io
+
+    t0 = time.time()
+    stats = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="flir_surface_") as root, io.JpegCodec() as codec:
+        write_flir_train_tree(codec, root, n=32, n_val=8)
+        flir.register_flir("smoke_crop_train", root, TRAIN_JSON_NAME)
+        flir.register_flir("smoke_crop_val", root)
+        dicts, val = DatasetCatalog.get("smoke_crop_train"), DatasetCatalog.get("smoke_crop_val")
+        crop = {}
+        for fmt, yaml_name, seed in (("BGR", "faster_rcnn_R_101_FLIR.yaml", 42),
+                                     ("BGRTTT", "faster_rcnn_R_101_FLIR_middle_fusion.yaml", 43)):
+            cfg = get_cfg()
+            cfg.merge_from_file(os.path.join(HERE, "configs", "FLIR-Detection", yaml_name))
+            cfg.INPUT.CROP.ENABLED = True
+            cfg.INPUT.PAD_SHAPE = CROP_PAD
+            crop[fmt] = check_crop_mapper(codec, cfg, dicts[:TRAIN_BATCH], seed)
+        stats["crop_mapper"] = crop
+        stats["crop_train"], weights = crop_train_run(codec, root, dicts, val)
+        stats["paste_masks"] = paste_masks_check()
+        stats["flop_count"] = flops_check()
+        stats["draw"] = draw_check(root, weights, len(val))
+    stats["seconds"] = time.time() - t0
+    log(f"surface phase: {stats['seconds']:.1f} s")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3819,6 +4184,7 @@ def main() -> int:
     trainer_stats = trainer_phase(card)
     heads_k, heads_stats = heads_phase(card)
     datasets_stats = datasets_phase(card)
+    surface_stats = surface_phase(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
              "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
@@ -3836,7 +4202,11 @@ def main() -> int:
                 for name in DATASET_OPTS},
              "voc_2007_trainval_train (K1-K3 per step, image_io per training batch)": {
                  **datasets_stats["voc_2007_trainval_train"]["launches_per_step"],
-                 "image_io": datasets_stats["voc_2007_trainval_train"]["image_io"]["per_train_batch"]}}
+                 "image_io": datasets_stats["voc_2007_trainval_train"]["image_io"]["per_train_batch"]},
+             "flir_thermal_only_crop_train (K1-K3 per step, image_io per training batch)": {
+                 **surface_stats["crop_train"]["launches_per_step"],
+                 "image_io": surface_stats["crop_train"]["image_io"]["per_train_batch"]},
+             f"flir_draw ({surface_stats['draw']['images']} images)": surface_stats["draw"]["launches"]}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -3869,6 +4239,7 @@ def main() -> int:
     print(json.dumps({"trainer": {**trainer_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"heads": {**heads_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"datasets": {**datasets_stats, "total_seconds": time.time() - t0}}))
+    print(json.dumps({"surface": {**surface_stats, "total_seconds": time.time() - t0}}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
     k_io["launches_per_path"] = {p: n["image_io"] for p, n in paths.items() if "image_io" in n}
     k_io["train_flips"] = {fmt: {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "mbytes",
@@ -3876,9 +4247,13 @@ def main() -> int:
                            for fmt, row in trainer_stats["train_mapper"].items()}
     k_io["png_cityscapes"] = {k: datasets_stats["png"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
                                                                       "mbytes", "decode_host_ms", "sizes")}
+    k_io["train_crop"] = {fmt: {k: row[k] for k in ("ms", "uncropped_ms", "plain_ms", "bound_ms", "max_abs_err",
+                                                    "mbytes", "flipped", "pad_shape")}
+                          for fmt, row in surface_stats["crop_mapper"].items()}
     print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
                                                              "p14_c1024", "cascade_stage2",
-                                                             "c4", "c6", "train_flips", "png_cityscapes")
+                                                             "c4", "c6", "train_flips", "png_cityscapes",
+                                                             "train_crop")
                                    if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,12 +9,15 @@ late fusion of saved predictions.
 
     python -m proben_tpu_torch.apps.flir train  --dataset_path D --fusion_method M \\
         --outfolder O [--max_iter N] [--eval_every K]
+    python -m proben_tpu_torch.apps.flir draw   --dataset_path D --fusion_method M \\
+        [--model_path P] [--outfolder O] [--max_images N]
 
 (the arguments of ``demo/FLIR/demo_FLIR_save_predictions.py``,
-``demo_mAP_FLIR.py``, ``demo_probEn.py`` and ``demo_train_FLIR.py``;
+``demo_mAP_FLIR.py``, ``demo_probEn.py``, ``demo_train_FLIR.py`` and
+``demo_draw_FLIR.py``;
 ``--device cpu`` runs the plain versions on the CPU, and the images are then
 read with cv2). On the card, the images are decoded with nvJPEG and
-composed, resized (training: also flipped) and padded by the ``image_io``
+composed, resized (training: also cropped and flipped) and padded by the ``image_io``
 kernel, and the model runs the stem and RoIAlign kernels (training: the
 RoIAlign backward too).
 
@@ -33,14 +36,20 @@ import json
 import logging
 import os
 import time
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..checkpoint import import_detectron2_checkpoint, restore_pytree
 from ..config import CfgNode, get_cfg, mapper_config_from_cfg, model_config_from_cfg
-from ..data import DatasetCatalog, DatasetMapper, build_test_loader, register_coco_instances
+from ..data import (
+    DatasetCatalog,
+    DatasetMapper,
+    MetadataCatalog,
+    build_test_loader,
+    register_coco_instances,
+)
 from ..engine import DefaultTrainer, EvalHook, Predictor
 from ..evaluation import FLIREvaluator, inference_on_dataset
 from ..fusion import fuse_multi_model
@@ -265,6 +274,71 @@ def run_proben(
     )
 
 
+def draw_predictions(
+    method: str,
+    dataset_path: str,
+    model_path: str = "",
+    out_folder: str = "out_draw",
+    max_images: int = 20,
+    dataset_name: str = "FLIR_draw",
+    cfg: Optional[CfgNode] = None,
+    params=None,
+    device: Device = "cuda",
+) -> List[str]:
+    """``demo_draw_FLIR.py``: the first ``max_images`` val images, one per
+    batch, through the predictor; each image's detections drawn by
+    ``Visualizer`` over its thermal frame (``thermal_<file>``) and over its
+    RGB file resized to that frame (``rgb_<file>``, where the RGB file
+    exists) in ``out_folder``. The frames are read as the mapper reads them
+    (on the card: nvJPEG and one ``image_io`` launch per image, the
+    BGRTTT composition at scale 1; on the CPU: cv2, as the JAX demo reads
+    them). Returns the paths written."""
+    from ..data.detection_utils import derive_rgb_path, read_image
+    from ..utils.visualizer import Visualizer
+
+    cfg = cfg or build_flir_cfg(method)
+    register_flir(dataset_name, dataset_path)
+    dicts = DatasetCatalog.get(dataset_name)[:max_images]
+    meta = MetadataCatalog.get(dataset_name)
+    predictor = _predictor(cfg, model_path, params, device)
+    mapper = DatasetMapper(mapper_config_from_cfg(cfg), is_train=False, device=device)
+    os.makedirs(out_folder, exist_ok=True)
+    written = []
+    try:
+        for batch in build_test_loader(dicts, mapper, batch_size=1):
+            rec = predictor.predict_batch(batch)[0]
+            thermal_path = batch["file_name"][0]
+            try:
+                rgb_path = derive_rgb_path(thermal_path)
+            except ValueError:
+                rgb_path = None
+            fused = rgb_path is not None and os.path.exists(rgb_path)
+            frame = read_image(thermal_path, "BGRTTT" if fused else "BGR", device, rgb_path)
+            frame = (frame.cpu().numpy() if torch.is_tensor(frame) else frame).astype(np.uint8)
+            name = os.path.basename(thermal_path)
+            overlays = [("thermal_", frame[..., -3:])] + ([("rgb_", frame[..., :3])] if fused else [])
+            for prefix, image in overlays:
+                path = os.path.join(out_folder, prefix + name)
+                Visualizer(image, meta).draw_instance_predictions(rec).save(path)
+                written.append(path)
+    finally:
+        mapper.close()
+    logger.info("wrote %d visualizations to %s", len(written), out_folder)
+    return written
+
+
+def draw_parser() -> argparse.ArgumentParser:
+    """The arguments of ``demo/FLIR/demo_draw_FLIR.py``."""
+    parser = argparse.ArgumentParser(prog="python -m proben_tpu_torch.apps.flir draw")
+    parser.add_argument("--dataset_path", required=True)
+    parser.add_argument("--fusion_method", default="thermal_only",
+                        choices=["rgb_only", "thermal_only", "early_fusion", "middle_fusion"])
+    parser.add_argument("--model_path", default="")
+    parser.add_argument("--outfolder", default="out_draw")
+    parser.add_argument("--max_images", type=int, default=20)
+    return parser
+
+
 def train_parser() -> argparse.ArgumentParser:
     """The arguments of ``demo/FLIR/demo_train_FLIR.py``."""
     parser = argparse.ArgumentParser(prog="python -m proben_tpu_torch.apps.flir train")
@@ -326,8 +400,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         prog="python -m proben_tpu_torch.apps.flir",
         description="save: prediction JSON of one method; map: its FLIR mAP; "
                     "proben: ProbEn late fusion of saved JSONs and its mAP; "
-                    "train: keep-best-AP50 training of one method")
-    parser.add_argument("command", choices=("save", "map", "proben", "train"))
+                    "train: keep-best-AP50 training of one method; "
+                    "draw: detections drawn over the thermal and RGB images")
+    parser.add_argument("command", choices=("save", "map", "proben", "train", "draw"))
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     known, rest = parser.parse_known_args(argv)
     setup_logger()
@@ -337,6 +412,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                              args.max_iter, args.eval_every, device=known.device)
         print(results)
         return results
+    if known.command == "draw":
+        args = draw_parser().parse_args(rest)
+        written = draw_predictions(args.fusion_method, args.dataset_path, args.model_path,
+                                   args.outfolder, args.max_images, device=known.device)
+        print(f"wrote {len(written)} visualizations to {args.outfolder}")
+        return {"written": written}
     args = config_parser(rest)
     if known.command == "proben":
         results = run_proben(args.dataset_path, args.prediction_path, args.score_fusion,

@@ -7,8 +7,10 @@ A checkpoint is a directory holding one file, ``tree.pt``: a pytree (nested
 dicts, lists and tuples) of tensors and Python scalars, numpy leaves stored
 as tensors. ``restore_pytree`` gives back the leaves in the template's kinds
 (numpy, or tensors on the template's device), bit for bit. The JAX
-package's orbax directories hold no ``tree.pt``; reading them needs orbax,
-and ``restore_pytree`` says so.
+package's orbax directories hold no ``tree.pt``: ``tools/orbax_to_torch.py``
+(which needs orbax; this package never imports it) converts them, a
+``CheckpointManager`` root with its train states and ``last.json`` included,
+and ``restore_pytree`` names it.
 
 ``CheckpointManager`` keeps the JAX manager's layout under a root:
 ``iter_<N:07d>/`` (periodic, ``max_to_keep``), ``best/`` (best metric) and
@@ -84,8 +86,9 @@ def restore_pytree(path: str, template: Any = None) -> Any:
     if not os.path.exists(file):
         if os.path.isdir(path) and os.listdir(path):
             raise ValueError(
-                f"{path} holds no {TREE_FILE}: not a checkpoint of this package (a directory "
-                "written by proben_tpu's orbax checkpointer needs orbax to read)")
+                f"{path} holds no {TREE_FILE}: not a checkpoint of this package; convert a "
+                "directory written by proben_tpu's orbax checkpointer with "
+                "'python tools/orbax_to_torch.py SRC DST' where orbax is installed")
         raise FileNotFoundError(file)
     saved = torch.load(file, map_location="cpu", weights_only=True)
     return saved if template is None else _restored(saved, template, "")

@@ -19,13 +19,19 @@
 // training augmentation's horizontal flip of the resized image,
 // proben_tpu/data/transforms.py:207-209) at resized column nw - 1 - x, so the
 // flip costs no pass of its own -- it takes the four taps of
-// the half-pixel bilinear map into the thermal frame (th, tw)
-// (src = (dst + 0.5) * scale - 0.5, clamped to [0, size - 1], as
+// the half-pixel bilinear map into the image's crop window (the training
+// augmentation's random crop of the composed frame,
+// proben_tpu/data/transforms.py:65: rows y0 .. y0 + ch - 1 and columns
+// x0 .. x0 + cw - 1 of the thermal frame (th, tw); without a crop the whole
+// frame) (src = (dst + 0.5) * scale - 0.5, clamped to [0, size - 1], as
 // proben_io.cpp:96-154 and cv2.INTER_LINEAR), composes each tap's channels
 // (BGR: the thermal file's three channels; BGRT: the RGB file resized to the
 // thermal frame, then thermal channel 0; BGRTTT: that, then the three
-// thermal channels) and blends them; outside it writes zeros. The RGB image
-// resized to the thermal frame is recomputed per tap rather than staged: a
+// thermal channels) and blends them; outside it writes zeros. A tap's
+// window coordinates are offset by (y0, x0) into the frame, so the RGB taps
+// are read at the cropped composed coordinates through the same two-stage
+// sampling as without a crop, never at a crop of the raw RGB file. The RGB
+// image resized to the thermal frame is recomputed per tap rather than staged: a
 // uint8 bilinear resize with cv2.INTER_LINEAR's fixed-point arithmetic and
 // rounding, which is the value cv2.resize gives the JAX package
 // (detection_utils.py:46); proben_io.cpp:162-168 rounds a float resize
@@ -131,11 +137,15 @@ __device__ __forceinline__ float composed(const uint8_t* t, int tw, int tc, cons
 
 // One launch's images, passed by value (kernel parameters, not a table the
 // host copies to the device): thermal and RGB pointers; th, tw, tc, rh, rw,
-// rc, nh, nw, flip; sy, sx (thermal frame over output: float32(src) /
-// float32(dst)) and ry, rx (RGB over thermal frame, cv2's 1 / (dst / src)
-// in double). 40 images fill 3.4 KB of the 4 KB of parameters.
+// rc, nh, nw, flip, y0, x0, ch, cw (the crop window in the thermal frame);
+// sy, sx (crop window over output: float32(ch) / float32(nh), float32(cw) /
+// float32(nw)) and ry, rx (RGB over thermal frame, cv2's 1 / (dst / src) in
+// double). 40 images fill 4000 B; with the other four parameters 4020 B of
+// the classic 4 KB limit, which the launch keeps (kMaxBatch stays 40, so
+// launches per batch are unchanged; the static_assert fails the build if a
+// field is added without lowering it).
 constexpr int kMaxBatch = 40;
-constexpr int kInts = 9;
+constexpr int kInts = 13;
 
 struct Batch {
   const uint8_t* thermal[kMaxBatch];
@@ -143,6 +153,8 @@ struct Batch {
   int ints[kMaxBatch][kInts];
   double scale[kMaxBatch][4];
 };
+static_assert(sizeof(Batch) + sizeof(float*) + 3 * sizeof(int) <= 4096,
+              "image_io: the batch descriptor outgrows the 4 KB of kernel parameters");
 
 template <int C>
 __global__ void compose_resize_pad_kernel(const __grid_constant__ Batch b, float* __restrict__ out,
@@ -153,8 +165,9 @@ __global__ void compose_resize_pad_kernel(const __grid_constant__ Batch b, float
   const int y = idx / pw, x = idx - y * pw;
   float* o = out + (size_t(n) * ph * pw + idx) * C;
   const int* d = b.ints[n];
-  const int th = d[0], tw = d[1], tc = d[2], rh = d[3], rw = d[4], rc = d[5], nh = d[6], nw = d[7];
+  const int tw = d[1], tc = d[2], rh = d[3], rw = d[4], rc = d[5], nh = d[6], nw = d[7];
   const bool flip = d[8] != 0;
+  const int y0 = d[9], x0 = d[10], ch = d[11], cw = d[12];
   if (y >= nh || x >= nw) {
 #pragma unroll
     for (int k = 0; k < C; k++) o[k] = 0.0f;
@@ -163,13 +176,14 @@ __global__ void compose_resize_pad_kernel(const __grid_constant__ Batch b, float
   const uint8_t* t = b.thermal[n];
   const uint8_t* rgb = b.rgb[n];
   const double* s = b.scale[n];
-  const Taps ty = taps(y, float(s[0]), th), tx = taps(flip ? nw - 1 - x : x, float(s[1]), tw);
+  const Taps ty = taps(y, float(s[0]), ch), tx = taps(flip ? nw - 1 - x : x, float(s[1]), cw);
+  const int ya = y0 + ty.i0, yb = y0 + ty.i1, xa = x0 + tx.i0, xb = x0 + tx.i1;
 #pragma unroll
   for (int k = 0; k < C; k++) {
-    const float v00 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ty.i0, tx.i0, k);
-    const float v01 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ty.i0, tx.i1, k);
-    const float v10 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ty.i1, tx.i0, k);
-    const float v11 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ty.i1, tx.i1, k);
+    const float v00 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ya, xa, k);
+    const float v01 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, ya, xb, k);
+    const float v10 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, yb, xa, k);
+    const float v11 = composed(t, tw, tc, rgb, rh, rw, rc, s[2], s[3], fmt, yb, xb, k);
     const float a = lerp2(v00, v01, tx.w0, tx.w1);
     const float b2 = lerp2(v10, v11, tx.w0, tx.w1);
     o[k] = lerp2(a, b2, ty.w0, ty.w1);

@@ -6,11 +6,12 @@ Every mapped sample is padded to one static ``pad_shape`` and its GT to
 CPU the image is read, augmented (training) or resized (test) with cv2
 exactly as the JAX package does; on the card (``device="cuda"``, the
 default) it is decoded (a JPEG with nvJPEG, any other file with cv2 on the
-host, ``native/io.py::load_batch``) and composed, resized, flipped (training)
-and padded by the ``image_io`` kernel, one launch per ``map_batch`` call,
-and stays on the card. The training draws come from one
+host, ``native/io.py::load_batch``) and composed, cropped and flipped
+(training), resized and padded by the ``image_io`` kernel, one launch per
+``map_batch`` call, and stays on the card. The training draws come from one
 ``np.random.RandomState(seed)`` in the JAX package's order on both devices
-(``TrainAugment``). The GT arrays stay numpy.
+(``TrainAugment``: the crop's four, the size, the flip). The GT arrays stay
+numpy.
 """
 
 from __future__ import annotations
@@ -63,8 +64,9 @@ def _annotations(dataset_dict: Dict) -> Tuple[np.ndarray, np.ndarray]:
 class DatasetMapper:
     """Maps dataset dicts to samples on ``device``. On the card it holds one
     nvJPEG codec per thread that maps (a loader's workers each get their
-    own); ``close`` releases them. Training on the card takes no crop
-    (``INPUT.CROP``): the mapper raises, naming the ROADMAP item."""
+    own); ``close`` releases them. ``INPUT.CROP`` crops the composed frame
+    on both devices: ``random_crop`` on the CPU, the ``image_io`` kernel's
+    crop window on the card, from the same draws."""
 
     def __init__(self, cfg: MapperConfig, is_train: bool = True, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
@@ -83,10 +85,6 @@ class DatasetMapper:
             if cfg.input_format not in FORMATS:
                 raise ValueError(f"input_format {cfg.input_format!r} on the card: expected one "
                                  f"of {sorted(FORMATS)}")
-            if is_train and cfg.crop is not None:
-                raise NotImplementedError(
-                    "INPUT.CROP on the card: the image_io kernel has no crop (ROADMAP 12, "
-                    "'Crop on the card'); train with device='cpu' or INPUT.CROP.ENABLED False")
             self._codec()  # fails here, not in a loader's worker, without nvJPEG
 
     def _codec(self):
@@ -155,17 +153,24 @@ class DatasetMapper:
             draws = []
 
             def size(h, w):
-                draws.append(self.train_aug.draw(h, w) if self.is_train
-                             else self.test_resize.size(h, w) + (False,))
+                if self.is_train:
+                    crop = self.train_aug.crop_window(h, w)
+                    draws.append(self.train_aug.draw(*(crop[2:] if crop else (h, w))) + (crop,))
+                else:
+                    draws.append(self.test_resize.size(h, w) + (False, None))
                 return draws[-1]
 
             with torch.cuda.device(self.device):
                 canvas, _, origs = load_batch(self._codec(), paths, rgb, cfg.input_format, size,
                                               tuple(cfg.pad_shape))
             images = list(canvas)
-            for (boxes, _), orig, (new_h, new_w, flip) in zip(annotations, origs, draws):
+            for (boxes, _), orig, (new_h, new_w, flip, crop) in zip(annotations, origs, draws):
                 if self.is_train:
-                    boxes = resize_boxes(boxes, tuple(int(v) for v in orig), (new_h, new_w))
+                    frame = tuple(int(v) for v in orig)
+                    if crop is not None:  # shifted unclipped, as random_crop does
+                        y0, x0, frame = crop[0], crop[1], crop[2:]
+                        boxes = boxes - np.array([x0, y0, x0, y0], boxes.dtype)
+                    boxes = resize_boxes(boxes, frame, (new_h, new_w))
                     if flip:
                         boxes = hflip_boxes(boxes, new_w)
                 geoms.append((new_h, new_w, boxes, flip))

@@ -8,8 +8,9 @@ Numpy implementations of ``ResizeShortestEdge`` (:167) and ``RandomFlip``
 (:263). Geometric transforms return the transformed image plus boxes mapped
 to the new frame; color transforms touch only pixels. Images are resized
 with cv2 on the CPU, as the JAX package does; on the card the ``image_io``
-kernel resizes and flips (``native/io.py``), and ``TrainAugment.draw`` gives
-it the same random draws.
+kernel crops, resizes and flips (``native/io.py``), and
+``TrainAugment.crop_window`` and ``TrainAugment.draw`` give it the same
+random draws.
 """
 
 from __future__ import annotations
@@ -68,6 +69,18 @@ def hflip_boxes(boxes: np.ndarray, width: float) -> np.ndarray:
     return out
 
 
+def crop_window(
+    h: int, w: int, crop_size: Tuple[float, float], rng: np.random.RandomState
+) -> Tuple[int, int, int, int]:
+    """The relative-range crop window (y0, x0, ch, cw) of an (h, w) image:
+    ``random_crop``'s four draws from ``rng``, in its order."""
+    ch = int(h * (crop_size[0] + (1 - crop_size[0]) * rng.rand()) + 0.5)
+    cw = int(w * (crop_size[1] + (1 - crop_size[1]) * rng.rand()) + 0.5)
+    y0 = rng.randint(0, h - ch + 1)
+    x0 = rng.randint(0, w - cw + 1)
+    return y0, x0, ch, cw
+
+
 def random_crop(
     image: np.ndarray,
     boxes: np.ndarray,
@@ -76,11 +89,7 @@ def random_crop(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Relative-range random crop (reference RandomCrop "relative_range"):
     crop h, w sampled in [crop_size, 1] fractions of the image."""
-    h, w = image.shape[:2]
-    ch = int(h * (crop_size[0] + (1 - crop_size[0]) * rng.rand()) + 0.5)
-    cw = int(w * (crop_size[1] + (1 - crop_size[1]) * rng.rand()) + 0.5)
-    y0 = rng.randint(0, h - ch + 1)
-    x0 = rng.randint(0, w - cw + 1)
+    y0, x0, ch, cw = crop_window(*image.shape[:2], crop_size, rng)
     image = image[y0 : y0 + ch, x0 : x0 + cw]
     boxes = boxes - np.array([x0, y0, x0, y0], boxes.dtype)
     return np.ascontiguousarray(image), boxes
@@ -203,9 +212,15 @@ class TrainAugment:
         self.color = color
         self.rng = rng or np.random.RandomState()
 
+    def crop_window(self, h: int, w: int) -> Optional[Tuple[int, int, int, int]]:
+        """The crop window (y0, x0, ch, cw) of an (h, w) image, the first
+        draws of an image (``crop_window``); None without a crop. The card
+        path makes these draws, then ``draw`` on (ch, cw)."""
+        return None if self.crop is None else crop_window(h, w, self.crop, self.rng)
+
     def draw(self, h: int, w: int) -> Tuple[int, int, bool]:
-        """The resized (h, w) of an (h, w) image and whether it is flipped:
-        the draws after the crop's."""
+        """The resized (h, w) of an (h, w) image (the crop window, if
+        cropping) and whether it is flipped: the draws after the crop's."""
         short = self.short_sides[self.rng.randint(len(self.short_sides))]
         nh, nw = resize_shortest_edge_size(h, w, short, self.max_size)
         return nh, nw, bool(self.flip and self.rng.rand() < 0.5)

@@ -9,7 +9,9 @@ Each TREE is the root of a checkout (``.`` for this one).
 ``image_io`` times the compose + resize + pad kernel at the FLIR evaluation
 shapes: 8 single-channel 512x640 thermal frames resized to 800x1000 in an
 800x1024 canvas (BGR), and the same with 8 1600x1800 RGB frames beside them
-(BGRTTT). ``roi_align`` times K2 (RoIAlign forward) and K3 (its backward) at
+(BGRTTT); and at the FLIR training shapes (no crop): 16 frames at the six
+training sizes 640x800 .. 800x1000, every other one flipped, in the same
+canvas (BGR train, BGRTTT train). ``roi_align`` times K2 (RoIAlign forward) and K3 (its backward) at
 the FPN pooler's main-path shapes: four bf16 levels of an 800x1024 batch of
 8 at C = 256, 8 x 1000 proposals for K2 and 8 x 512 RoIs for K3 (P = 7),
 and, where the tree's kernels take P = 14, at the C4 pooler's (one 50 x 64
@@ -73,6 +75,11 @@ sizes, pad = [(800, 1000)] * 8, (800, 1024)
 out = {}
 for fmt, r in (("BGR", None), ("BGRTTT", rgb)):
     out[fmt] = [ms(lambda: io.compose_resize_pad(th, r, fmt, sizes, pad)) for _ in range(3)]
+train_sizes = [(640 + 32 * (i % 6), 800 + 40 * (i % 6)) for i in range(16)]
+flips = [i % 2 == 0 for i in range(16)]
+for fmt, r in (("BGR", None), ("BGRTTT", rgb * 2)):
+    out[f"{fmt} train"] = [ms(lambda: io.compose_resize_pad(th * 2, r, fmt, train_sizes, pad, flips))
+                           for _ in range(3)]
 print(json.dumps(out))
 """
 

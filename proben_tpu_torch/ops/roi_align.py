@@ -22,6 +22,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..structures.boxes import clip
+from ..utils.analysis import reported_work
 from .topk import topk_stable
 
 Tensor = torch.Tensor
@@ -181,6 +182,21 @@ def pool_from_windows(windows: Tensor, wy: Tensor, wx: Tensor, out_dtype) -> Ten
     return out.to(out_dtype)
 
 
+def roi_align_flops(wy: Tensor, wx: Tensor, c: int) -> int:
+    """RoIAlign's own work, which K2, K3 and their plain versions report to
+    ``utils.analysis.flop_count`` (not the plain versions' dense
+    contractions over each RoI's whole window): each output bin (r, p, q)
+    is a weighted sum of the level pixels its bilinear samples touch, the
+    nonzero entries of wy[r, p] times those of wx[r, q] (the composite
+    weights merge the samples' taps), so a multiply and an add per touched
+    pixel and channel: 2 * C * sum_r nnz(wy[r]) * nnz(wx[r]). The VJP does
+    the same multiply-adds. It reads the weights (a sync on the card), so
+    it is passed to ``reported_work`` as a function."""
+    ny = (wy != 0).sum(dim=(1, 2)).to(torch.int64)
+    nx = (wx != 0).sum(dim=(1, 2)).to(torch.int64)
+    return 2 * int(c) * int((ny * nx).sum())
+
+
 def roi_align_bwd_plain(
     g: Tensor,  # (R, P, P, C) cotangent of the windowed pooling, features' dtype
     shapes: Sequence[Tuple[int, int, int, int]],  # per level (B, H_l, W_l, C)
@@ -202,7 +218,7 @@ def roi_align_bwd_plain(
     rounded to g's dtype, the scatter accumulated in f32 into zero-padded
     level maps (``index_add_``, no autograd through a gather), then cut to
     each level's true size and rounded. Returns per level (B, H_l, W_l, C)
-    in g's dtype."""
+    in g's dtype. Reports ``roi_align_flops`` to ``utils.analysis.flop_count``."""
     dt = g.dtype
     dev = g.device
     b, c = shapes[0][0], shapes[0][3]
@@ -217,12 +233,13 @@ def roi_align_bwd_plain(
     rows = torch.arange(WIN_Y, device=dev)[None, :] * pad_w[li][:, None]
     cols = torch.arange(WIN_X, device=dev)
     flat = torch.zeros((b * sum(ph * pw for ph, pw in pads), c), dtype=torch.float32, device=dev)
-    for s in range(0, r, chunk):
-        e = min(s + chunk, r)
-        u = torch.einsum("npy,npqc->nyqc", wy[s:e].to(dt).float(), g[s:e].float()).to(dt)
-        contrib = torch.einsum("nqx,nyqc->nyxc", wx[s:e].to(dt).float(), u.float())
-        idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols  # (n, WIN_Y, WIN_X)
-        flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
+    with reported_work(lambda: roi_align_flops(wy, wx, c)):
+        for s in range(0, r, chunk):
+            e = min(s + chunk, r)
+            u = torch.einsum("npy,npqc->nyqc", wy[s:e].to(dt).float(), g[s:e].float()).to(dt)
+            contrib = torch.einsum("nqx,nyqc->nyxc", wx[s:e].to(dt).float(), u.float())
+            idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols  # (n, WIN_Y, WIN_X)
+            flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
     out, off = [], 0
     for (_, h, w, _), (ph, pw) in zip(shapes, pads):
         level = flat[off:off + b * ph * pw].reshape(b, ph, pw, c)

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
+from ..utils.analysis import reported_work
 from .roi_align import (
     WIN_X,
     WIN_Y,
@@ -28,6 +29,7 @@ from .roi_align import (
     padded_size,
     pool_from_windows,
     roi_align_bwd_plain,
+    roi_align_flops,
     roi_level_assignment,
 )
 
@@ -72,7 +74,8 @@ def roi_align_fwd_plain(
 ) -> Tensor:
     """Plain version of K2: gather each RoI's (WIN_Y, WIN_X, C) window from
     the zero-padded level and pool it with ``pool_from_windows``, ``chunk``
-    RoIs at a time to bound the window memory. Returns (R, P, P, C)."""
+    RoIs at a time to bound the window memory. Returns (R, P, P, C).
+    Reports ``roi_align_flops`` to ``utils.analysis.flop_count``."""
     feats = [pad_level(f) for f in features]
     b, c = feats[0].shape[0], feats[0].shape[-1]
     dev = feats[0].device
@@ -87,10 +90,11 @@ def roi_align_fwd_plain(
     rows = torch.arange(WIN_Y, device=dev)[None, :] * pad_w[li][:, None]
     cols = torch.arange(WIN_X, device=dev)
     out = torch.empty((r, p, p, c), dtype=feats[0].dtype, device=dev)
-    for s in range(0, r, chunk):
-        e = min(s + chunk, r)
-        idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols
-        out[s:e] = pool_from_windows(flat[idx], wy[s:e], wx[s:e], out.dtype)
+    with reported_work(lambda: roi_align_flops(wy, wx, c)):
+        for s in range(0, r, chunk):
+            e = min(s + chunk, r)
+            idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols
+            out[s:e] = pool_from_windows(flat[idx], wy[s:e], wx[s:e], out.dtype)
     return out
 
 
@@ -105,7 +109,8 @@ def roi_align_fwd(
 ) -> Tensor:
     """Windowed pooling of every RoI; (R, P, P, C) in the features' dtype.
     Launches K2 for CUDA tensors, runs the plain version for CPU tensors,
-    raises on anything else."""
+    raises on anything else. Both branches report ``roi_align_flops`` to
+    ``flop_count`` (the plain version reports it itself)."""
     f0 = features[0]
     if f0.device.type == "cpu":
         return roi_align_fwd_plain(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
@@ -131,7 +136,7 @@ def roi_align_fwd(
     levels: List[Tensor] = list(features) + [f0] * (4 - len(features))
     lib = _build.load("roi_align_fwd", _SIG)
     fn = lib.roi_align_fwd_bf16 if f0.dtype == torch.bfloat16 else lib.roi_align_fwd_f32
-    with torch.cuda.device(f0.device):
+    with torch.cuda.device(f0.device), reported_work(lambda: roi_align_flops(wy, wx, c)):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             *[f.data_ptr() for f in levels],
@@ -171,7 +176,8 @@ def roi_align_bwd(
     """The VJP of ``roi_align_fwd`` with respect to the features: one
     (B, H_l, W_l, C) tensor per level in g's dtype. Launches K3 for CUDA
     tensors, runs ``roi_align_bwd_plain`` for CPU tensors, raises on
-    anything else."""
+    anything else. Both branches report ``roi_align_flops`` to
+    ``flop_count`` (the plain version reports it itself)."""
     if g.device.type == "cpu":
         return roi_align_bwd_plain(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image)
     if g.device.type != "cuda":
@@ -198,7 +204,7 @@ def roi_align_bwd(
     ws = [s[2] for s in shapes] + [shapes[0][2]] * pad
     lib = _build.load("roi_align_bwd", _BWD_SIG)
     fn = lib.roi_align_bwd_bf16 if g.dtype == torch.bfloat16 else lib.roi_align_bwd_f32
-    with torch.cuda.device(g.device):
+    with torch.cuda.device(g.device), reported_work(lambda: roi_align_flops(wy, wx, c)):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             g.data_ptr(), lvl_idx.data_ptr(), y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),

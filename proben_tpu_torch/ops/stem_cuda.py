@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils.analysis import reported_work
 
 # launches of the CUDA kernel (never of the plain version)
 launches = 0
@@ -83,6 +84,14 @@ def stem_conv_s2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv2d(xs, wp).permute(0, 2, 3, 1)
 
 
+def stem_flops(n: int, h: int, w: int, c: int) -> int:
+    """The stem's work by ``utils.analysis.flop_count``'s rule: its 7x7/s2
+    conv's products, 2 * N * Hs * Ws * 64 * 49 * C (what the mode counts for
+    ``stem_pool_plain``'s conv; the affine, ReLU and pool count nothing)."""
+    hs, ws = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    return 2 * n * hs * ws * 64 * 49 * c
+
+
 def stem_pool_plain(
     x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
@@ -105,9 +114,11 @@ def stem_pool(
     bias: torch.Tensor,  # (64,) bf16 (with any conv bias folded in)
 ) -> torch.Tensor:
     """Fused stem; (N, Hp, Wp, 64) bf16 NHWC. Launches K1 for CUDA tensors,
-    runs the plain version for CPU tensors, raises on anything else."""
+    runs the plain version for CPU tensors, raises on anything else. Both
+    branches report ``stem_flops`` to ``flop_count``."""
     if x.device.type == "cpu":
-        return stem_pool_plain(x, w, scale, bias)
+        with reported_work(stem_flops(*x.shape)):
+            return stem_pool_plain(x, w, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"stem_pool: unsupported device {x.device}")
     n, h, wd, c = x.shape
@@ -127,10 +138,11 @@ def stem_pool(
     with torch.cuda.device(x.device):
         wpk = pack_stem_weights(w)
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.stem_pool_bf16(
-            x.data_ptr(), wpk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, h, wd, c, hs, ws, hp, wp, stream,
-        )
+        with reported_work(stem_flops(n, h, wd, c)):
+            code = lib.stem_pool_bf16(
+                x.data_ptr(), wpk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), n, h, wd, c, hs, ws, hp, wp, stream,
+            )
     _build.check(code, "stem_pool")
     global launches
     launches += 1

@@ -90,3 +90,16 @@ def pairwise_iou(boxes1: Tensor, boxes2: Tensor) -> Tensor:
     inter = pairwise_intersection(boxes1, boxes2)
     union = area1[..., :, None] + area2[..., None, :] - inter
     return torch.where(inter > 0, inter / torch.where(union > 0, union, 1.0), 0.0)
+
+
+def pairwise_ioa(boxes1: Tensor, boxes2: Tensor) -> Tensor:
+    """(..., N, 4) x (..., M, 4) -> (..., N, M) intersection over the area
+    of ``boxes2``; 0 for a pair that does not intersect."""
+    area2 = box_area(boxes2)
+    inter = pairwise_intersection(boxes1, boxes2)
+    return torch.where(inter > 0, inter / torch.where(area2 > 0, area2, 1.0)[..., None, :], 0.0)
+
+
+def box_centers(boxes: Tensor) -> Tensor:
+    """Centres (cx, cy) of XYXY boxes: (..., 4) -> (..., 2)."""
+    return torch.stack([(boxes[..., 0] + boxes[..., 2]) * 0.5, (boxes[..., 1] + boxes[..., 3]) * 0.5], -1)

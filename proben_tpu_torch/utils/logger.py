@@ -1,6 +1,6 @@
 """Logger setup (counterpart of ``proben_tpu/utils/logger.py::setup_logger``,
 after the reference ``detectron2/utils/logger.py:34``): colored console
-formatter and optional per-process file logs."""
+formatter, optional per-process file logs, log_first_n / log_every_n_seconds."""
 
 from __future__ import annotations
 
@@ -8,6 +8,11 @@ import functools
 import logging
 import os
 import sys
+import time
+from collections import Counter
+
+_LOG_COUNTER = Counter()
+_LOG_TIMER = {}
 
 
 class _ColorFormatter(logging.Formatter):
@@ -43,3 +48,19 @@ def setup_logger(
         fh.setFormatter(logging.Formatter("[%(asctime)s] %(name)s %(levelname)s: %(message)s"))
         logger.addHandler(fh)
     return logger
+
+
+def log_first_n(level, msg, n=1, *, name="proben_tpu_torch"):
+    """Log ``msg`` the first ``n`` times it is passed in this process."""
+    _LOG_COUNTER[msg] += 1
+    if _LOG_COUNTER[msg] <= n:
+        logging.getLogger(name).log(level, msg)
+
+
+def log_every_n_seconds(level, msg, n=1, *, name="proben_tpu_torch"):
+    """Log ``msg`` at most once every ``n`` seconds."""
+    now = time.time()
+    last = _LOG_TIMER.get(msg)
+    if last is None or now - last >= n:
+        logging.getLogger(name).log(level, msg)
+        _LOG_TIMER[msg] = now

@@ -216,8 +216,9 @@ def test_mapper_device_rules(monkeypatch):
     _, tcfg = _mapper_cfgs("BGR")
     assert DatasetMapper(tcfg, device="cpu").is_train  # the training branch, on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="Crop on the card"):  # before any codec opens
-        DatasetMapper(MapperConfig(**{**tcfg.__dict__, "crop": (0.9, 0.9)}))
+    opened = []  # the card crops: a mapper with INPUT.CROP opens its codec
+    monkeypatch.setattr(DatasetMapper, "_codec", lambda self: opened.append(self))
+    assert opened == [DatasetMapper(MapperConfig(**{**tcfg.__dict__, "crop": (0.9, 0.9)}))]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         DatasetMapper(tcfg, is_train=False)

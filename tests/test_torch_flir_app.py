@@ -218,3 +218,61 @@ def test_command_line_proben_and_load_params(flir_root, saved, capsys, monkeypat
     with pytest.raises(RuntimeError, match="cuda"):
         flir.save_predictions("thermal_only", flir_root, "", out["torch"], cfg=cfg,
                               params=_params("thermal_only"))
+
+
+def test_draw_writes_both_overlays_as_jax_draws_them(flir_root, tmp_path, monkeypatch):
+    """``draw_predictions`` (``apps/flir.py draw``, the counterpart of
+    ``demo/FLIR/demo_draw_FLIR.py``) on the CPU, tiny R50, one image per
+    batch: for every image its thermal overlay, and its RGB overlay where
+    the RGB file exists, each equal to JAX's ``Visualizer`` drawing the
+    same detections on the frames the JAX demo reads (cv2's read, the RGB
+    resized to the thermal frame by cv2) and saved alike: the same file
+    bytes. The command line
+    reaches it with the demo's arguments."""
+    import shutil
+
+    from proben_tpu.utils.visualizer import Visualizer as JaxVisualizer
+    from proben_tpu_torch.config import mapper_config_from_cfg, model_config_from_cfg
+    from proben_tpu_torch.data import DatasetCatalog, DatasetMapper, MetadataCatalog, build_test_loader
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.models import build_model
+
+    root = tmp_path / "tree"
+    shutil.copytree(flir_root, root)
+    os.remove(root / "RGB" / "FLIR_00001.jpg")  # that image gets its thermal overlay only
+    cfg = _tiny_cfg(flir, "thermal_only")
+    params = _params("thermal_only")
+    out = tmp_path / "draw"
+    written = flir.draw_predictions("thermal_only", str(root), "", str(out), max_images=3, cfg=cfg,
+                                    params=params, device="cpu")
+    names = ["FLIR_00000.jpeg", "FLIR_00001.jpeg", "FLIR_00002.jpeg"]
+    assert written == [str(out / f"{p}{n}") for n in names for p in ("thermal_", "rgb_")
+                       if not (p == "rgb_" and n == "FLIR_00001.jpeg")]
+    mcfg = model_config_from_cfg(cfg)
+    predictor = Predictor(build_model(mcfg, params=params, device="cpu"), mcfg, "cpu")
+    meta = MetadataCatalog.get("FLIR_draw")
+    loader = build_test_loader(DatasetCatalog.get("FLIR_draw"),
+                               DatasetMapper(mapper_config_from_cfg(cfg), is_train=False, device="cpu"),
+                               batch_size=1)
+    drawn = 0
+    for batch in loader:
+        rec = predictor.predict_batch(batch)[0]
+        drawn += len(rec["boxes"])
+        thermal_path = batch["file_name"][0]
+        thermal = cv2.imread(thermal_path)
+        frames = [("thermal_", thermal)]
+        rgb = cv2.imread(thermal_path.replace("thermal_8_bit", "RGB").replace(".jpeg", ".jpg"))
+        if rgb is not None:
+            frames.append(("rgb_", cv2.resize(rgb, (thermal.shape[1], thermal.shape[0]))))
+        for prefix, image in frames:
+            name = prefix + os.path.basename(thermal_path)
+            JaxVisualizer(image, meta).draw_instance_predictions(rec).save(str(tmp_path / name))
+            assert (out / name).read_bytes() == (tmp_path / name).read_bytes(), name
+    assert drawn > 0
+
+    seen = []
+    monkeypatch.setattr(flir, "draw_predictions", lambda *a, **kw: seen.append((a, kw)) or ["x"])
+    res = flir.main(["draw", "--dataset_path", str(root), "--fusion_method", "middle_fusion",
+                     "--outfolder", str(out), "--max_images", "2", "--device", "cpu"])
+    assert res == {"written": ["x"]}
+    assert seen == [(("middle_fusion", str(root), "", str(out), 2), {"device": "cpu"})]

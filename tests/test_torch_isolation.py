@@ -77,6 +77,16 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.utils.events
         import proben_tpu_torch.utils.logger
         import proben_tpu_torch.utils.opt
+        import proben_tpu_torch.structures.keypoints
+        import proben_tpu_torch.structures.masks
+        import proben_tpu_torch.structures.rotated_boxes
+        import proben_tpu_torch.utils
+        import proben_tpu_torch.utils.analysis
+        import proben_tpu_torch.utils.env
+        import proben_tpu_torch.utils.memory
+        import proben_tpu_torch.utils.serialize
+        import proben_tpu_torch.utils.video_visualizer
+        import proben_tpu_torch.utils.visualizer
         import chip_smoke
         print(sorted(set(foreign()) - before))
         """
@@ -113,8 +123,16 @@ def test_imports_load_no_cv2_yaml_or_pil():
         import proben_tpu_torch.native
         import proben_tpu_torch.ops.roi_align_cuda
         import proben_tpu_torch.ops.stem_cuda
+        import proben_tpu_torch.structures.keypoints
+        import proben_tpu_torch.structures.masks
+        import proben_tpu_torch.structures.rotated_boxes
+        import proben_tpu_torch.utils
+        import proben_tpu_torch.utils.memory
+        import proben_tpu_torch.utils.serialize
+        import proben_tpu_torch.utils.video_visualizer
         import chip_smoke
-        print(sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "yaml", "PIL")))
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("cv2", "yaml", "PIL", "orbax", "tensorstore")))
         """
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -128,7 +146,9 @@ def test_imports_load_no_cv2_yaml_or_pil():
 # package does, and inside the host decode of a file that is not a JPEG
 # (``native/io.py::decode_host``, the CPU path's ``cv2.imread``); Pillow only
 # where the JAX package draws polygons and writes Cityscapes' mask PNGs with
-# it; matplotlib only where the PR-curve plot is asked for
+# it; matplotlib only where the PR-curve plot is asked for; cv2 where the JAX
+# package rasterizes polygons and draws (``PolygonMasks.rasterize``, the
+# visualizers)
 ALLOWED_IMPORTS = {
     ("proben_tpu_torch/data/detection_utils.py", "cv2"),
     ("proben_tpu_torch/data/transforms.py", "cv2"),
@@ -136,6 +156,8 @@ ALLOWED_IMPORTS = {
     ("proben_tpu_torch/evaluation/cityscapes.py", "PIL"),
     ("proben_tpu_torch/evaluation/flir.py", "matplotlib"),
     ("proben_tpu_torch/native/io.py", "cv2"),
+    ("proben_tpu_torch/structures/masks.py", "cv2"),
+    ("proben_tpu_torch/utils/visualizer.py", "cv2"),
 }
 
 
@@ -215,6 +237,46 @@ def test_training_modules_import_cv2_only_in_the_cpu_resize():
                 "engine/hooks.py", "utils/events.py", "models/batch_norm.py", "apps/flir.py",
                 "apps/kaist.py", "apps/train_net.py"):
         assert cv2_owners(f"proben_tpu_torch/{rel}") == [], rel
+
+
+def _import_owners(rel, module):
+    """The functions of ``rel`` that import ``module``; none at module level."""
+    tree = ast.parse((ROOT / rel).read_text())
+
+    def imports(node):
+        return (isinstance(node, ast.Import) and any(a.name.split(".")[0] == module for a in node.names)) \
+            or (isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == module)
+
+    assert not [node for node in tree.body if imports(node)], rel
+    return sorted({fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+                   for node in ast.walk(fn) if imports(node)})
+
+
+def test_structures_and_utils_import_cv2_only_where_they_draw():
+    """cv2 only inside ``PolygonMasks.rasterize`` and the visualizer's
+    ``__init__`` (as in the JAX package); the rest of ``structures``,
+    ``utils`` and the draw command (``apps/flir.py``) import none."""
+    assert _import_owners("proben_tpu_torch/structures/masks.py", "cv2") == ["rasterize"]
+    assert _import_owners("proben_tpu_torch/utils/visualizer.py", "cv2") == ["__init__"]
+    for rel in ("structures/boxes.py", "structures/keypoints.py", "structures/rotated_boxes.py",
+                "utils/analysis.py", "utils/env.py", "utils/memory.py", "utils/serialize.py",
+                "utils/video_visualizer.py", "apps/flir.py"):
+        assert _import_owners(f"proben_tpu_torch/{rel}", "cv2") == [], rel
+
+
+def test_no_orbax_in_the_package_and_no_jax_package_in_the_converter():
+    """The card's machine has no orbax or tensorstore: no module of the
+    package imports them (the converter does, outside it). The converter
+    imports nothing of ``proben_tpu``: it reads orbax directories itself and
+    maps them with the port's own code."""
+    pattern = re.compile(r"^\s*(?:import|from)\s+(orbax|tensorstore)\b", re.M)
+    for path in sorted(ROOT.glob("proben_tpu_torch/**/*.py")) + [ROOT / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
+    tree = ast.parse((ROOT / "tools" / "orbax_to_torch.py").read_text())
+    modules = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    modules |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert "orbax.checkpoint" in modules and "proben_tpu_torch.checkpoint" in modules
+    assert not [m for m in modules if m.split(".")[0] in ("proben_tpu", "jax", "jaxlib")], modules
 
 
 def test_trainer_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -524,6 +524,41 @@ def test_image_io_kernel_flips_match_plain(fmt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["BGR", "BGRT", "BGRTTT"])
+def test_image_io_kernel_crops_match_plain(fmt):
+    """The training crop inside the compose launch: windows at the frame's
+    origin, inside it and at its far corner, the whole frame and none, with
+    and without flips, downscaled and upscaled, an RGB file larger and one
+    smaller than its thermal frame (the RGB taps read at the cropped
+    composed coordinates), equal to the plain version (the composed frame
+    cut to the window, then resized) bit for bit, padding zero; a window of
+    the whole frame equals no window."""
+    _cuda()
+    from proben_tpu_torch.native import io
+
+    rng = np.random.RandomState(6)
+    thermal = [_u8(rng, 48, 64, 1), _u8(rng, 50, 40, 3), _u8(rng, 33, 47, 1), _u8(rng, 40, 30, 3),
+               _u8(rng, 36, 52, 1)]
+    rgb = [_u8(rng, 160, 180, 3), _u8(rng, 20, 24, 3), _u8(rng, 33, 47, 1), _u8(rng, 64, 48, 3),
+           _u8(rng, 90, 130, 3)]
+    crops = [(0, 0, 30, 41), (7, 5, 31, 29), (9, 13, 24, 34), None, (0, 0, 36, 52)]
+    sizes = [(60, 82), (62, 58), (20, 28), (64, 48), (72, 104)]
+    flips = [False, True, True, False, True]
+    t = [torch.from_numpy(a).cuda() for a in thermal]
+    r = None if fmt == "BGR" else [torch.from_numpy(a).cuda() for a in rgb]
+    before = io.launches
+    got = io.compose_resize_pad(t, r, fmt, sizes, (96, 112), flips, crops)
+    ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (96, 112), flips, crops)
+    uncropped = io.compose_resize_pad(t, r, fmt, sizes, (96, 112), flips)
+    torch.cuda.synchronize()
+    assert io.launches == before + 2
+    assert torch.equal(got, ref)
+    for i, (h, w) in enumerate(sizes):
+        assert not got[i, h:].any() and not got[i, :, w:].any()
+    assert torch.equal(got[3:], uncropped[3:]) and not torch.equal(got[1], uncropped[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["BGRT", "BGRTTT"])
 def test_image_io_kernel_at_equal_frame_sizes(fmt):
     """KAIST: the RGB and thermal frames have one size (3-channel both), so

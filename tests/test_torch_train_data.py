@@ -14,6 +14,7 @@ through numpy broadcasting that the packages need not order alike.
 flipped, exactly (the flip only moves values).
 """
 
+import contextlib
 import json
 
 import cv2
@@ -294,12 +295,92 @@ def test_train_loader_raises_a_workers_error(tree):
 
 
 def test_train_mapper_crop_on_the_card_raises(monkeypatch):
-    """The card path has no crop: the mapper raises, naming the ROADMAP
-    item, before it opens a codec; without a card, ``cuda`` raises."""
+    """The card path crops (``image_io``'s crop window): with a card the
+    training mapper with ``INPUT.CROP`` is built and opens its codec;
+    without a card, ``cuda`` raises."""
     _, tcfg = _cfgs("BGR", crop=(0.7, 0.8))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DatasetMapper(tcfg, is_train=True)
+    opened = []
+    monkeypatch.setattr(DatasetMapper, "_codec", lambda self: opened.append(self))
+    mapper = DatasetMapper(tcfg, is_train=True)
+    assert opened == [mapper] and mapper.device.type == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         DatasetMapper(tcfg, is_train=True)
+
+
+class _HostCodec:
+    """Stands in for nvJPEG on the CPU: cv2's decode of a file's bytes into
+    a CPU tensor, so ``load_batch`` hands ``image_io`` CPU tensors and its
+    plain version makes the canvas."""
+
+    def decode(self, data):
+        return torch.from_numpy(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_card_mapper_crops_as_jax(tree, fmt, monkeypatch):
+    """The card branch of the training mapper with ``INPUT.CROP``, with the
+    codec replaced by ``_HostCodec`` (the branch's host logic, ``load_batch``
+    and ``image_io``'s plain version run; the kernel itself is held to that
+    plain version in tests/test_torch_kernels.py): the draws come in JAX's
+    order (the crop's four, the size, the flip), so sizes, flips and the
+    boxes (shifted by the crop's origin unclipped, resized, flipped, then
+    clipped) equal JAX's mapper's bit for bit; the canvas equals
+    ``compose_resize_pad_plain`` of the replayed windows bit for bit, and
+    JAX's cv2 float resize of the cropped frame within 1e-3 (as
+    tests/test_torch_data.py holds the uncropped one). Some windows start
+    off the frame's origin, and the boxes differ from the uncropped run's
+    draws, so the crop's draws show in them."""
+    from proben_tpu_torch.native import io
+
+    crop = (0.6, 0.7)
+    jcfg, tcfg = _cfgs(fmt, crop)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(io, "JpegCodec", _HostCodec)
+    dicts = _dicts(tree) * 2
+    tm = DatasetMapper(tcfg, is_train=True, seed=3)
+    jm = JaxDatasetMapper(jcfg, is_train=True, seed=3)
+    uncropped = DatasetMapper(_cfgs(fmt)[1], is_train=True, seed=3, device="cpu")
+    got = tm.map_batch(dicts)
+    replay = tt.TrainAugment(SHORT, 224, True, np.random.RandomState(3), crop=crop)
+    windows, flips, sizes = [], [], []
+    for d in dicts:
+        windows.append(replay.crop_window(d["height"], d["width"]))
+        nh, nw, flip = replay.draw(*windows[-1][2:])
+        sizes.append((nh, nw))
+        flips.append(flip)
+    thermal = [torch.from_numpy(cv2.imread(d["file_name"])) for d in dicts]
+    rgb = None if fmt == "BGR" else [
+        torch.from_numpy(cv2.imread(derive_rgb_path(d["file_name"]))) for d in dicts]
+    plain = compose_resize_pad_plain(thermal, rgb, fmt, sizes, PAD, flips, windows).numpy()
+    moved = 0
+    for i, (g, d) in enumerate(zip(got, dicts)):
+        want = jm(d)
+        nh, nw = sizes[i]
+        assert g["image"].device.type == "cpu"
+        assert [int(v) for v in g["image_size"]] == [nh, nw] and g["flip"] == flips[i]
+        for k in ("image_size", "gt_boxes", "gt_classes", "gt_valid", "orig_size"):
+            assert np.array_equal(g[k], np.asarray(want[k])) and g[k].dtype == want[k].dtype, (i, k)
+        assert np.array_equal(g["image"].numpy(), plain[i]), i
+        np.testing.assert_allclose(plain[i, :nh, :nw], want["image"][:nh, :nw], rtol=0, atol=1e-3)
+        moved += not np.array_equal(g["gt_boxes"], uncropped(d)["gt_boxes"])
+    assert any(w[0] > 0 for w in windows) and any(w[1] > 0 for w in windows)
+    assert any(w[2:] != (d["height"], d["width"]) for w, d in zip(windows, dicts))
+    assert moved and set(flips) == {True, False}
+
+
+def test_compose_crop_checks_the_window():
+    """A crop window must lie inside its frame, one per image."""
+    t = [torch.zeros((20, 30, 1), dtype=torch.uint8)]
+    for bad in [(-1, 0, 10, 10), (0, 0, 21, 10), (5, 25, 10, 6), (0, 0, 0, 5)]:
+        with pytest.raises(ValueError, match="outside the frame"):
+            compose_resize_pad(t, None, "BGR", [(10, 10)], (16, 16), None, [bad])
+    with pytest.raises(ValueError, match="one crop"):
+        compose_resize_pad(t, None, "BGR", [(10, 10)], (16, 16), None, [None, None])
+    whole = compose_resize_pad(t, None, "BGR", [(10, 10)], (16, 16), None, [(0, 0, 20, 30)])
+    assert torch.equal(whole, compose_resize_pad(t, None, "BGR", [(10, 10)], (16, 16)))

@@ -225,6 +225,128 @@ def test_checkpoint_and_resume(runs):
     assert moved and all(p.requires_grad for n, p in t.model.named_parameters() if n in moved)
 
 
+@pytest.fixture(scope="module")
+def converted(runs, tree):
+    """JAX's checkpoint root after its run (its own ``iter_0000001`` and
+    ``iter_0000002`` train states, and a ``best/`` that JAX's
+    ``CheckpointManager.save_best`` writes here) through
+    ``tools/orbax_to_torch.py`` with seed 7."""
+    pytest.importorskip("orbax.checkpoint")
+    from tools import orbax_to_torch
+
+    jt = runs["jtrainer"]
+    assert jt.checkpointer.save_best(2, 12.5, jt.params)
+    src = os.path.join(runs["jcfg"].OUTPUT_DIR, "checkpoints")
+    dst = str(tree / "from_jax" / "checkpoints")
+    kinds = orbax_to_torch.main([src, dst, "--seed", "7"])
+    return dict(src=src, dst=dst, kinds=kinds)
+
+
+def test_orbax_converter_refuses_overlapping_or_full_destinations(tmp_path):
+    """``tools/orbax_to_torch.py`` checks DST before it reads SRC: DST equal
+    to SRC, holding it, inside it or not empty raises ValueError, and every
+    file of SRC and DST is still there (needs no orbax)."""
+    from tools import orbax_to_torch
+
+    root = tmp_path / "out"
+    src = root / "checkpoints"
+    (src / "iter_0000001").mkdir(parents=True)
+    (src / "iter_0000001" / "data").write_bytes(b"jax")
+    (src / "last.json").write_text("{}")
+    full = tmp_path / "full"
+    full.mkdir()
+    (full / "keep.txt").write_text("keep")
+    files = sorted(p for p in tmp_path.rglob("*"))
+    for s, d in ((src, src), (src, root), (src, src / "converted"), (src / "iter_0000001", src),
+                 (src / "iter_0000001", src / "iter_0000001"), (src, full)):
+        with pytest.raises(ValueError):
+            orbax_to_torch.main([str(s), str(d)])
+    assert sorted(p for p in tmp_path.rglob("*")) == files
+    assert (src / "iter_0000001" / "data").read_bytes() == b"jax" and (full / "keep.txt").read_text() == "keep"
+
+
+def _jax_state_named(state):
+    """A JAX ``TrainState``'s parameters and momentum by the port's
+    parameter names, in the port's layouts."""
+    from proben_tpu_torch.checkpoint import state_dict_from_jax
+
+    host = jax.tree_util.tree_map(np.asarray, state)
+    return state_dict_from_jax(host.params), state_dict_from_jax(host.opt_state["momentum"])
+
+
+def test_orbax_checkpoints_convert_bit_for_bit(runs, converted):
+    """The converted root: every train state's parameters and momentum
+    equal JAX's by name, bit for bit, with its step and the given seed;
+    ``best/`` through ``restore_pytree``, ``CheckpointManager.restore_best``
+    and ``apps/flir.py::load_params`` gives JAX's parameter leaves bit for
+    bit; ``last.json`` points into the new root and records the seed and
+    that the sampling after a resume is the port's own."""
+    from proben_tpu_torch.apps import flir
+    from proben_tpu_torch.checkpoint import CheckpointManager, restore_pytree
+
+    dst, jt = converted["dst"], runs["jtrainer"]
+    assert converted["kinds"] == {"best": "pytree", "iter_0000001": "train_state",
+                                  "iter_0000002": "train_state"}
+    final = restore_pytree(os.path.join(dst, "iter_0000002"))
+    params, momentum = _jax_state_named(jt.state)
+    assert final["step"] == int(jt.state.step) == 3 and final["seed"] == 7
+    for name in params:
+        assert torch.equal(final["params"][name], params[name]), name
+        assert torch.equal(final["momentum"][name], momentum[name]), name
+    assert sorted(final["params"]) == sorted(n for n, _ in runs["trainer"].model.named_parameters())
+    assert restore_pytree(os.path.join(dst, "iter_0000001"))["step"] == 2
+
+    want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jt.params))
+    template = init_rcnn(0, model_config_from_cfg(runs["cfg"]))
+    manager = CheckpointManager(dst)
+    for got in (restore_pytree(os.path.join(dst, "best"), template), manager.restore_best(template),
+                flir.load_params(runs["cfg"], os.path.join(dst, "best"))):
+        leaves = jax.tree_util.tree_leaves(got)
+        assert len(leaves) == len(want)
+        assert all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(leaves, want))
+    meta = json.load(open(os.path.join(dst, "last.json")))
+    assert meta["last"] == os.path.join(dst, "iter_0000002") and meta["step"] == 2
+    assert meta["kept"] == [os.path.join(dst, f"iter_000000{i}") for i in (1, 2)]
+    assert meta["seed"] == 7 and "sampling" in meta and meta["best_metric"] == 12.5
+    assert manager.latest_step() == 2 and manager.best_metric == 12.5
+
+
+def test_port_trainer_resumes_jax_checkpoints(runs, converted, tree):
+    """``resume_or_load`` on the converted root starts at iteration 3 with
+    JAX's final state bit for bit. From the converted ``iter_0000001``
+    (JAX's state after two steps, restored as ``resume_or_load`` restores),
+    with the loader advanced past the two batches JAX had taken, the
+    port's step gives JAX's third-step losses to rtol 1e-4 (identity
+    sampling; the tolerance of ``test_losses_match_jax_at_every_step``)."""
+    from proben_tpu_torch.checkpoint import load_train_state, restore_pytree, train_state_tree
+
+    params = _calibrated(_tiny_cfg(get_cfg, tree / "port"))
+    cfg = _tiny_cfg(get_cfg, tree / "from_jax")
+    resumed = DefaultTrainer(cfg, params=params, device="cpu")
+    resumed.resume_or_load(resume=True)
+    resumed.train_loader.close()
+    want, want_m = _jax_state_named(runs["jtrainer"].state)
+    assert resumed.start_iter == 3 and resumed.state.step == 3 and resumed.state.seed == 7
+    for name, p in resumed.model.named_parameters():
+        assert torch.equal(p.detach(), want[name]) and torch.equal(resumed.state.momentum[name],
+                                                                   want_m[name]), name
+
+    cfg = _tiny_cfg(get_cfg, tree / "from_jax_step")
+    t = DefaultTrainer(cfg, params=params, device="cpu")
+    tree1 = restore_pytree(os.path.join(converted["dst"], "iter_0000001"), train_state_tree(t.state))
+    t.state = load_train_state(tree1, t.state)
+    t.start_iter = 2
+    for _ in range(2):
+        next(t.train_loader)
+    steps = []
+    t.register_hooks([_recorder(CallbackHook, steps)])
+    t.train()
+    (got,), jwant = steps, runs["jsteps"][2]
+    for k in ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "total_loss"):
+        np.testing.assert_allclose(got[k], jwant[k], rtol=1e-4, err_msg=k)
+    assert got["lr"] == pytest.approx(jwant["lr"], rel=1e-6)
+
+
 def test_trainer_params_are_the_jax_layout(runs):
     """``trainer.params``: the numpy pytree ``load_params`` reads, equal to
     the live model."""
