@@ -6,6 +6,8 @@
                                      # (single-modality and middle fusion)
     python3 chip_smoke.py --kaist-divergence  # only the KAIST trainer probe
                                               # (``kaist_divergence_probe``, ~3 min)
+    python3 chip_smoke.py --ddp-float32  # only the DDP and zoo phases, the DDP
+                                         # runs in float32 (the rounding witness)
 
 Phases, each raising on a miss (exit code != 0, no result line):
 
@@ -154,12 +156,29 @@ Phases, each raising on a miss (exit code != 0, no result line):
    once per mapped batch, the trainer's first batch equal to the plain
    version of its replayed windows); ``paste_masks_in_image`` on the card
    against the CPU; ``flop_count`` of R101-FPN inference on one 800x1024
-   image through the kernels and through the plain versions (equal);
-   ``apps/flir.py draw`` on 4 val images (K1 and K2 once per image, both
-   overlays written for each);
-16. one JSON line per kernel, one for each slice and fusion mode, one for
+   image through the kernels' ops and through the plain versions' ops
+   (equal but for each path's RoIAlign share on its own proposals);
+   ``apps/flir.py draw`` on 4 val
+   images (K1 and K2 once per image, both overlays written for each);
+16. export (``export_phase``, run right after phase 4 on its calibrated
+   model): ``export_model`` of ``rcnn_inference`` at batch 8, saved and
+   loaded with ``load_exported``; the graph's ``proben.stem_pool`` and
+   ``proben.roi_align_fwd`` nodes, K1 and K2 once per call of the loaded
+   program, its detections equal eager's bit for bit, img/s of both;
+17. data-parallel training (``ddp_phase``): ``faster_rcnn_R_101_FLIR.yaml``
+   at ``IMS_PER_BATCH`` 16 on a synthetic 16-pair tree, one process, then
+   2 gloo ranks sharing the card (8 images each), 3 steps: losses per step,
+   the parameters' update against the one process's, the ranks' parameters
+   bit for bit, K1-K3 once per step per rank and held against their plain
+   versions on rank 0's next batch of 8, ms per step and peak memory per
+   rank (NCCL across cards is not exercised);
+18. the model zoo (``zoo_phase``): ``model_zoo.get(..., trained=True)``
+   from a ``PROBEN_ZOO_DIR`` holding the same ``.pkl`` equals the model
+   ``DefaultTrainer`` loaded from it in phase 17, tensor for tensor;
+19. one JSON line per kernel, one for each slice and fusion mode, one for
    the FLIR and one for the KAIST evaluation, one for the trainer, one for
    the other heads, one for the other datasets, one for the surface phase,
+   one each for export, DDP and the zoo,
    one listing every kernel (launches per path, the C = 512, C = 4 and
    C = 6 readings, K2 and K3 at P = 14 / C = 1024 and on Cascade's last
    stage, ``image_io`` with flips and with crops at the training shapes
@@ -202,7 +221,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Time of one call of ``fn()`` in ms: ``reps`` calls back to back in 5
     groups, CUDA events around each group, the median of the groups' means.
     Back to back, the host time of one call overlaps the device work of the
-    one before, so a short kernel is not charged its wrapper's Python."""
+    one before, so a short kernel is not charged its wrapper's Python; each
+    group's start event is queued behind one untimed call, so the first
+    timed call's host time overlaps device work too (unless the host takes
+    longer per call than the device)."""
     for _ in range(warmup):
         fn()
     n = max(1, reps // 5)
@@ -210,6 +232,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        fn()
         a.record()
         for _ in range(n):
             fn()
@@ -2293,8 +2316,9 @@ def held_batch_checks(watch, label, stem, bare_steps=6):
     batch (``check_roi``, and ``check_bwd`` with a seeded cotangent of
     the maps' type), and K3 as the only difference in the step's losses
     and gradients (``k3_only_check``); then ``bare_steps`` bare
-    ``train_step`` calls on that batch, timed. The limits are those of the
-    checks named."""
+    ``train_step`` calls on that batch, timed (none with 0: a data-parallel
+    rank's step all-reduces, so it cannot step alone). The limits are
+    those of the checks named."""
     from proben_tpu_torch.ops import roi_align_cuda
 
     model, cfg, batch = watch.model, watch.model_cfg, watch.held
@@ -2311,23 +2335,25 @@ def held_batch_checks(watch, label, stem, bare_steps=6):
     g = (0.01 * torch.randn(b * k, 7, 7, shapes[0][-1], generator=gen, device="cuda")).to(levels[0].dtype)
     out["roi_align_bwd"] = check_bwd(g, shapes, lvl, y0, x0, wy, wx, k, what)
     del levels, boxes, lvl, y0, x0, wy, wx, g
-    gaps, control = k3_only_check(model, cfg, batch, f"{label} batch {TRAIN_BATCH}")
-
-    state = watch.state
-    for _ in range(2):
-        state, m = watch.step_fn(state, batch)
-    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(bare_steps):
-        state, m = watch.step_fn(state, batch)
-        float(m["total_loss"])  # the trainer's one sync per step
-    e.record()
-    torch.cuda.synchronize()
-    bare_img_s = TRAIN_BATCH * bare_steps / (a.elapsed_time(e) / 1e3)
     shape = [int(v) for v in batch["image"].shape]
+    gaps, control = k3_only_check(model, cfg, batch, f"{label} batch {shape[0]}")
+
+    bare_img_s = None
+    if bare_steps:
+        state = watch.state
+        for _ in range(2):
+            state, m = watch.step_fn(state, batch)
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(bare_steps):
+            state, m = watch.step_fn(state, batch)
+            float(m["total_loss"])  # the trainer's one sync per step
+        e.record()
+        torch.cuda.synchronize()
+        bare_img_s = shape[0] * bare_steps / (a.elapsed_time(e) / 1e3)
     del watch.model, watch.state, watch.step_fn, watch.held
     log(f"{label}: K1-K3 held against their plain versions on one step of the trainer's batch "
-        f"{shape}: {out}; bare train_step {bare_img_s:.2f} img/s on that batch")
+        f"{shape}: {out}" + (f"; bare train_step {bare_img_s:.2f} img/s on that batch" if bare_steps else ""))
     return dict(max_abs_err=out, k3_grad_gap=gaps, plain_grad_gap_control=control,
                 bare_step_img_s=bare_img_s, bare_steps=bare_steps, images_shape=shape)
 
@@ -3950,15 +3976,16 @@ def paste_masks_check():
 def flops_check():
     """``utils.analysis.flop_count`` of one 800x1024 image (true 800x1000)
     through R101-FPN bf16 inference, the kernel path (K1 and K2 launched
-    once each, their work reported by the wrappers) and the plain path
+    once each, their ops counted by their flop formulas) and the plain path
     (``stem_impl``, ``roi_align_impl`` "plain": the mode counts the plain
-    stem's convolution, and the plain RoIAlign reports ``roi_align_flops``
-    as K2 does). RoIAlign's count reads the RoIs, and each path pools its
-    own proposals (K1's bf16 rounding moves a few), so the checks are: the
-    two counts without each path's RoIAlign share (``roi_align_flops`` on
-    that path's proposals) equal; K2's wrapper and the plain version count
-    the same on the kernel path's window inputs. K1's share against
-    ``stem_flops`` (30.8 GFLOP per batch of 8 is its bound's numerator)."""
+    stem's convolution, which equals K1's formula, and the plain RoIAlign's
+    op counts ``roi_align_flops`` as K2's does). RoIAlign's count reads the
+    RoIs, and each path pools its own proposals (K1's bf16 rounding moves a
+    few), so the checks are: the two counts without each path's RoIAlign
+    share (``roi_align_flops`` on that path's proposals) equal; the K2 op
+    and the plain version's op count the same on the kernel path's window
+    inputs. K1's share against ``stem_flops`` (30.8 GFLOP per batch of 8 is
+    its bound's numerator)."""
     from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines, rcnn
     from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
     from proben_tpu_torch.utils.analysis import flop_count
@@ -4094,6 +4121,399 @@ def surface_phase(card):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# export, data-parallel training and the model zoo
+# ---------------------------------------------------------------------------
+
+
+EXPORTED_PATH = "bgr_exported_inference (loaded program, per batch)"
+DDP_PATH = "flir_thermal_only_ddp_train (per step and rank, 2 gloo ranks on one card)"
+DDP_STEPS = 3
+DDP_WORLD = 2
+DDP_FIRST_LOSS_RTOL = 2e-3  # bf16 forward at batch 8 against 16 (6.2e-5 on an H100)
+DDP_LOSS_RTOL = 5e-2  # of the total loss, after updates from gradients rounded per half batch
+DDP_UPDATE_RTOL = 5e-2  # of the one process's update, L2 (2.4e-3 on an H100)
+
+
+def export_phase(model, images, sizes):
+    """``export_model`` of ``rcnn_inference`` on the calibrated R101 of
+    ``slice_phase`` (BGR, bf16, batch 8, 800x1024), ``torch.export.save``d,
+    then ``load_exported`` and the loaded program run on the card: its graph
+    holds the ``proben.stem_pool`` and ``proben.roi_align_fwd`` nodes, one
+    call launches K1 and K2 once each (counters set to 0 just before it),
+    its detections equal eager ``rcnn_inference``'s bit for bit (the same
+    aten ops and kernels on the same inputs), and its img/s beside eager's
+    (in turns: eager, exported, exported, eager; 12 batches each)."""
+    import tempfile
+
+    import functools
+
+    from proben_tpu_torch.export import export_model, load_exported
+    from proben_tpu_torch.models import rcnn
+
+    cfg = model.cfg
+    stats = {}
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="export_") as root, torch.no_grad():
+        t = time.time()
+        path = export_model(functools.partial(rcnn.rcnn_inference, model, cfg), (images[0], sizes), root)
+        stats["export_s"] = time.time() - t
+        stats["artifact_mb"] = os.path.getsize(path) / 1e6
+        nodes = {}
+        for n in torch.export.load(path).graph.nodes:
+            target = str(n.target)
+            if target.startswith("proben."):
+                nodes[target] = nodes.get(target, 0) + 1
+        t = time.time()
+        loaded = load_exported(root)
+        stats["load_s"] = time.time() - t
+    for op in ("proben.stem_pool.default", "proben.roi_align_fwd.default"):
+        if nodes.get(op) != 1:
+            raise AssertionError(f"exported graph: {op} appears {nodes.get(op, 0)} times ({nodes})")
+    with torch.no_grad():
+        got, launches = counted(lambda: loaded(images[0], sizes))
+        want = rcnn.rcnn_inference(model, cfg, images[0], sizes)
+    expect_launches("exported inference", launches, {"stem_pool": 1, "roi_align_fwd": 1})
+    diffs = {}
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if b is None:
+            continue
+        diffs[f.name] = 0.0 if torch.equal(a, b) else float((a.double() - b.double()).abs().max())
+    if any(diffs.values()):
+        raise AssertionError(f"the loaded program's detections differ from eager rcnn_inference's: "
+                             f"largest differences {diffs}")
+    n_dets = int(want.valid.sum())
+    if n_dets == 0 or not bool(torch.isfinite(want.boxes).all()):
+        raise AssertionError(f"exported inference: {n_dets} detections")
+
+    def rate(fn):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(12):
+            fn(images[i % len(images)], sizes)
+        b.record()
+        torch.cuda.synchronize()
+        return BATCH * 12 / (a.elapsed_time(b) / 1e3)
+
+    def eager(x, s):
+        return rcnn.rcnn_inference(model, cfg, x, s)
+
+    with torch.no_grad():
+        for fn in (eager, loaded):
+            fn(images[1], sizes)
+        turns = [("eager", rate(eager)), ("exported", rate(loaded)), ("exported", rate(loaded)),
+                 ("eager", rate(eager))]
+    img_s = {k: float(np.mean([v for name, v in turns if name == k])) for k in ("eager", "exported")}
+    log(f"export: {stats['export_s']:.1f} s to export, {stats['load_s']:.1f} s to load a "
+        f"{stats['artifact_mb']:.0f} MB artifact; graph nodes {nodes}; one call launches {launches}; "
+        f"detections equal eager's bit for bit ({n_dets} valid); img/s exported "
+        f"{img_s['exported']:.2f} / eager {img_s['eager']:.2f} (turns {[round(v, 2) for _, v in turns]})")
+    del loaded
+    return dict(stats, graph_nodes=nodes, launches={k: launches[k] for k in ("stem_pool", "roi_align_fwd")},
+                equal=True, detections=n_dets, img_s_exported=img_s["exported"], img_s_eager=img_s["eager"],
+                turns=turns, seconds=time.time() - t0)
+
+
+def ddp_cfg(weights, out_dir, dataset, dtype="bfloat16"):
+    """``faster_rcnn_R_101_FLIR.yaml`` (thermal_only, bf16 unless ``dtype``
+    says otherwise, the FLIR solver, ``IMS_PER_BATCH`` 16) for
+    ``DDP_STEPS`` steps on ``dataset``, weights from ``weights``; one loader
+    worker, so the batches follow the index stream in order on every rank
+    and in one process alike."""
+    from proben_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(HERE, "configs", "FLIR-Detection", "faster_rcnn_R_101_FLIR.yaml"))
+    cfg.MODEL.WEIGHTS = weights
+    cfg.MODEL.COMPUTE_DTYPE = dtype
+    cfg.OUTPUT_DIR = out_dir
+    cfg.DATASETS.TRAIN = (dataset,)
+    cfg.DATASETS.TEST = ()
+    cfg.SOLVER.MAX_ITER = DDP_STEPS
+    cfg.SOLVER.CHECKPOINT_PERIOD = 1000
+    cfg.DATALOADER.NUM_WORKERS = 1
+    return cfg
+
+
+def ddp_train(cfg, hooks=()):
+    """A ``DefaultTrainer`` run of ``cfg`` with ``hooks`` registered after
+    its own, every launch counter set to 0 just before it: (per-step
+    losses, K1-K3 launches counted around every step, per-step ms, peak GB,
+    the run's ``image_io`` launches and the batches its loader mapped (the
+    loader maps ahead of the step, so ``image_io`` is held to the run, not
+    to a step), the parameters before the first step (on the host), the
+    trainer)."""
+    from proben_tpu_torch.engine import CallbackHook, DefaultTrainer
+
+    zero_launch_counts()  # before the trainer: its loader starts mapping when it is built
+    trainer = DefaultTrainer(cfg)
+    steps, launches, ms = [], [], []
+    clock = {}
+
+    def start(t):
+        clock["initial"] = {k: v.detach().cpu().clone() for k, v in t.model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def before(t):
+        torch.cuda.synchronize()
+        clock["counts"], clock["t"] = launch_counts(), time.perf_counter()
+
+    def after(t):
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - clock["t"]) * 1e3)
+        now = launch_counts()
+        launches.append({k: now[k] - clock["counts"][k] for k in ("stem_pool", "roi_align_fwd",
+                                                                   "roi_align_bwd")})
+        steps.append({k: float(v) for k, v in t._last_metrics.items()})
+
+    trainer.register_hooks([CallbackHook(before_train=start, before_step=before, after_step=after),
+                            *hooks])
+    trainer.train()
+    torch.cuda.synchronize()
+    io = {"image_io": launch_counts()["image_io"], "batches_mapped": trainer.train_loader.batches_mapped}
+    return steps, launches, ms, torch.cuda.max_memory_allocated() / 1e9, io, clock["initial"], trainer
+
+
+def params_digest(model):
+    """sha256 of the parameters' bytes, in ``state_dict`` order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_rank(rank, init_file, root, weights, reference, result, dtype):
+    """One rank of ``ddp_phase``: gloo on the shared card, the trainer at
+    its rows of each global batch; writes its losses, launches, step times,
+    peak memory, how far its parameters are from the one-process run's
+    (``reference``: its parameters before and after; the largest
+    difference, and the L2 norm of the difference of the two runs' updates
+    over the one process's update) and a digest of its parameters to
+    ``result``. Rank 0 then holds K1-K3 against their plain versions on its
+    own next batch of 8 from its loader, with its model after the last
+    step (``held_batch_checks``, no timed steps), after its launches were
+    counted."""
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=DDP_WORLD)
+    try:
+        from proben_tpu_torch.apps import flir
+        from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
+
+        flir.register_flir("smoke_ddp", root, TRAIN_JSON_NAME)
+        watch = TrainWatch(count_iter=0, hold_batch=True) if rank == 0 else None
+        steps, launches, ms, peak, io, _, trainer = ddp_train(
+            ddp_cfg(weights, os.path.join(root, "out_ddp"), "smoke_ddp", dtype), watch.hooks() if watch else ())
+        held = None
+        if watch is not None:
+            if tuple(watch.held["image"].shape[:1]) != (TRAIN_BATCH // DDP_WORLD,):
+                raise AssertionError(f"ddp rank 0: held batch {tuple(watch.held['image'].shape)}")
+            held = held_batch_checks(watch, "ddp rank 0", stem=dtype == "bfloat16", bare_steps=0)
+        ref = torch.load(reference, map_location=trainer.device)
+        got, want, start = trainer.model.state_dict(), ref["final"], ref["initial"]
+        gaps = {k: float((got[k].float() - v.float()).abs().max()) for k, v in want.items()}
+        worst = max(gaps, key=gaps.get)
+        diff = sum(float(((got[k].double() - v.double()) ** 2).sum()) for k, v in want.items())
+        update = sum(float(((v.double() - start[k].double()) ** 2).sum()) for k, v in want.items())
+        torch.save(dict(rank=rank, world=trainer.mesh.world, device=str(trainer.device), steps=steps,
+                        launches=launches, ms=ms, peak_gb=peak, io=io, param_gap=gaps[worst], worst=worst,
+                        update_gap=(diff / update) ** 0.5, held=held,
+                        rows=trainer.train_loader.rows, digest=params_digest(trainer.model)),
+                   os.path.join(result, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_phase(card, root, weights, dtype="bfloat16"):
+    """Data-parallel training on the one card: ``faster_rcnn_R_101_FLIR.yaml``
+    at ``IMS_PER_BATCH`` 16 from ``weights``, first in one process (world
+    1), then on 2 ranks (``torch.multiprocessing`` spawn, gloo with a
+    ``file://`` init; NCCL refuses two ranks on one device), 8 images each,
+    for ``DDP_STEPS`` steps. Checks: every step's losses of the ranks (the
+    same on both, averaged over them) against the one process's; the
+    parameters after the last step against its, and bit for bit between the
+    ranks; K1, K2 and K3 launched once per step on every rank, and
+    ``image_io`` once per batch the rank's loader mapped (its 8 rows in one
+    launch); on rank 0, K1-K3 against their plain versions on its own next
+    batch of 8 (``ddp_rank``). Tolerance: the same bf16 math, in other rounding. The first
+    step starts from the same parameters, and only the forward's rounding
+    differs (the ranks' convolutions run at batch 8 where the one process
+    runs 16, and cuDNN may take other algorithms): each of its losses to
+    ``DDP_FIRST_LOSS_RTOL`` of itself. The gradients are rounded to bf16
+    per half batch and then averaged by the all-reduce, where the one
+    process rounds the whole batch's once, about 2^-9 of each; the randomly
+    initialised model amplifies that over the next steps, and a small loss
+    (the box regression over a few foreground RoIs) moves by a larger share
+    of itself when one sampled RoI changes: each of their losses to
+    ``DDP_LOSS_RTOL`` of the step's total loss, and the L2 distance between
+    the two runs' parameters after the last step to ``DDP_UPDATE_RTOL`` of the one
+    process's update (a gradient summed instead of averaged, or the wrong
+    rows drawn, moves it by the order of 1). Every loss's gap over its own
+    size is printed for every step (on an H100 in bf16, step 3's box
+    regression loss, 0.0078 against 0.0066, moves by 0.185 of itself and
+    5.4e-4 of the total); ``--ddp-float32`` runs the same comparison in
+    float32, where only the order of the f32 sums differs, as the witness
+    that those gaps are bf16 rounding. The ms per step and the peak memory
+    of each rank are measured with the two ranks sharing the card; the
+    readings are printed."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from proben_tpu_torch.apps import flir
+    from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
+
+    t0 = time.time()
+    flir.register_flir("smoke_ddp", root, TRAIN_JSON_NAME)
+    steps, launches, ms, peak, io, initial, trainer = ddp_train(
+        ddp_cfg(weights, os.path.join(root, "out_one"), "smoke_ddp", dtype))
+    one = dict(steps=steps, launches=launches, ms=ms, peak_gb=peak, io=io)
+    reference = os.path.join(root, "reference.pt")
+    torch.save({"initial": initial,
+                "final": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}, reference)
+    del initial
+    del trainer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ddp_", dir=root) as tmp:
+        ctx = mp.spawn(ddp_rank, args=(os.path.join(tmp, "init"), root, weights, reference, tmp, dtype),
+                       nprocs=DDP_WORLD, join=False)
+        deadline = time.time() + 600
+        while not ctx.join(1.0):
+            if time.time() > deadline:
+                for proc in ctx.processes:
+                    proc.terminate()
+                raise AssertionError("ddp: the ranks did not finish within 600 s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DDP_WORLD)]
+    if any(r["world"] != DDP_WORLD or r["device"] != "cuda:0" for r in ranks):
+        raise AssertionError(f"ddp: ranks {[(r['rank'], r['world'], r['device']) for r in ranks]}")
+    if [tuple(r["rows"]) for r in ranks] != [(0, 8), (8, 16)]:
+        raise AssertionError(f"ddp: the ranks' rows {[r['rows'] for r in ranks]}")
+    # K1 takes bf16 only: the float32 witness runs the plain stem
+    per_step = {"stem_pool": int(dtype == "bfloat16"), "roi_align_fwd": 1, "roi_align_bwd": 1}
+    for r in ranks + [one]:
+        if len(r["launches"]) != DDP_STEPS or any(c != per_step for c in r["launches"]):
+            raise AssertionError(f"ddp: launches per step {r['launches']}, expected {per_step}")
+        if r["io"]["image_io"] != r["io"]["batches_mapped"] or r["io"]["batches_mapped"] < DDP_STEPS:
+            raise AssertionError(f"ddp: image_io launches {r['io']} (one per batch mapped)")
+    if ranks[0]["steps"] != ranks[1]["steps"] or ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("ddp: the two ranks' losses or parameters differ")
+    loss_gaps = []  # per step, the largest gap over the losses (see the docstring)
+    own_gaps = []  # per step and loss, the gap over that loss's own size (recorded, checked at step 1)
+    for i, (got, want) in enumerate(zip(ranks[0]["steps"], one["steps"])):
+        if set(got) != set(want) or got["loss_finite"] != 1.0 or want["loss_finite"] != 1.0:
+            raise AssertionError(f"ddp: step metrics {got} against {want}")
+        own_gaps.append({k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()})
+        scale = {k: abs(v) if i == 0 else abs(want["total_loss"]) for k, v in want.items()}
+        loss_gaps.append(max(abs(got[k] - v) / max(scale[k], 1e-12) for k, v in want.items()))
+    held = ranks[0]["held"]
+    param_gap = max(r["param_gap"] for r in ranks)
+    update_gap = max(r["update_gap"] for r in ranks)
+    log(f"ddp ({dtype}): 2 gloo ranks on one card against one process at batch {TRAIN_BATCH}, {DDP_STEPS} steps: "
+        f"largest loss gap per step {[float(f'{g:.3g}') for g in loss_gaps]} (step 1 of each loss, "
+        f"later of the total loss), the ranks' update "
+        f"{update_gap:.3g} of the one process's away (L2), largest parameter gap {param_gap:.3g} "
+        f"({ranks[0]['worst']}); total losses {[s['total_loss'] for s in ranks[0]['steps']]} against "
+        f"{[s['total_loss'] for s in one['steps']]}; launches per step per rank {per_step}, image_io once per "
+        f"mapped batch; ms per step {[round(float(np.median(r['ms'][1:])), 1) for r in ranks]} per rank, "
+        f"{float(np.median(one['ms'][1:])):.1f} in one process; peak "
+        f"{[round(r['peak_gb'], 2) for r in ranks]} GB per rank, {one['peak_gb']:.2f} in one process")
+    log("ddp: per step, each loss of the ranks / of the one process (gap over the loss's own size): " + "; ".join(
+        f"step {i + 1}: " + ", ".join(f"{k} {got[k]:.6g} / {want[k]:.6g} ({own_gaps[i][k]:.3g})"
+                                      for k in sorted(want) if k != "loss_finite")
+        for i, (got, want) in enumerate(zip(ranks[0]["steps"], one["steps"]))))
+    if loss_gaps[0] > DDP_FIRST_LOSS_RTOL or max(loss_gaps) > DDP_LOSS_RTOL or update_gap > DDP_UPDATE_RTOL:
+        raise AssertionError(f"ddp: the ranks' run differs from the one process's beyond the tolerance: "
+                             f"losses {loss_gaps}, update {update_gap}")
+    return dict(card=card, dtype=dtype, world=DDP_WORLD, backend="gloo", batch=TRAIN_BATCH, steps=DDP_STEPS,
+                loss_gap_rel=loss_gaps, loss_gap_own=own_gaps, update_gap=update_gap, param_gap=param_gap,
+                worst_param=ranks[0]["worst"], held_batch_rank0=held,
+                losses=[s["total_loss"] for s in ranks[0]["steps"]],
+                losses_one_process=[s["total_loss"] for s in one["steps"]],
+                step_metrics=ranks[0]["steps"], step_metrics_one_process=one["steps"],
+                launches_per_step={**per_step, "image_io": 1},
+                image_io=[r["io"] for r in ranks],
+                ms_per_step=[float(np.median(r["ms"][1:])) for r in ranks],
+                ms_per_step_one_process=float(np.median(one["ms"][1:])),
+                peak_gb=[r["peak_gb"] for r in ranks], peak_gb_one_process=one["peak_gb"],
+                seconds=time.time() - t0)
+
+
+def zoo_phase(root, weights, trainer_state):
+    """``model_zoo.get("FLIR-Detection/faster_rcnn_R_101_FLIR.yaml",
+    trained=True)`` with ``PROBEN_ZOO_DIR`` a directory that holds
+    ``weights`` under ``CHECKPOINT_NAMES``' file name: its model equals,
+    tensor for tensor, ``trainer_state``, the state that ``DefaultTrainer``
+    loaded from the same file through ``MODEL.WEIGHTS`` (``ddp_phase``'s
+    one-process run, before its first step), and ``get_config`` points
+    ``MODEL.WEIGHTS`` at the zoo's file."""
+    import shutil
+
+    from proben_tpu_torch import model_zoo
+
+    t0 = time.time()
+    name = "FLIR-Detection/faster_rcnn_R_101_FLIR.yaml"
+    zoo = os.path.join(root, "zoo")
+    os.makedirs(zoo)
+    shutil.copy(weights, os.path.join(zoo, model_zoo.CHECKPOINT_NAMES[name]))
+    saved = os.environ.get("PROBEN_ZOO_DIR")
+    os.environ["PROBEN_ZOO_DIR"] = zoo
+    try:
+        model, mcfg = model_zoo.get(name, trained=True)
+        cfg = model_zoo.get_config(name, trained=True)
+    finally:
+        if saved is None:
+            del os.environ["PROBEN_ZOO_DIR"]
+        else:
+            os.environ["PROBEN_ZOO_DIR"] = saved
+    got = model.state_dict()
+    same = sorted(got) == sorted(trainer_state) and all(
+        torch.equal(got[k].cpu(), v) for k, v in trainer_state.items())
+    if not same or cfg.MODEL.WEIGHTS != os.path.join(zoo, model_zoo.CHECKPOINT_NAMES[name]):
+        raise AssertionError("model_zoo.get: the model differs from the trainer's on the same file")
+    log(f"model_zoo.get({name!r}, trained=True): {len(got)} tensors equal the trainer's from "
+        f"the same file ({os.path.basename(cfg.MODEL.WEIGHTS)})")
+    del model
+    return dict(config=name, file=model_zoo.CHECKPOINT_NAMES[name], tensors=len(got), equal=True,
+                depth=mcfg.depth, seconds=time.time() - t0)
+
+
+def ddp_zoo_phases(card, dtype="bfloat16"):
+    """``ddp_phase``, then ``zoo_phase`` against its one-process trainer's
+    loaded state, on a synthetic FLIR tree of 16 train
+    pairs with one detectron2 zoo ``.pkl`` of random affines. The box
+    predictor's weights are scaled by 0.01, so its logits start near 0 as a
+    trained head's do (at the random init's scale the class loss starts
+    saturated, near 33, and one bf16 rounding of its gradient moves the
+    next step's losses by percents)."""
+    import pickle
+    import tempfile
+
+    from proben_tpu_torch.config import get_cfg, model_config_from_cfg
+    from proben_tpu_torch.models import init_rcnn, random_affines
+    from proben_tpu_torch.native import io
+
+    with tempfile.TemporaryDirectory(prefix="flir_ddp_") as root:
+        with io.JpegCodec() as codec:
+            write_flir_train_tree(codec, root, n=TRAIN_BATCH, n_val=8)
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(HERE, "configs", "FLIR-Detection", "faster_rcnn_R_101_FLIR.yaml"))
+        params = random_affines(init_rcnn(33, model_config_from_cfg(cfg)), 33)
+        for head in params["roi"]["output"].values():
+            head["w"] = head["w"] * 0.01
+        weights = os.path.join(root, "weights.pkl")
+        with open(weights, "wb") as f:
+            pickle.dump({"model": d2_state_dict(params)}, f)
+        ddp = ddp_phase(card, root, weights, dtype)
+        zoo = zoo_phase(root, weights, torch.load(os.path.join(root, "reference.pt"))["initial"])
+    return ddp, zoo
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4122,6 +4542,10 @@ def main() -> int:
     if "--kaist-divergence" in sys.argv[1:]:
         kaist_divergence_probe(card)
         return 0
+    if "--ddp-float32" in sys.argv[1:]:
+        ddp_stats, zoo_stats = ddp_zoo_phases(card, "float32")
+        print(json.dumps({"ddp_float32": ddp_stats, "zoo": zoo_stats}), flush=True)
+        return 0
 
     cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
     # random weights from seed 0, with trained-like affines so that every
@@ -4139,6 +4563,7 @@ def main() -> int:
     k1 = stem_phase(model)
     launches, slice_stats = slice_phase(model, images, sizes, once)
     k2 = roi_phase(model, images[0], sizes)  # the calibrated model's proposals
+    export_stats = export_phase(model, images, sizes)
     if profiling:
         profile_phase(Predictor(model, cfg), images, sizes)
     # training reuses the calibrated model and updates it in place
@@ -4185,6 +4610,8 @@ def main() -> int:
     heads_k, heads_stats = heads_phase(card)
     datasets_stats = datasets_phase(card)
     surface_stats = surface_phase(card)
+    torch.cuda.empty_cache()
+    ddp_stats, zoo_stats = ddp_zoo_phases(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
              "bgrttt_inference": mf_launches, "bgrttt_train": mf_train_launches,
@@ -4206,7 +4633,9 @@ def main() -> int:
              "flir_thermal_only_crop_train (K1-K3 per step, image_io per training batch)": {
                  **surface_stats["crop_train"]["launches_per_step"],
                  "image_io": surface_stats["crop_train"]["image_io"]["per_train_batch"]},
-             f"flir_draw ({surface_stats['draw']['images']} images)": surface_stats["draw"]["launches"]}
+             f"flir_draw ({surface_stats['draw']['images']} images)": surface_stats["draw"]["launches"],
+             EXPORTED_PATH: export_stats["launches"],
+             DDP_PATH: ddp_stats["launches_per_step"]}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -4240,6 +4669,9 @@ def main() -> int:
     print(json.dumps({"heads": {**heads_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"datasets": {**datasets_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"surface": {**surface_stats, "total_seconds": time.time() - t0}}))
+    print(json.dumps({"export": {**export_stats, "card": card}}))
+    print(json.dumps({"ddp": ddp_stats}))
+    print(json.dumps({"zoo": zoo_stats}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]
     k_io["launches_per_path"] = {p: n["image_io"] for p, n in paths.items() if "image_io" in n}
     k_io["train_flips"] = {fmt: {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "mbytes",

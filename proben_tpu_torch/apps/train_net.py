@@ -7,13 +7,16 @@ reference ``tools/train_net.py``).
 
 Datasets named in DATASETS.TRAIN/TEST must be registered; ``--register``
 registers a COCO-format one (repeatable). ``--eval-only`` evaluates
-DATASETS.TEST with the (resumed) weights. Runs on one device, ``--device``
-(default ``cuda``; ``cpu`` runs the plain versions).
+DATASETS.TEST with the (resumed) weights. Runs on ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions); data parallel under
+``torchrun --nproc_per_node N -m proben_tpu_torch.apps.train_net ...``,
+one rank per card (``DefaultTrainer``; N must divide IMS_PER_BATCH).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
 from ..config import get_cfg
@@ -56,7 +59,7 @@ def setup(args: argparse.Namespace):
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     cfg = setup(args)
-    setup_logger(cfg.OUTPUT_DIR)
+    setup_logger(cfg.OUTPUT_DIR, distributed_rank=int(os.environ.get("RANK", "0")))
     trainer = DefaultTrainer(cfg, device=args.device)
     trainer.resume_or_load(resume=args.resume)
     if args.eval_only:

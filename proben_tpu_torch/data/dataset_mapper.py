@@ -116,10 +116,52 @@ class DatasetMapper:
         "flip" (whether the image was flipped)."""
         return self.map_batch([dataset_dict])[0]
 
-    def map_batch(self, dataset_dicts: Sequence[Dict]) -> List[Dict]:
+    def map_batch(self, dataset_dicts: Sequence[Dict],
+                  rows: Optional[Tuple[int, int]] = None) -> List[Dict]:
         """``[self(d) for d in dataset_dicts]``, with the training draws
         made image by image in order; on the card the images are views of
-        one canvas made by one kernel launch."""
+        one canvas made by one kernel launch. ``rows`` (lo, hi): map only
+        ``dataset_dicts[lo:hi]`` (a data-parallel rank's share of a global
+        batch) and make the other images' training draws without mapping
+        them, in order, so the mapped images are drawn as in the one-process
+        batch."""
+        lo, hi = (0, len(dataset_dicts)) if rows is None else rows
+        for d in dataset_dicts[:lo]:
+            self._skip_draws(d)
+        out = self._map_batch(dataset_dicts[lo:hi])
+        for d in dataset_dicts[hi:]:
+            self._skip_draws(d)
+        return out
+
+    def _skip_draws(self, dataset_dict: Dict) -> None:
+        """An image's training draws, made and dropped (nothing at test
+        time). Without a crop neither the size's nor the flip's draw reads
+        the image; a crop's draws read its frame's size."""
+        if not self.is_train:
+            return
+        if self.train_aug.crop is None:
+            self.train_aug.draw(1, 1)
+            return
+        crop = self.train_aug.crop_window(*self._frame_hw(dataset_dict))
+        self.train_aug.draw(crop[2], crop[3])
+
+    def _frame_hw(self, dataset_dict: Dict) -> Tuple[int, int]:
+        """(H, W) of the frame an image's crop is drawn on, as the mapping
+        reads it: the composed image on the CPU, the thermal file's decoded
+        size on the card (a JPEG's header, any other file decoded)."""
+        path = dataset_dict["file_name"]
+        if self.device.type == "cpu":
+            return read_image(path, self.cfg.input_format, device="cpu",
+                              rgb_file=dataset_dict.get("rgb_file")).shape[:2]
+        from ..native.io import JPEG_SOI, decode_host
+
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:2] == JPEG_SOI:
+            return self._codec().info(data)[:2]
+        return tuple(decode_host(path).shape[:2])
+
+    def _map_batch(self, dataset_dicts: Sequence[Dict]) -> List[Dict]:
         cfg = self.cfg
         annotations = [_annotations(d) for d in dataset_dicts]
         geoms = []  # per image: resized h, w, the boxes in its frame, flipped

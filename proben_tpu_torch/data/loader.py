@@ -21,6 +21,7 @@ from typing import Dict, Iterator, List, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_batch
 from ..structures.detections import GroundTruth
 from .dataset_mapper import DatasetMapper
 
@@ -71,7 +72,13 @@ class TrainLoader:
     counts the batches the workers have mapped, prefetched ones included. A
     worker's exception is raised by the ``next`` call that would have
     returned its batch. The loader owns the mapper: ``close`` stops the
-    workers and closes it."""
+    workers and closes it.
+
+    Data parallel (``world`` > 1): every rank walks the same index stream
+    in global batches of ``batch_size`` and maps only its equal share, rows
+    ``rank * batch_size / world`` on, with the mapper's draws advanced over
+    the other ranks' rows (``DatasetMapper.map_batch``'s ``rows``); a batch
+    holds the rank's rows and their ``indices``."""
 
     def __init__(
         self,
@@ -79,16 +86,22 @@ class TrainLoader:
         mapper: DatasetMapper,
         batch_size: int,
         seed: int = 0,
-        shard: int = 0,
-        num_shards: int = 1,
         num_workers: int = 4,
         prefetch: int = 4,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"TrainLoader: a global batch of {batch_size} does not split over "
+                             f"{world} ranks")
         self.dataset_dicts = dataset_dicts
         self.mapper = mapper
         self.batch_size = batch_size
+        per = batch_size // world
+        self.rank, self.world = rank, world
+        self.rows = (rank * per, (rank + 1) * per)  # this rank's rows of each global batch
         self.device = mapper.device
-        self._indices = training_index_stream(len(dataset_dicts), seed, shard, num_shards)
+        self._indices = training_index_stream(len(dataset_dicts), seed)
         self._lock = threading.Lock()
         self.batches_mapped = 0
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -103,10 +116,10 @@ class TrainLoader:
             return [int(next(self._indices)) for _ in range(self.batch_size)]
 
     def _map(self, idxs: List[int], stream) -> Dict:
-        batch = collate(self.mapper.map_batch([self.dataset_dicts[i] for i in idxs]))
+        batch = collate(self.mapper.map_batch([self.dataset_dicts[i] for i in idxs], self.rows))
         with self._lock:
             self.batches_mapped += 1
-        batch["indices"] = idxs
+        batch["indices"] = shard_batch(idxs, self.rank, self.world)
         if stream is not None:
             batch["_ready"] = stream.record_event()
         return batch

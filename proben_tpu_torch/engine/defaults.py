@@ -2,14 +2,21 @@
 ``proben_tpu/engine/defaults.py``; reference ``engine/defaults.py:201`` +
 ``train_loop.py:16-246``).
 
-One device: the model is built on ``device`` (default CUDA; raises without a
-GPU) and the whole ``SOLVER.IMS_PER_BATCH`` batch runs there in every step
-(a batch that does not fit raises; it is never split). The JAX package's
-data parallelism over local devices (``parallel/mesh.py``) is not ported
-(ROADMAP 13, DDP). Hooks around the loop (timer, lr, writers, periodic
-checkpoint, PreciseBN, eval) in the JAX package's order; ``torch.save``
-checkpoints under ``OUTPUT_DIR/checkpoints`` with resume; detectron2
-checkpoint loading from ``MODEL.WEIGHTS``.
+One process is one device: the model is built on ``device`` (default
+CUDA; raises without a GPU) and the whole ``SOLVER.IMS_PER_BATCH`` batch
+runs there in every step (a batch that does not fit raises). Data parallel
+(``parallel.data_parallel_group``: ``torchrun``, or a default process group
+the caller initialised) every rank runs on its own device
+(``cuda:LOCAL_RANK``) with its equal share of each global batch, and the
+step averages the gradients over the ranks, so the update is the one-device
+step of the global batch (JAX: one SPMD program over the mesh). The number
+of ranks must divide ``IMS_PER_BATCH``; the JAX package instead shards over
+the largest number of devices that does. Only rank 0 writes checkpoints,
+``metrics.json`` and the evaluation; the ranks meet at a barrier after
+each. Hooks around the loop (timer, lr, writers, periodic checkpoint,
+PreciseBN, eval) in the JAX package's order; ``torch.save`` checkpoints
+under ``OUTPUT_DIR/checkpoints`` with resume; detectron2 checkpoint loading
+from ``MODEL.WEIGHTS``.
 
 The parameters start from the port's own init (``init_rcnn(SEED)``, numpy
 draws, not JAX's threefry) unless ``params`` (a numpy pytree in
@@ -20,12 +27,14 @@ momentum, step and seed are restored, consumed batches are not skipped.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import weakref
 from typing import Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import (
     CheckpointManager,
@@ -36,8 +45,8 @@ from ..checkpoint import (
 )
 from ..config import mapper_config_from_cfg, model_config_from_cfg, solver_config_from_cfg
 from ..data import DatasetCatalog, DatasetMapper, TrainLoader, build_test_loader
-from ..device import resolve_device
 from ..models import RCNN, build_model, init_rcnn
+from ..parallel import broadcast_from_first, data_parallel_group, replicate
 from ..solver.build import build_lr_schedule
 from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter, TensorboardWriter
 from ..utils.logger import setup_logger
@@ -60,9 +69,13 @@ Device = Union[str, torch.device]
 
 class DefaultTrainer:
     def __init__(self, cfg, train_loader=None, params=None, device: Device = "cuda"):
-        setup_logger(cfg.OUTPUT_DIR)
+        self.mesh = data_parallel_group(device)
+        setup_logger(cfg.OUTPUT_DIR, distributed_rank=self.mesh.rank)
+        if cfg.SOLVER.IMS_PER_BATCH % self.mesh.world:
+            raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not split "
+                             f"over {self.mesh.world} ranks: the number of ranks must divide it")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = self.mesh.device
         self.model_cfg = model_config_from_cfg(cfg)
         self.solver_cfg = solver_config_from_cfg(cfg)
         self.mapper_cfg = mapper_config_from_cfg(cfg)
@@ -73,12 +86,15 @@ class DefaultTrainer:
             if cfg.MODEL.WEIGHTS:
                 logger.info("loading weights from %s", cfg.MODEL.WEIGHTS)
                 params = import_detectron2_checkpoint(cfg.MODEL.WEIGHTS, params, strict=False)
-        self.model: RCNN = build_model(self.model_cfg, params=params, device=self.device).train()
+        self.model: RCNN = replicate(
+            build_model(self.model_cfg, params=params, device=self.device).train())
         init_state, self._train_step = make_train_step(
-            self.model_cfg, self.solver_cfg, self.build_trainable_mask(self.model))
+            self.model_cfg, self.solver_cfg, self.build_trainable_mask(self.model),
+            self.mesh.rank, self.mesh.world)
         self.state: TrainState = init_state(self.model, seed)
 
-        self.train_loader = train_loader or self.build_train_loader(cfg, self.device)
+        self.train_loader = train_loader or self.build_train_loader(
+            cfg, self.device, self.mesh.rank, self.mesh.world)
         self.checkpointer = CheckpointManager(
             os.path.join(cfg.OUTPUT_DIR, "checkpoints"),
             higher_is_better=True,
@@ -99,7 +115,10 @@ class DefaultTrainer:
                               tuple(self.cfg.MODEL.get("FREEZE_MODULES", ())))
 
     @classmethod
-    def build_train_loader(cls, cfg, device: Device = "cuda") -> TrainLoader:
+    def build_train_loader(cls, cfg, device: Device = "cuda", rank: int = 0,
+                           world: int = 1) -> TrainLoader:
+        """The ``IMS_PER_BATCH`` stream, of which this loader maps rank
+        ``rank``'s share of ``world``."""
         dicts = []
         for name in cfg.DATASETS.TRAIN:
             dicts.extend(DatasetCatalog.get(name))
@@ -111,21 +130,21 @@ class DefaultTrainer:
             batch_size=cfg.SOLVER.IMS_PER_BATCH,
             seed=max(cfg.SEED, 0),
             num_workers=cfg.DATALOADER.NUM_WORKERS,
+            rank=rank,
+            world=world,
         )
 
     def build_hooks(self) -> List[HookBase]:
         out_dir = self.cfg.OUTPUT_DIR
-        writers = [
-            CommonMetricPrinter(self.max_iter),
-            JSONWriter(os.path.join(out_dir, "metrics.json")),
-            TensorboardWriter(out_dir),
-        ]
-        hooks = [
-            IterationTimer(),
-            LRLogger(build_lr_schedule(self.solver_cfg)),
-            PeriodicWriter(writers, period=20),
-            PeriodicCheckpointer(self.cfg.SOLVER.CHECKPOINT_PERIOD),
-        ]
+        hooks = [IterationTimer(), LRLogger(build_lr_schedule(self.solver_cfg))]
+        if self.mesh.rank == 0:
+            writers = [
+                CommonMetricPrinter(self.max_iter),
+                JSONWriter(os.path.join(out_dir, "metrics.json")),
+                TensorboardWriter(out_dir),
+            ]
+            hooks.append(PeriodicWriter(writers, period=20))
+        hooks.append(PeriodicCheckpointer(self.cfg.SOLVER.CHECKPOINT_PERIOD))
         if self.cfg.TEST.PRECISE_BN.ENABLED:
             # reference hook list order: PreciseBN runs before EvalHook
             # (engine/defaults.py:300-342). No shipped model has live BN
@@ -162,16 +181,30 @@ class DefaultTrainer:
 
     # -- checkpointing ---------------------------------------------------------
 
+    def _barrier(self):
+        if self.mesh.world > 1:
+            dist.barrier()
+
     def save_checkpoint(self):
-        self.checkpointer.save(self.iter, train_state_tree(self.state))
+        if self.mesh.rank == 0:
+            self.checkpointer.save(self.iter, train_state_tree(self.state))
+        self._barrier()
 
     def resume_or_load(self, resume: bool = True):
+        """Resume from the latest checkpoint under ``OUTPUT_DIR``; then,
+        data parallel, every rank takes rank 0's parameters, momentum and
+        step."""
         if resume:
             restored = self.checkpointer.restore_latest(train_state_tree(self.state))
             if restored is not None:
                 self.state = load_train_state(restored, self.state)
                 self.start_iter = int(self.checkpointer.latest_step()) + 1
                 logger.info("resumed from iter %d", self.start_iter)
+        if self.mesh.world > 1:
+            steps = torch.tensor([self.start_iter, self.state.step], device=self.device)
+            broadcast_from_first([*self.model.parameters(), *self.state.momentum.values(), steps])
+            self.start_iter, step = (int(v) for v in steps.tolist())
+            self.state = dataclasses.replace(self.state, step=step)
 
     # -- the loop ---------------------------------------------------------------
 
@@ -214,6 +247,7 @@ class DefaultTrainer:
                     h.after_train()
                 if hasattr(self.train_loader, "close"):
                     self.train_loader.close()
+        self._barrier()
         return self.state
 
     # -- evaluation ---------------------------------------------------------------
@@ -221,11 +255,15 @@ class DefaultTrainer:
     def evaluate(self) -> Dict:
         """``test`` of the live model (no second copy of the weights); the
         model is back in training mode afterwards, its ``requires_grad``
-        flags untouched."""
+        flags untouched. Data parallel: rank 0 evaluates, the others return
+        {}, and the ranks meet at a barrier."""
         try:
-            return self.test(self.cfg, self.model, device=self.device)
+            if self.mesh.rank == 0:
+                return self.test(self.cfg, self.model, device=self.device)
+            return {}
         finally:
             self.model.train()
+            self._barrier()
 
     @classmethod
     def test(cls, cfg, params, evaluators: Optional[Dict] = None, device: Device = "cuda") -> Dict:

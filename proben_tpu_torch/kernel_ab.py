@@ -2,6 +2,7 @@
 
     python -m proben_tpu_torch.kernel_ab image_io TREE [TREE ...]
     python -m proben_tpu_torch.kernel_ab roi_align TREE [TREE ...]
+    python -m proben_tpu_torch.kernel_ab slice TREE [TREE ...]
     python -m proben_tpu_torch.kernel_ab sass TREE_A TREE_B SOURCE KERNEL_A KERNEL_B
 
 Each TREE is the root of a checkout (``.`` for this one).
@@ -16,11 +17,20 @@ the FPN pooler's main-path shapes: four bf16 levels of an 800x1024 batch of
 8 at C = 256, 8 x 1000 proposals for K2 and 8 x 512 RoIs for K3 (P = 7),
 and, where the tree's kernels take P = 14, at the C4 pooler's (one 50 x 64
 level at C = 1024, P = 14), all from one seed, so every tree pools the same
-boxes. Each tree is timed in a process of its own, which builds that
+boxes; and the host time of one K2 and one K3 call at P = 7 ("host us":
+10 calls between syncs, median of 20 groups), through the wrapper and,
+where the tree's kernels are ``torch.library`` ops, through the op's CUDA
+implementation called directly (the launch without the op's dispatch). ``slice`` times K1 through its wrapper at the BGR slice's shape (8
+800x1024 bf16 images, C = 3) and the slice's img/s: ``chip_smoke.py``'s
+calibrated R101-FPN (seed 0) through ``Predictor.infer``, 12 batches of 8
+between CUDA events, three readings. Each tree is timed in a process of its own, which builds that
 checkout's kernels, in the order given (for example parent, change, change,
 parent). A run is three readings per case, each the median of 5 groups of
 10 back-to-back calls timed with CUDA events. Prints one line per tree and a
-JSON object last.
+JSON object last. Each group's start event is queued behind one untimed
+call, so a call's host time (the op's dispatch included) overlaps the
+device work before it and the readings are device time while the host
+keeps ahead.
 
 ``sass`` compiles ``csrc/SOURCE.cu`` of both trees for ``sm_90a`` and
 compares, with ``cuobjdump -sass``, the kernel whose mangled name matches
@@ -53,6 +63,7 @@ def ms(fn):
     times = []
     for _ in range(5):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn()  # queued ahead of the start event: the first timed call's host time is hidden too
         a.record()
         for _ in range(10):
             fn()
@@ -84,7 +95,24 @@ print(json.dumps(out))
 """
 
 _ROI_ALIGN = _MS + r"""
+import time
 from proben_tpu_torch.ops import roi_align_cuda as rc
+
+def host_us(fn, n=10):
+    # host time of one call: n calls between syncs (the queue never fills),
+    # median of 20 groups
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t) / n * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
 _build.build(["roi_align_fwd", "roi_align_bwd"])
 levels = [torch.randn(8, 200 >> i, 256 >> i, 256, generator=g, device="cuda").bfloat16()
           for i in range(4)]
@@ -99,7 +127,13 @@ fwd = rc.window_inputs(levels, boxes(1000), (4, 8, 16, 32))[:5]
 bwd = rc.window_inputs(levels, boxes(512), (4, 8, 16, 32))[:5]
 cot = (0.01 * torch.randn(8 * 512, 7, 7, 256, generator=g, device="cuda")).bfloat16()
 out = {"K2": [ms(lambda: rc.roi_align_fwd(levels, *fwd, 1000)) for _ in range(3)],
-       "K3": [ms(lambda: rc.roi_align_bwd(cot, shapes, *bwd, 512)) for _ in range(3)]}
+       "K3": [ms(lambda: rc.roi_align_bwd(cot, shapes, *bwd, 512)) for _ in range(3)],
+       "K2 host us": [host_us(lambda: rc.roi_align_fwd(levels, *fwd, 1000)) for _ in range(3)],
+       "K3 host us": [host_us(lambda: rc.roi_align_bwd(cot, shapes, *bwd, 512)) for _ in range(3)]}
+if hasattr(rc, "_roi_align_fwd_cuda"):  # the ops' CUDA implementations called directly
+    flat = [d for s in shapes for d in s]
+    out["K2 impl host us"] = [host_us(lambda: rc._roi_align_fwd_cuda(levels, *fwd, 1000)) for _ in range(3)]
+    out["K3 impl host us"] = [host_us(lambda: rc._roi_align_bwd_cuda(cot, flat, *bwd, 512)) for _ in range(3)]
 if getattr(rc, "MAX_P", 8) >= 14:  # the C4 pooler: one 50 x 64 level at C = 1024, P = 14
     res4 = [torch.randn(8, 50, 64, 1024, generator=g, device="cuda").bfloat16()]
     zero = lambda k: torch.zeros(8, k, dtype=torch.int32, device="cuda")
@@ -113,7 +147,43 @@ if getattr(rc, "MAX_P", 8) >= 14:  # the C4 pooler: one 50 x 64 level at C = 102
 print(json.dumps(out))
 """
 
-TIMINGS = {"image_io": _IMAGE_IO, "roi_align": _ROI_ALIGN}
+_SLICE = _MS + r"""
+import chip_smoke as cs
+from proben_tpu_torch.engine import Predictor
+from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
+from proben_tpu_torch.ops import stem_cuda
+_build.build(["stem", "roi_align_fwd"])
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+x = (torch.rand(8, 800, 1024, 3, generator=g, device="cuda") * 255).bfloat16()
+w = (0.03 * torch.randn(7, 7, 3, 64, generator=g, device="cuda")).bfloat16()
+scale, bias = torch.ones(64, device="cuda").bfloat16(), torch.zeros(64, device="cuda").bfloat16()
+out = {"K1": [ms(lambda: stem_cuda.stem_pool(x, w, scale, bias)) for _ in range(3)]}
+cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
+model = build_model(cfg, params=random_affines(init_rcnn(0, cfg), 0))
+rng = np.random.RandomState(0)
+images = [torch.from_numpy(a).cuda() for a in cs.structured_images(rng, 2, 8, 800, 1024, 3)]
+sizes = torch.tensor([[800, 1000]] * 8, dtype=torch.int32, device="cuda")
+cs.calibrate_rpn(model, images[0])
+pred = Predictor(model, cfg)
+cs.calibrate(model, pred, images[0], sizes)
+rates = []
+for _ in range(3):
+    for i in range(2):
+        pred.infer(images[i], sizes, sizes)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for i in range(12):
+        pred.infer(images[i % 2], sizes, sizes)
+    b.record()
+    torch.cuda.synchronize()
+    rates.append(8 * 12 / (a.elapsed_time(b) / 1e3))
+out["slice img/s"] = rates
+print(json.dumps(out))
+"""
+
+TIMINGS = {"image_io": _IMAGE_IO, "roi_align": _ROI_ALIGN, "slice": _SLICE}
 
 
 def run_trees(trees, timing: str, key: str) -> int:

@@ -3,9 +3,10 @@
 ``detectron2/layers/batch_norm.py``).
 
 * FrozenBN (:14) is a folded affine -- see ``layers.Affine``/``fold_batchnorm``.
-* ``sync_batch_norm``: NaiveSyncBatchNorm (:163) on one process. The JAX
-  package reduces the statistics over a data-mesh axis; the port runs on
-  one device, and a cross-device group raises (ROADMAP 13, DDP).
+* ``sync_batch_norm``: NaiveSyncBatchNorm (:163). With a process group the
+  mean and the mean of squares are averaged over its ranks by an
+  autograd-aware all-reduce (JAX: ``lax.pmean`` over the data-mesh axis),
+  so the statistics are the global batch's.
 * ``precise_bn_stats`` recomputes running statistics over N batches
   (the PreciseBN hook, reference ``engine/hooks.py:358``).
 """
@@ -36,16 +37,22 @@ def sync_batch_norm(
     momentum: float = 0.1,
     eps: float = 1e-5,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Returns (normalized x, updated params), per-device statistics (plain
-    BN). ``group`` (the JAX ``axis_name``: statistics across devices) is not
-    ported."""
-    if group is not None:
-        raise NotImplementedError(
-            "sync_batch_norm across devices needs the data-parallel trainer (ROADMAP 13, DDP: "
-            "parallel/mesh.py), which is not ported; the port runs on one device")
+    """Returns (normalized x, updated params). ``group`` (a process group,
+    e.g. ``torch.distributed.group.WORLD``; the JAX ``axis_name``): the
+    statistics are averaged over its ranks (SyncBN; equal shards give the
+    global batch's); without it, per-device statistics (plain BN)."""
     if training:
         mean = torch.mean(x, dim=(0, 1, 2))
         meansqr = torch.mean(x * x, dim=(0, 1, 2))
+        if group is not None:
+            from torch.distributed.nn.functional import all_reduce
+
+            if not torch.distributed.is_initialized():
+                raise RuntimeError("sync_batch_norm: a group needs an initialised process group "
+                                   "(torch.distributed.init_process_group)")
+            world = torch.distributed.get_world_size(group)
+            stats = all_reduce(torch.stack([mean, meansqr]), group=group) / world
+            mean, meansqr = stats[0], stats[1]
         var = meansqr - mean * mean
         new_params = dict(params)
         new_params["running_mean"] = (1 - momentum) * params["running_mean"] + momentum * mean

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.roi_align_cuda import single_level_roi_align
+from ..ops.sampling import Draws
 from ..structures.detections import Detections, GroundTruth
 from .anchors import multilevel_anchors
 from .box_head import OutputLayers, apply_output_layers, init_output_layers
@@ -116,7 +117,7 @@ def rcnn_c4_train_losses(
     images: torch.Tensor,  # (N, H, W, C) raw 0..255
     image_sizes: torch.Tensor,  # (N, 2)
     gt: GroundTruth,  # batched (N, G)
-    generator: torch.Generator,
+    generator: Draws,
 ) -> Dict[str, torch.Tensor]:
     """Training losses, each the mean over images: the RPN's, then the box
     predictor's on the sampled RoIs (sampled with ``generator``, detached

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.box_transform import apply_deltas
+from ..ops.sampling import Draws
 from ..structures.boxes import clip_boxes
 from ..structures.detections import Detections, GroundTruth
 from .box_head import (
@@ -137,7 +138,7 @@ def cascade_train_losses(
     proposal_boxes: Tensor,  # (B, R, 4), detached
     proposal_valid: Tensor,  # (B, R)
     gt: GroundTruth,  # batched (B, G)
-    generator: torch.Generator,
+    generator: Draws,
     roi_cfg: ROIHeadsConfig,
     rcnn_cfg: FastRCNNConfig,
     dtype=None,

@@ -10,6 +10,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..ops.sampling import Draws
 from ..structures.detections import GroundTruth
 from .rcnn import RCNN, ModelConfig, anchors_for, extract_features, preprocess, propose, rpn_outputs
 from .rpn import rpn_losses
@@ -26,7 +27,7 @@ def proposal_network_inference(
 
 def proposal_network_losses(
     model: RCNN, cfg: ModelConfig, images: torch.Tensor, image_sizes: torch.Tensor,
-    gt: GroundTruth, generator: torch.Generator,
+    gt: GroundTruth, generator: Draws,
 ) -> Dict[str, torch.Tensor]:
     """The RPN's losses (``loss_rpn_cls``, ``loss_rpn_loc``), each the mean
     over images, the anchors sampled with ``generator``."""

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..ops.sampling import Draws
 from ..structures.boxes import clip_boxes
 from ..structures.detections import Detections, GroundTruth
 from .anchors import multilevel_anchors
@@ -342,7 +343,7 @@ def rcnn_train_losses(
     images: torch.Tensor,  # (N, H, W, C) raw 0..255
     image_sizes: torch.Tensor,  # (N, 2)
     gt: GroundTruth,  # batched (N, G)
-    generator: torch.Generator,
+    generator: Draws,
 ) -> Dict[str, torch.Tensor]:
     """Training losses, each the mean over images of the per-image loss.
     The RPN anchors and then the RoIs are sampled with ``generator``; the

@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..ops.stem_cuda import StemPool, stem_supported
+from ..ops.stem_cuda import stem_pool, stem_supported
 from .layers import Affine, Conv, affine, conv2d, init_affine, init_conv
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -128,7 +128,7 @@ def apply_stem(stem: Stem, x: torch.Tensor, dtype=None, stem_impl: str = "kernel
     conv1, norm1 = stem.conv1, stem.norm1
     o, c, kh, kw = conv1.weight.shape
     if stem_impl == "kernel" and stem_supported(c, o, kh, kw, dtype):
-        h = StemPool.apply(
+        h = stem_pool(
             x.permute(0, 2, 3, 1).to(dtype).contiguous(),
             conv1.weight.permute(2, 3, 1, 0).to(dtype).contiguous(),
             norm1.scale.to(dtype),

@@ -12,7 +12,7 @@ import torch.nn as nn
 
 from ..ops.matcher import match
 from ..ops.roi_align_cuda import multilevel_roi_align
-from ..ops.sampling import sample_topk_indices
+from ..ops.sampling import Draws, sample_topk_indices
 from ..structures.boxes import pairwise_iou
 from ..structures.detections import Detections, GroundTruth
 from .box_head import BoxHead, OutputLayers, apply_box_head, apply_output_layers
@@ -58,7 +58,7 @@ def label_and_sample_proposals(
     proposal_boxes: torch.Tensor,  # (B, P, 4)
     proposal_valid: torch.Tensor,  # (B, P)
     gt: GroundTruth,  # batched (B, G)
-    generator: torch.Generator,
+    generator: Draws,
     cfg: ROIHeadsConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gt boxes are appended to the proposals, matched at

@@ -21,7 +21,7 @@ import torch.nn as nn
 from ..ops.box_transform import apply_deltas, get_deltas
 from ..ops.matcher import match
 from ..ops.nms import nms_mask
-from ..ops.sampling import sample_topk_indices
+from ..ops.sampling import Draws, sample_topk_indices
 from ..ops.topk import topk_stable
 from ..structures.boxes import clip_boxes, nonempty_boxes, pairwise_iou
 from .fast_rcnn import smooth_l1, take_rows
@@ -162,7 +162,7 @@ def rpn_losses(
     anchors: Sequence[Tensor],  # per level (HWA, 4)
     gt_boxes: Tensor,  # (B, G, 4)
     gt_valid: Tensor,  # (B, G)
-    generator: torch.Generator,
+    generator: Draws,
     cfg: RPNConfig,
 ) -> Dict[str, Tensor]:
     """Per-image RPN losses, each (B,): objectness BCE over the sampled

@@ -11,6 +11,11 @@ later boxes, so this converges to the exact greedy answer in at most the
 length of the longest suppression chain. Every function takes leading batch
 dimensions (images, FPN levels): one iteration is one batched matvec for all
 problems, and the loop pays one host sync per iteration, not one per image.
+The loop is the ``torch.library`` custom op ``proben::nms_fixpoint``, the
+same code on every device: ``torch.export`` keeps it as one opaque node
+(its fake gives the mask's shape), and ``utils.analysis.flop_count`` counts
+it as nothing (no flop formula: its 0/1 products solve the greedy
+recurrence, they are no model work).
 """
 
 from __future__ import annotations
@@ -18,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from ..structures.boxes import pairwise_iou
-from ..utils.analysis import reported_work
 
 _NEG_INF = -1e10
 
@@ -42,18 +46,31 @@ def nms_mask(
     iou = pairwise_iou(sboxes, sboxes)
     tri = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
     suppress = (iou > iou_threshold) & tri & svalid[..., :, None] & svalid[..., None, :]
+    keep = torch.ops.proben.nms_fixpoint(suppress, svalid)
+    return torch.zeros_like(valid).scatter(-1, order, keep)
+
+
+@torch.library.custom_op("proben::nms_fixpoint", mutates_args=())
+def nms_fixpoint(suppress: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The greedy keep mask over score-sorted boxes: ``keep <- valid &
+    ~(keep @ suppress)`` from ``keep = valid`` until nothing changes.
+    ``suppress`` (..., N, N) bool, [i, j] where box i suppresses box j;
+    ``valid`` (..., N) bool."""
     # 0/1 products summed in f32 are exact for any n the detector uses
     suppress_f = suppress.to(torch.float32)
+    keep = valid
+    for _ in range(valid.shape[-1]):
+        hit = torch.matmul(keep.to(torch.float32)[..., None, :], suppress_f)[..., 0, :]
+        new_keep = valid & ~(hit > 0.5)
+        if torch.equal(new_keep, keep):
+            break
+        keep = new_keep
+    return keep.clone()
 
-    keep = svalid
-    with reported_work(0):  # NMS is no model work for utils.analysis.flop_count
-        for _ in range(n):
-            hit = torch.matmul(keep.to(torch.float32)[..., None, :], suppress_f)[..., 0, :]
-            new_keep = svalid & ~(hit > 0.5)
-            if torch.equal(new_keep, keep):
-                break
-            keep = new_keep
-    return torch.zeros_like(valid).scatter(-1, order, keep)
+
+@nms_fixpoint.register_fake
+def _nms_fixpoint_fake(suppress, valid):
+    return torch.empty_like(valid)
 
 
 def batched_nms_mask(

@@ -10,19 +10,21 @@ where ``Wy`` (P, WIN) folds each output row's bilinear weights and the
 (``sampling_ratio=0``) is exact at the same cost as any static ratio. These
 functions build the weights and origins that kernels K2 and K3
 (``ops/roi_align_cuda.py``) consume, hold K2's pooling arithmetic
-(``pool_from_windows``) and K3's plain version (``roi_align_bwd_plain``),
+(``pool_from_windows``) and K3's plain version (``roi_align_bwd_plain``, the
+op ``proben::roi_align_bwd_plain``),
 and re-pool the rare out-of-window RoIs exactly against the whole level map.
 Same arithmetic, in the same order, as the JAX functions.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from ..structures.boxes import clip
-from ..utils.analysis import reported_work
 from .topk import topk_stable
 
 Tensor = torch.Tensor
@@ -115,8 +117,11 @@ def window_origin(start: Tensor, dim: Tensor, pad_dim: Tensor, win: int, align: 
 
 def roi_geometry(boxes: Tensor, lvl_idx: Tensor, strides: Sequence[int], p: int):
     """Per-RoI V2-aligned (y1, x1, bin_h, bin_w) at the assigned level."""
-    inv_strides = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=boxes.device)
-    scale = inv_strides[lvl_idx.long()]
+    # 1 / stride of each box's level, built without a tensor constant (the
+    # exported fallback branch may hold none)
+    scale = torch.zeros(lvl_idx.shape, dtype=torch.float32, device=boxes.device)
+    for i, s in enumerate(strides):
+        scale = torch.where(lvl_idx == i, 1.0 / s, scale)
     x1 = boxes[:, 0] * scale - 0.5
     y1 = boxes[:, 1] * scale - 0.5
     bin_w = (boxes[:, 2] * scale - 0.5 - x1) / p
@@ -183,15 +188,17 @@ def pool_from_windows(windows: Tensor, wy: Tensor, wx: Tensor, out_dtype) -> Ten
 
 
 def roi_align_flops(wy: Tensor, wx: Tensor, c: int) -> int:
-    """RoIAlign's own work, which K2, K3 and their plain versions report to
-    ``utils.analysis.flop_count`` (not the plain versions' dense
-    contractions over each RoI's whole window): each output bin (r, p, q)
+    """RoIAlign's own work, the flop formula of the ops ``proben::
+    roi_align_fwd`` and ``proben::roi_align_bwd`` (K2, K3) and of their
+    plain versions' ops that ``utils.analysis.flop_count`` reads (not the
+    plain versions' dense contractions over each RoI's whole window, which
+    compute it): each output bin (r, p, q)
     is a weighted sum of the level pixels its bilinear samples touch, the
     nonzero entries of wy[r, p] times those of wx[r, q] (the composite
     weights merge the samples' taps), so a multiply and an add per touched
     pixel and channel: 2 * C * sum_r nnz(wy[r]) * nnz(wx[r]). The VJP does
-    the same multiply-adds. It reads the weights (a sync on the card), so
-    it is passed to ``reported_work`` as a function."""
+    the same multiply-adds. It reads the weights (a sync on the card), and
+    is called only inside ``flop_count``."""
     ny = (wy != 0).sum(dim=(1, 2)).to(torch.int64)
     nx = (wx != 0).sum(dim=(1, 2)).to(torch.int64)
     return 2 * int(c) * int((ny * nx).sum())
@@ -206,6 +213,47 @@ def roi_align_bwd_plain(
     wy: Tensor,  # (R, P, WIN_Y) f32
     wx: Tensor,  # (R, P, WIN_X) f32
     rois_per_image: int,
+) -> List[Tensor]:
+    """Plain version of K3 (``_bwd_windows``) on any device, as the op
+    ``proben::roi_align_bwd_plain`` (level shapes as one flat int list),
+    whose flop formula is K3's, ``roi_align_flops``."""
+    flat = [int(d) for s in shapes for d in s]
+    return torch.ops.proben.roi_align_bwd_plain(g, flat, lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+def level_shapes(flat: Sequence[int]) -> List[Tuple[int, ...]]:
+    """Per level (B, H_l, W_l, C) from the flat int list of the ops'
+    schemas."""
+    if len(flat) % 4:
+        raise ValueError(f"roi_align: {len(flat)} shape entries, not 4 per level")
+    return [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
+
+
+@torch.library.custom_op("proben::roi_align_bwd_plain", mutates_args=())
+def _bwd_plain_op(g: Tensor, shapes: List[int], lvl_idx: Tensor, y0: Tensor, x0: Tensor,
+                  wy: Tensor, wx: Tensor, rois_per_image: int) -> List[Tensor]:
+    return _bwd_windows(g, level_shapes(shapes), lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+@_bwd_plain_op.register_fake
+def _bwd_plain_fake(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image):
+    return [g.new_empty(s) for s in level_shapes(shapes)]
+
+
+@register_flop_formula(torch.ops.proben.roi_align_bwd_plain, get_raw=True)
+def _bwd_plain_flops(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image, **kwargs) -> int:
+    return roi_align_flops(wy, wx, g.shape[-1])
+
+
+def _bwd_windows(
+    g: Tensor,
+    shapes: Sequence[Tuple[int, int, int, int]],
+    lvl_idx: Tensor,
+    y0: Tensor,
+    x0: Tensor,
+    wy: Tensor,
+    wx: Tensor,
+    rois_per_image: int,
     chunk: int = 256,
 ) -> List[Tensor]:
     """Plain version of K3, the VJP of the windowed pooling:
@@ -218,7 +266,7 @@ def roi_align_bwd_plain(
     rounded to g's dtype, the scatter accumulated in f32 into zero-padded
     level maps (``index_add_``, no autograd through a gather), then cut to
     each level's true size and rounded. Returns per level (B, H_l, W_l, C)
-    in g's dtype. Reports ``roi_align_flops`` to ``utils.analysis.flop_count``."""
+    in g's dtype."""
     dt = g.dtype
     dev = g.device
     b, c = shapes[0][0], shapes[0][3]
@@ -233,13 +281,12 @@ def roi_align_bwd_plain(
     rows = torch.arange(WIN_Y, device=dev)[None, :] * pad_w[li][:, None]
     cols = torch.arange(WIN_X, device=dev)
     flat = torch.zeros((b * sum(ph * pw for ph, pw in pads), c), dtype=torch.float32, device=dev)
-    with reported_work(lambda: roi_align_flops(wy, wx, c)):
-        for s in range(0, r, chunk):
-            e = min(s + chunk, r)
-            u = torch.einsum("npy,npqc->nyqc", wy[s:e].to(dt).float(), g[s:e].float()).to(dt)
-            contrib = torch.einsum("nqx,nyqc->nyxc", wx[s:e].to(dt).float(), u.float())
-            idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols  # (n, WIN_Y, WIN_X)
-            flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
+    for s in range(0, r, chunk):
+        e = min(s + chunk, r)
+        u = torch.einsum("npy,npqc->nyqc", wy[s:e].to(dt).float(), g[s:e].float()).to(dt)
+        contrib = torch.einsum("nqx,nyqc->nyxc", wx[s:e].to(dt).float(), u.float())
+        idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols  # (n, WIN_Y, WIN_X)
+        flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
     out, off = [], 0
     for (_, h, w, _), (ph, pw) in zip(shapes, pads):
         level = flat[off:off + b * ph * pw].reshape(b, ph, pw, c)
@@ -255,10 +302,14 @@ def wholemap_roi_align(
     strides: Sequence[int],
     output_size: int,
     sampling_ratio: int,
+    level_hw: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> Tensor:
     """Exact pooling of each image's RoIs against its full (unwindowed)
     level maps, f32 (B, R, P, P, C). O(R * H_l * W_l * C) per level and
-    image: only for the few out-of-window RoIs."""
+    image: only for the few out-of-window RoIs. ``level_hw``: the levels'
+    (H, W) as ints, for a caller whose tensors' shapes are traced
+    symbolically (a ``torch.cond`` branch), where the sample-slot counts
+    must stay static."""
     p = output_size
     b, r = boxes.shape[:2]
     dev = boxes.device
@@ -267,7 +318,7 @@ def wholemap_roi_align(
     c = features[0].shape[-1]
     out = torch.zeros((b, r, p, p, c), dtype=torch.float32, device=dev)
     for li, f in enumerate(features):
-        h_l, w_l = f.shape[1], f.shape[2]
+        h_l, w_l = level_hw[li] if level_hw is not None else (f.shape[1], f.shape[2])
         s_hi_y = max(sampling_ratio, -(-h_l // p) + 2)
         s_hi_x = max(sampling_ratio, -(-w_l // p) + 2)
         wy, _ = axis_weights(y1, bin_h, torch.full_like(zero, h_l), zero, h_l, p, sampling_ratio, s_hi_y)
@@ -301,16 +352,44 @@ def apply_oow_fallback(
 ) -> Tensor:
     """Replace up to ``capacity`` out-of-window rows per image (the first
     ones by index) with exact whole-map pooling, all images in one batched
-    pass. Skipped when no row is out of window (one host sync); the pooled
-    tensor is updated in place, which is safe because the caller owns it."""
-    if capacity <= 0 or not bool(oow.any()):
+    pass. Eager: skipped when no row is out of window (one host sync), and
+    the pooled tensor is updated in place, which is safe because the caller
+    owns it. While ``torch.export`` traces, the skip is a ``torch.cond`` on
+    the device and the update is out of place, so the exported program
+    computes what the eager one does."""
+    if capacity <= 0:
         return pooled
     capacity = min(capacity, boxes.shape[1])
+    if torch.compiler.is_exporting():
+        # the branch sees its operands' shapes as symbols: pass the levels'
+        # sizes in as ints
+        level_hw = [(int(f.shape[1]), int(f.shape[2])) for f in features]
+
+        def update(pooled, oow, boxes, lvl_idx, *features):
+            rows, idx, new = _fallback_rows(pooled, oow, features, boxes, lvl_idx, strides,
+                                            output_size, sampling_ratio, capacity, level_hw)
+            return pooled.index_put((rows.expand_as(idx), idx), new)
+
+        return torch.cond(oow.any(), update, lambda pooled, *_: pooled.clone(),
+                          (pooled, oow, boxes, lvl_idx, *features))
+    if not bool(oow.any()):
+        return pooled
+    rows, idx, new = _fallback_rows(pooled, oow, features, boxes, lvl_idx, strides, output_size,
+                                    sampling_ratio, capacity)
+    pooled[rows, idx] = new
+    return pooled
+
+
+def _fallback_rows(pooled, oow, features, boxes, lvl_idx, strides, output_size,
+                   sampling_ratio, capacity, level_hw=None):
+    """(rows, idx, values): the first ``capacity`` rows of each image by
+    out-of-window flag and their new values, whole-map pooled where out of
+    window and as they were elsewhere."""
     _, idx = topk_stable(oow.to(torch.int32), capacity)  # (B, cap), ties -> lower index
     rows = torch.arange(boxes.shape[0], device=boxes.device)[:, None]
     fb = wholemap_roi_align(
-        features, boxes[rows, idx], lvl_idx[rows, idx], strides, output_size, sampling_ratio
+        features, boxes[rows, idx], lvl_idx[rows, idx], strides, output_size, sampling_ratio,
+        level_hw,
     )
     sel = oow[rows, idx][..., None, None, None]
-    pooled[rows, idx] = torch.where(sel, fb.to(pooled.dtype), pooled[rows, idx])
-    return pooled
+    return rows, idx, torch.where(sel, fb.to(pooled.dtype), pooled[rows, idx])

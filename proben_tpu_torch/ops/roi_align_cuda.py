@@ -4,11 +4,20 @@ and K3 (backward, ``csrc/roi_align_bwd.cu``), their plain versions, and
 
 Counterpart of ``proben_tpu/ops/roi_align_pallas.py::multilevel_roi_align_pallas``
 and its training wrapper: level assignment and window weights
-(``ops/roi_align.py``) -> the windowed pooling (``WindowedRoIAlign``: K2
+(``ops/roi_align.py``) -> the windowed pooling (``windowed_roi_align``: K2
 forward, K3 backward) -> exact whole-map re-pooling of out-of-window RoIs.
 Each RoI's pooled rows land at its own index, so callers need no
-permutation. ``roi_align_fwd`` and ``roi_align_bwd`` launch their kernels on
-CUDA tensors and run the plain versions only on CPU tensors.
+permutation. ``roi_align_fwd`` and ``roi_align_bwd`` are the ``torch.library``
+custom ops ``proben::roi_align_fwd`` and ``proben::roi_align_bwd``: the CPU
+implementation of each is its plain version, the CUDA implementation its
+kernel, and each has a fake (output shapes, so ``torch.export`` traces
+through them) and a flop formula (``roi_align_flops``, read by
+``utils.analysis.flop_count``). The forward op's registered backward is the
+backward op. The plain versions ``roi_align_fwd_plain`` and
+``roi_align_bwd_plain`` are ops too (``proben::roi_align_fwd_plain``,
+``proben::roi_align_bwd_plain``), on every device and with the same flop
+formula, so a path through the kernels and one through the plain versions
+count the same.
 """
 
 from __future__ import annotations
@@ -17,14 +26,15 @@ import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
-from ..utils.analysis import reported_work
 from .roi_align import (
     WIN_X,
     WIN_Y,
     apply_oow_fallback,
     build_window_weights,
+    level_shapes,
     pad_level,
     padded_size,
     pool_from_windows,
@@ -70,12 +80,56 @@ def roi_align_fwd_plain(
     wy: Tensor,  # (R, P, WIN_Y) f32
     wx: Tensor,  # (R, P, WIN_X) f32
     rois_per_image: int,
-    chunk: int = 256,
 ) -> Tensor:
-    """Plain version of K2: gather each RoI's (WIN_Y, WIN_X, C) window from
-    the zero-padded level and pool it with ``pool_from_windows``, ``chunk``
-    RoIs at a time to bound the window memory. Returns (R, P, P, C).
-    Reports ``roi_align_flops`` to ``utils.analysis.flop_count``."""
+    """Plain version of K2 (``_fwd_windows``) on any device, as the op
+    ``proben::roi_align_fwd_plain``, whose flop formula is K2's,
+    ``roi_align_flops``. Differentiable with respect to the features: the
+    registered backward recomputes the plain composition and differentiates
+    it (autograd through its gather and contractions, not
+    ``roi_align_bwd_plain``). Returns (R, P, P, C)."""
+    return torch.ops.proben.roi_align_fwd_plain(list(features), lvl_idx, y0, x0, wy, wx,
+                                                rois_per_image)
+
+
+@torch.library.custom_op("proben::roi_align_fwd_plain", mutates_args=())
+def _fwd_plain_op(features: List[Tensor], lvl_idx: Tensor, y0: Tensor, x0: Tensor,
+                  wy: Tensor, wx: Tensor, rois_per_image: int) -> Tensor:
+    return _fwd_windows(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+@_fwd_plain_op.register_fake
+def _fwd_plain_fake(features, lvl_idx, y0, x0, wy, wx, rois_per_image):
+    r, p = wy.shape[0], wy.shape[1]
+    return features[0].new_empty((r, p, p, features[0].shape[-1]))
+
+
+def _fwd_plain_setup(ctx, inputs, output):
+    features, lvl_idx, y0, x0, wy, wx, rois_per_image = inputs
+    ctx.save_for_backward(lvl_idx, y0, x0, wy, wx, *features)
+    ctx.rois_per_image = rois_per_image
+
+
+def _fwd_plain_backward(ctx, g):
+    lvl_idx, y0, x0, wy, wx, *features = ctx.saved_tensors
+    leaves = [f.detach().requires_grad_() for f in features]
+    with torch.enable_grad():
+        out = _fwd_windows(leaves, lvl_idx, y0, x0, wy, wx, ctx.rois_per_image)
+    return list(torch.autograd.grad(out, leaves, g)), None, None, None, None, None, None
+
+
+_fwd_plain_op.register_autograd(_fwd_plain_backward, setup_context=_fwd_plain_setup)
+
+
+@register_flop_formula(torch.ops.proben.roi_align_fwd_plain, get_raw=True)
+def _fwd_plain_flops(features, lvl_idx, y0, x0, wy, wx, rois_per_image, **kwargs) -> int:
+    return roi_align_flops(wy, wx, features[0].shape[-1])
+
+
+def _fwd_windows(features, lvl_idx, y0, x0, wy, wx, rois_per_image: int, chunk: int = 256) -> Tensor:
+    """The plain composition of K2: gather each RoI's (WIN_Y, WIN_X, C)
+    window from the zero-padded level and pool it with
+    ``pool_from_windows``, ``chunk`` RoIs at a time to bound the window
+    memory."""
     feats = [pad_level(f) for f in features]
     b, c = feats[0].shape[0], feats[0].shape[-1]
     dev = feats[0].device
@@ -90,11 +144,10 @@ def roi_align_fwd_plain(
     rows = torch.arange(WIN_Y, device=dev)[None, :] * pad_w[li][:, None]
     cols = torch.arange(WIN_X, device=dev)
     out = torch.empty((r, p, p, c), dtype=feats[0].dtype, device=dev)
-    with reported_work(lambda: roi_align_flops(wy, wx, c)):
-        for s in range(0, r, chunk):
-            e = min(s + chunk, r)
-            idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols
-            out[s:e] = pool_from_windows(flat[idx], wy[s:e], wx[s:e], out.dtype)
+    for s in range(0, r, chunk):
+        e = min(s + chunk, r)
+        idx = (base[s:e, None] + rows[s:e])[:, :, None] + cols
+        out[s:e] = pool_from_windows(flat[idx], wy[s:e], wx[s:e], out.dtype)
     return out
 
 
@@ -107,15 +160,25 @@ def roi_align_fwd(
     wx: Tensor,
     rois_per_image: int,
 ) -> Tensor:
-    """Windowed pooling of every RoI; (R, P, P, C) in the features' dtype.
-    Launches K2 for CUDA tensors, runs the plain version for CPU tensors,
-    raises on anything else. Both branches report ``roi_align_flops`` to
-    ``flop_count`` (the plain version reports it itself)."""
+    """Windowed pooling of every RoI; (R, P, P, C) in the features' dtype,
+    differentiable with respect to the features (the backward is
+    ``roi_align_bwd``). The op ``proben::roi_align_fwd``: launches K2 for
+    CUDA tensors, runs the plain version for CPU tensors, raises on
+    anything else."""
+    if features[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"roi_align_fwd: unsupported device {features[0].device}")
+    return torch.ops.proben.roi_align_fwd(list(features), lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+@torch.library.custom_op("proben::roi_align_fwd", mutates_args=(), device_types="cpu")
+def _roi_align_fwd_op(features: List[Tensor], lvl_idx: Tensor, y0: Tensor, x0: Tensor,
+                      wy: Tensor, wx: Tensor, rois_per_image: int) -> Tensor:
+    return roi_align_fwd_plain(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+@_roi_align_fwd_op.register_kernel("cuda")
+def _roi_align_fwd_cuda(features, lvl_idx, y0, x0, wy, wx, rois_per_image):
     f0 = features[0]
-    if f0.device.type == "cpu":
-        return roi_align_fwd_plain(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
-    if f0.device.type != "cuda":
-        raise ValueError(f"roi_align_fwd: unsupported device {f0.device}")
     if not 1 <= len(features) <= 4:
         raise ValueError(f"roi_align_fwd: 1..4 levels, got {len(features)}")
     b, c = f0.shape[0], f0.shape[-1]
@@ -136,7 +199,7 @@ def roi_align_fwd(
     levels: List[Tensor] = list(features) + [f0] * (4 - len(features))
     lib = _build.load("roi_align_fwd", _SIG)
     fn = lib.roi_align_fwd_bf16 if f0.dtype == torch.bfloat16 else lib.roi_align_fwd_f32
-    with torch.cuda.device(f0.device), reported_work(lambda: roi_align_flops(wy, wx, c)):
+    with torch.cuda.device(f0.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             *[f.data_ptr() for f in levels],
@@ -149,6 +212,38 @@ def roi_align_fwd(
     global launches
     launches += 1
     return out
+
+
+@_roi_align_fwd_op.register_fake
+def _roi_align_fwd_fake(features, lvl_idx, y0, x0, wy, wx, rois_per_image):
+    r, p = wy.shape[0], wy.shape[1]
+    return features[0].new_empty((r, p, p, features[0].shape[-1]))
+
+
+def _roi_align_fwd_setup(ctx, inputs, output):
+    # the window inputs only, never the output: a caller may overwrite rows
+    # of the output in place (``apply_oow_fallback``), and autograd then
+    # hands the backward a zero cotangent for exactly those rows
+    features, lvl_idx, y0, x0, wy, wx, rois_per_image = inputs
+    ctx.save_for_backward(lvl_idx, y0, x0, wy, wx)
+    ctx.rois_per_image = rois_per_image
+    ctx.shapes = [tuple(f.shape) for f in features]
+
+
+def _roi_align_fwd_backward(ctx, g):
+    """Window inputs get no gradient: the proposals are detached, as the
+    JAX package returns zeros for the boxes."""
+    lvl_idx, y0, x0, wy, wx = ctx.saved_tensors
+    dfs = roi_align_bwd(g.contiguous(), ctx.shapes, lvl_idx, y0, x0, wy, wx, ctx.rois_per_image)
+    return list(dfs), None, None, None, None, None, None
+
+
+_roi_align_fwd_op.register_autograd(_roi_align_fwd_backward, setup_context=_roi_align_fwd_setup)
+
+
+@register_flop_formula(torch.ops.proben.roi_align_fwd, get_raw=True)
+def _roi_align_fwd_flops(features, lvl_idx, y0, x0, wy, wx, rois_per_image, **kwargs) -> int:
+    return roi_align_flops(wy, wx, features[0].shape[-1])
 
 
 def _check_windows(what, dev, r, p, lvl_idx, y0, x0, wy, wx):
@@ -174,20 +269,31 @@ def roi_align_bwd(
     rois_per_image: int,
 ) -> List[Tensor]:
     """The VJP of ``roi_align_fwd`` with respect to the features: one
-    (B, H_l, W_l, C) tensor per level in g's dtype. Launches K3 for CUDA
-    tensors, runs ``roi_align_bwd_plain`` for CPU tensors, raises on
-    anything else. Both branches report ``roi_align_flops`` to
-    ``flop_count`` (the plain version reports it itself)."""
-    if g.device.type == "cpu":
-        return roi_align_bwd_plain(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image)
-    if g.device.type != "cuda":
+    (B, H_l, W_l, C) tensor per level in g's dtype. The op
+    ``proben::roi_align_bwd`` (whose schema takes the level shapes as one
+    flat int list): launches K3 for CUDA tensors, runs
+    ``roi_align_bwd_plain`` for CPU tensors, raises on anything else."""
+    if g.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roi_align_bwd: unsupported device {g.device}")
+    flat = [int(d) for s in shapes for d in s]
+    return torch.ops.proben.roi_align_bwd(g, flat, lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+@torch.library.custom_op("proben::roi_align_bwd", mutates_args=(), device_types="cpu")
+def _roi_align_bwd_op(g: Tensor, shapes: List[int], lvl_idx: Tensor, y0: Tensor, x0: Tensor,
+                      wy: Tensor, wx: Tensor, rois_per_image: int) -> List[Tensor]:
+    return torch.ops.proben.roi_align_bwd_plain(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image)
+
+
+@_roi_align_bwd_op.register_kernel("cuda")
+def _roi_align_bwd_cuda(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image):
+    shapes = level_shapes(shapes)
     if not 1 <= len(shapes) <= 4:
         raise ValueError(f"roi_align_bwd: 1..4 levels, got {len(shapes)}")
     if g.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"roi_align_bwd: g must be bf16 or f32, got {g.dtype}")
     b, c = shapes[0][0], shapes[0][3]
-    if any(len(s) != 4 or s[0] != b or s[3] != c for s in shapes):
+    if any(s[0] != b or s[3] != c for s in shapes):
         raise ValueError(f"roi_align_bwd: level shapes {list(shapes)} differ in batch or width")
     r, p = wy.shape[0], wy.shape[1]
     if (g.dim() != 4 or tuple(g.shape) != (r, p, p, c) or not g.is_contiguous()
@@ -204,7 +310,7 @@ def roi_align_bwd(
     ws = [s[2] for s in shapes] + [shapes[0][2]] * pad
     lib = _build.load("roi_align_bwd", _BWD_SIG)
     fn = lib.roi_align_bwd_bf16 if g.dtype == torch.bfloat16 else lib.roi_align_bwd_f32
-    with torch.cuda.device(g.device), reported_work(lambda: roi_align_flops(wy, wx, c)):
+    with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
             g.data_ptr(), lvl_idx.data_ptr(), y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
@@ -218,30 +324,44 @@ def roi_align_bwd(
     return outs
 
 
-class WindowedRoIAlign(torch.autograd.Function):
-    """The windowed pooling with its VJP. ``impl="kernel"``: forward
-    ``roi_align_fwd`` (K2), backward ``roi_align_bwd`` (K3); ``"plain"``:
-    both plain versions. Window inputs get no gradient: the proposals are
-    detached, as the JAX package returns zeros for the boxes. The backward
-    saves the window inputs only, never the output, so a caller may
-    overwrite rows of the output in place (``apply_oow_fallback``): autograd
-    then hands the backward a zero cotangent for exactly those rows."""
+@_roi_align_bwd_op.register_fake
+def _roi_align_bwd_fake(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image):
+    return [g.new_empty(s) for s in level_shapes(shapes)]
+
+
+@register_flop_formula(torch.ops.proben.roi_align_bwd, get_raw=True)
+def _roi_align_bwd_flops(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image, **kwargs) -> int:
+    return roi_align_flops(wy, wx, g.shape[-1])
+
+
+class _PlainWindowedRoIAlign(torch.autograd.Function):
+    """The plain versions' ops of the windowed pooling and of its VJP
+    (``impl="plain"``), with ``roi_align_fwd``'s contract: window inputs get
+    no gradient, and the backward saves the window inputs only."""
 
     @staticmethod
-    def forward(ctx, impl, lvl_idx, y0, x0, wy, wx, rois_per_image, *features):
+    def forward(ctx, lvl_idx, y0, x0, wy, wx, rois_per_image, *features):
         ctx.save_for_backward(lvl_idx, y0, x0, wy, wx)
-        ctx.impl = impl
         ctx.rois_per_image = rois_per_image
         ctx.shapes = [tuple(f.shape) for f in features]
-        pool = roi_align_fwd if impl == "kernel" else roi_align_fwd_plain
-        return pool(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
+        return roi_align_fwd_plain(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
 
     @staticmethod
     def backward(ctx, g):
         lvl_idx, y0, x0, wy, wx = ctx.saved_tensors
-        bwd = roi_align_bwd if ctx.impl == "kernel" else roi_align_bwd_plain
-        dfs = bwd(g.contiguous(), ctx.shapes, lvl_idx, y0, x0, wy, wx, ctx.rois_per_image)
-        return (None,) * 7 + tuple(dfs)
+        dfs = roi_align_bwd_plain(g.contiguous(), ctx.shapes, lvl_idx, y0, x0, wy, wx,
+                                  ctx.rois_per_image)
+        return (None,) * 6 + tuple(dfs)
+
+
+def windowed_roi_align(impl: str, lvl_idx, y0, x0, wy, wx, rois_per_image: int,
+                       features: Sequence[Tensor]) -> Tensor:
+    """The windowed pooling with its VJP: ``impl="kernel"`` the op
+    ``roi_align_fwd`` (K2 forward, K3 backward on the card), ``"plain"``
+    both plain versions on any device."""
+    if impl == "kernel":
+        return roi_align_fwd(features, lvl_idx, y0, x0, wy, wx, rois_per_image)
+    return _PlainWindowedRoIAlign.apply(lvl_idx, y0, x0, wy, wx, rois_per_image, *features)
 
 
 def window_inputs(
@@ -309,7 +429,7 @@ def multilevel_roi_align(
         features, boxes, strides, p, sampling_ratio, min_level, canonical_box_size,
         canonical_level, s_max, levels,
     )
-    pooled = WindowedRoIAlign.apply(impl, lvl_idx, y0, x0, wy, wx, k, *features)
+    pooled = windowed_roi_align(impl, lvl_idx, y0, x0, wy, wx, k, features)
     pooled = pooled.reshape(b, k, p, p, -1)
     return apply_oow_fallback(
         pooled, oow.reshape(b, k), features, boxes, lvl_idx.reshape(b, k), strides, p,

@@ -7,15 +7,36 @@ an explicit ``torch.Generator`` (JAX draws other numbers from its keys, so
 only the distribution is shared); the bounded top-k over
 ``where(mask, rand, -1.0)`` breaks ties toward the lower index
 (``ops/topk.py``), as ``lax.top_k`` does.
+
+A data-parallel training step passes a ``GlobalBatchDraws`` in place of the
+generator: each draw is made for the global batch of ``world`` equal shards
+and the rank keeps its own rows, so every rank samples what the one-device
+step samples for those images.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Tuple, Union
 
 import torch
 
 from .topk import topk_stable
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalBatchDraws:
+    """The draws of a data-parallel rank: ``generator`` draws the
+    priorities of the whole global batch, of which the leading axis of
+    every ``labels`` here is the ``rank``-th of ``world`` equal shards, and
+    the rank keeps its own rows."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+Draws = Union[torch.Generator, GlobalBatchDraws]
 
 
 def _counts(labels: torch.Tensor, num_samples: int, positive_fraction: float):
@@ -26,8 +47,13 @@ def _counts(labels: torch.Tensor, num_samples: int, positive_fraction: float):
     return pos_mask, neg_mask, num_pos, num_neg
 
 
-def _priorities(labels: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    return torch.rand(labels.shape, generator=generator, device=labels.device)
+def _priorities(labels: torch.Tensor, draws: Draws) -> torch.Tensor:
+    if isinstance(draws, torch.Generator):
+        return torch.rand(labels.shape, generator=draws, device=labels.device)
+    b = labels.shape[0]
+    rand = torch.rand((draws.world * b,) + tuple(labels.shape[1:]), generator=draws.generator,
+                      device=labels.device)
+    return rand[draws.rank * b:(draws.rank + 1) * b]
 
 
 def _pick_random_subset(mask, rand, k: int, limit) -> torch.Tensor:
@@ -41,7 +67,7 @@ def subsample_labels(
     labels: torch.Tensor,  # (..., N) int; 1 = positive, 0 = negative, -1 = ignore
     num_samples: int,
     positive_fraction: float,
-    generator: torch.Generator,
+    generator: Draws,
 ) -> torch.Tensor:
     """``labels`` with every entry not sampled set to -1 (int32)."""
     pos_mask, neg_mask, num_pos, num_neg = _counts(labels, num_samples, positive_fraction)
@@ -56,7 +82,7 @@ def sample_topk_indices(
     labels: torch.Tensor,  # (..., N) int; 1 = positive, 0 = negative, -1 = ignore
     num_samples: int,
     positive_fraction: float,
-    generator: torch.Generator,
+    generator: Draws,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A fixed-size sampled index set, positives first: (idx (..., S) int64
     with unused slots 0, sampled_is_pos (..., S), sampled_valid (..., S)),

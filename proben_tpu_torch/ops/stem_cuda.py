@@ -8,9 +8,13 @@ The kernel computes the conv as an implicit GEMM on the tensor cores over a
 space-to-depth regrouping; ``space_to_depth_input``, ``pack_stem_weights``
 and ``stem_conv_s2d`` build its operands and compute the conv from them on
 any device, so the index mapping is testable without a card.
-``StemPool`` makes it differentiable as ``stem_pool_pallas``'s custom VJP
-does: the forward is the kernel, the backward recomputes through the plain
-composition (the TPU kernel has no backward kernel either).
+``stem_pool`` is the ``torch.library`` custom op ``proben::stem_pool``:
+its CPU implementation is the plain version, its CUDA implementation the
+kernel, its fake gives the output's shape (so ``torch.export`` traces
+through it) and its flop formula ``stem_flops`` (``utils.analysis.
+flop_count``). Its registered backward is ``stem_pool_pallas``'s custom
+VJP: it recomputes the plain composition and differentiates it (the TPU
+kernel has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -19,9 +23,9 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
-from ..utils.analysis import reported_work
 
 # launches of the CUDA kernel (never of the plain version)
 launches = 0
@@ -85,9 +89,10 @@ def stem_conv_s2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def stem_flops(n: int, h: int, w: int, c: int) -> int:
-    """The stem's work by ``utils.analysis.flop_count``'s rule: its 7x7/s2
-    conv's products, 2 * N * Hs * Ws * 64 * 49 * C (what the mode counts for
-    ``stem_pool_plain``'s conv; the affine, ReLU and pool count nothing)."""
+    """The stem's work by ``utils.analysis.flop_count``'s rule, the op's
+    flop formula: its 7x7/s2 conv's products, 2 * N * Hs * Ws * 64 * 49 * C
+    (what the mode counts for ``stem_pool_plain``'s conv; the affine, ReLU
+    and pool count nothing)."""
     hs, ws = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     return 2 * n * hs * ws * 64 * 49 * c
 
@@ -113,14 +118,22 @@ def stem_pool(
     scale: torch.Tensor,  # (64,) bf16
     bias: torch.Tensor,  # (64,) bf16 (with any conv bias folded in)
 ) -> torch.Tensor:
-    """Fused stem; (N, Hp, Wp, 64) bf16 NHWC. Launches K1 for CUDA tensors,
-    runs the plain version for CPU tensors, raises on anything else. Both
-    branches report ``stem_flops`` to ``flop_count``."""
-    if x.device.type == "cpu":
-        with reported_work(stem_flops(*x.shape)):
-            return stem_pool_plain(x, w, scale, bias)
-    if x.device.type != "cuda":
+    """Fused stem, differentiable; (N, Hp, Wp, 64) NHWC. The op
+    ``proben::stem_pool``: launches K1 for CUDA tensors, runs the plain
+    version for CPU tensors, raises on anything else."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_pool: unsupported device {x.device}")
+    return torch.ops.proben.stem_pool(x, w, scale, bias)
+
+
+@torch.library.custom_op("proben::stem_pool", mutates_args=(), device_types="cpu")
+def _stem_pool_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    return stem_pool_plain(x, w, scale, bias)
+
+
+@_stem_pool_op.register_kernel("cuda")
+def _stem_pool_cuda(x, w, scale, bias):
     n, h, wd, c = x.shape
     if w.shape != (7, 7, c, 64) or scale.shape != (64,) or bias.shape != (64,):
         raise ValueError(f"stem_pool: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
@@ -138,33 +151,41 @@ def stem_pool(
     with torch.cuda.device(x.device):
         wpk = pack_stem_weights(w)
         stream = torch.cuda.current_stream().cuda_stream
-        with reported_work(stem_flops(n, h, wd, c)):
-            code = lib.stem_pool_bf16(
-                x.data_ptr(), wpk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), n, h, wd, c, hs, ws, hp, wp, stream,
-            )
+        code = lib.stem_pool_bf16(
+            x.data_ptr(), wpk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n, h, wd, c, hs, ws, hp, wp, stream,
+        )
     _build.check(code, "stem_pool")
     global launches
     launches += 1
     return out
 
 
-class StemPool(torch.autograd.Function):
-    """``stem_pool`` with a gradient: K1 forward; the backward recomputes
-    ``stem_pool_plain`` on the saved inputs and differentiates it. Only a
-    trainable stem (``freeze_at == 0``) reaches the backward."""
+@_stem_pool_op.register_fake
+def _stem_pool_fake(x, w, scale, bias):
+    hp, wp = stem_out_hw(x.shape[1], x.shape[2])
+    return x.new_empty((x.shape[0], hp, wp, 64))
 
-    @staticmethod
-    def forward(ctx, x, w, scale, bias):
-        ctx.save_for_backward(x, w, scale, bias)
-        return stem_pool(x, w, scale, bias)
 
-    @staticmethod
-    def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = stem_pool_plain(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+def _stem_pool_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _stem_pool_backward(ctx, g):
+    """Recompute ``stem_pool_plain`` on the saved inputs and differentiate
+    it. Only a trainable stem (``freeze_at == 0``) reaches the backward."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = stem_pool_plain(*inputs)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+_stem_pool_op.register_autograd(_stem_pool_backward, setup_context=_stem_pool_setup)
+
+
+@register_flop_formula(torch.ops.proben.stem_pool)
+def _stem_pool_flops(x_shape, *args, **kwargs) -> int:
+    return stem_flops(*x_shape)

@@ -44,10 +44,15 @@ def box_area(boxes: Tensor) -> Tensor:
 
 
 def clip(x: Tensor, lo: Size, hi: Size) -> Tensor:
-    """``jnp.clip``: minimum(maximum(x, lo), hi), NaN propagating."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    """``jnp.clip``: minimum(maximum(x, lo), hi), NaN propagating. A number
+    bound stays a scalar (``torch.export`` keeps no tensor constant for it)."""
+    if isinstance(lo, Tensor):
+        x = torch.maximum(x, lo.to(x.device, x.dtype))
+    else:
+        x = torch.clamp(x, min=lo)
+    if isinstance(hi, Tensor):
+        return torch.minimum(x, hi.to(x.device, x.dtype))
+    return torch.clamp(x, max=hi)
 
 
 def clip_boxes(boxes: Tensor, image_size: Tuple[Size, Size]) -> Tensor:

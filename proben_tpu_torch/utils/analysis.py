@@ -3,34 +3,31 @@
 analysis; reference ``detectron2/utils/analysis.py:23-66``).
 
 ``flop_count`` counts through ``torch.utils.flop_counter.FlopCounterMode``.
-The port's hand-written kernels (K1 ``ops/stem_cuda.py::stem_pool``, K2
-``ops/roi_align_cuda.py::roi_align_fwd``, K3 ``roi_align_bwd``) launch
-through ctypes, which that mode cannot see, so each wrapper reports its work
-through ``reported_work``, in its kernel branch and in its plain branch alike
-(the mode's own count of the plain branch is replaced by the report), so a
-path through the kernels and one through the plain versions count the same.
-K1 reports its 7x7/s2 conv's products (``ops/stem_cuda.py::stem_flops``,
-what the mode counts for the plain version's conv). K2 and K3 report
-RoIAlign's own arithmetic (``ops/roi_align_cuda.py::roi_align_flops``): a
-multiply and an add per channel for every level pixel that an output bin's
-bilinear samples touch, as this run's RoIs need it; not the dense
-contractions over each RoI's whole window that their plain versions use to
-compute it. NMS reports 0
-(``ops/nms.py``): its fixpoint's 0/1 matrix products are a way to solve the
-greedy recurrence, not model work, and their number follows how the
-suppression chains of the run's boxes fall.
+The port's hand-written kernels are ``torch.library`` custom ops, each with
+a flop formula that the mode reads in place of whatever its implementation
+runs (the kernel on the card, the plain version on the CPU), so both devices
+count the same. K1 (``proben::stem_pool``) counts its 7x7/s2 conv's products
+(``ops/stem_cuda.py::stem_flops``, what the mode counts for the plain
+composition's conv). K2 and K3 (``proben::roi_align_fwd``, ``proben::
+roi_align_bwd``) count RoIAlign's own arithmetic (``ops/roi_align.py::
+roi_align_flops``): a multiply and an add per channel for every level pixel
+that an output bin's bilinear samples touch, as this run's RoIs need it;
+not the dense contractions over each RoI's whole window that their plain
+versions use to compute it. Those plain versions are ops with the same
+formula (``proben::roi_align_fwd_plain``, ``proben::roi_align_bwd_plain``),
+so a path through the kernels and one through the plain versions
+(``stem_impl``, ``roi_align_impl`` "plain") count the same. NMS's fixpoint (``proben::nms_fixpoint``) has no formula and counts 0:
+its 0/1 matrix products are a way to solve the greedy recurrence, not model
+work, and their number follows how the suppression chains of the run's
+boxes fall.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Callable, Dict, Mapping, Union
 
 import numpy as np
 import torch
-
-_active = threading.local()  # the flop_count calls in progress on this thread
 
 
 def _leaves(tree):
@@ -88,51 +85,22 @@ def parameter_count_table(params: Union[torch.nn.Module, Mapping], max_depth: in
     return "\n".join(lines)
 
 
-class _Tally:
-    def __init__(self, mode):
-        self.mode, self.hidden, self.reported = mode, 0, 0
-
-
-@contextlib.contextmanager
-def reported_work(flops: Union[int, Callable[[], int]]):
-    """Report a block's work to every ``flop_count`` in progress on this
-    thread: ``flops`` are counted, and whatever the mode counts inside the
-    block (a kernel wrapper's plain branch, NMS's fixpoint) is not.
-    ``flops`` may be a function of no arguments, called once at the block's
-    end and only inside ``flop_count`` (a count that reads the data). Costs
-    nothing outside ``flop_count``."""
-    tallies = getattr(_active, "tallies", ())
-    if not tallies:
-        yield
-        return
-    before = [t.mode.get_total_flops() for t in tallies]
-    yield
-    n = int(flops() if callable(flops) else flops)
-    for t, b in zip(tallies, before):
-        t.hidden += t.mode.get_total_flops() - b
-        t.reported += n
-
-
 def flop_count(fn: Callable, *example_args) -> int:
     """FLOPs of ``fn(*example_args)``, run once. The rule: products and
     convolutions only, 2 * M * N * K per matrix product (``mm``, ``bmm``,
     ``einsum`` and ``linear`` lowered to them) and 2 * the output's
     elements * the kernel's taps * its input channels per convolution, the
     backward's products where ``fn`` runs one; elementwise work, reductions,
-    pooling, sorting and NMS count nothing. The kernels report their work
-    (``reported_work``; K1 its conv's products, K2 and K3 RoIAlign's
+    pooling, sorting and NMS count nothing. The kernels' ops count by their
+    flop formulas (K1 its conv's products, K2 and K3 RoIAlign's
     multiply-adds per touched pixel and channel). What the run's data
     decides (the RoIs' taps, the out-of-window fallback's pooling) is
     counted as this run needed it."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from ..ops import nms, roi_align_cuda, stem_cuda  # noqa: F401  (the ops' formulas)
+
     mode = FlopCounterMode(display=False)
-    tally = _Tally(mode)
-    tallies = getattr(_active, "tallies", ())
-    _active.tallies = tallies + (tally,)
-    try:
-        with mode:
-            fn(*example_args)
-    finally:
-        _active.tallies = tallies
-    return int(mode.get_total_flops() - tally.hidden + tally.reported)
+    with mode:
+        fn(*example_args)
+    return int(mode.get_total_flops())

@@ -121,8 +121,8 @@ def test_cascade_launches_k2_three_times_per_batch(monkeypatch):
     from proben_tpu_torch.ops import roi_align_cuda
 
     calls = []
-    real = roi_align_cuda.WindowedRoIAlign.apply
-    monkeypatch.setattr(roi_align_cuda.WindowedRoIAlign, "apply",
+    real = roi_align_cuda.windowed_roi_align
+    monkeypatch.setattr(roi_align_cuda, "windowed_roi_align",
                         lambda *a: calls.append(torch.is_grad_enabled()) or real(*a))
     feats, props, valid, gt = _inputs()
     heads = t_cascade.build_cascade_heads(in_channels=C, num_classes=3, device="cpu")

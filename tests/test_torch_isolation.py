@@ -87,6 +87,11 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.utils.serialize
         import proben_tpu_torch.utils.video_visualizer
         import proben_tpu_torch.utils.visualizer
+        import proben_tpu_torch.export
+        import proben_tpu_torch.export.api
+        import proben_tpu_torch.model_zoo
+        import proben_tpu_torch.parallel
+        import proben_tpu_torch.parallel.mesh
         import chip_smoke
         print(sorted(set(foreign()) - before))
         """
@@ -101,8 +106,9 @@ def test_imports_load_no_jax_and_no_proben_tpu():
 def test_imports_load_no_cv2_yaml_or_pil():
     """The runtime slice (config, data, evaluation, native IO, checkpoints,
     the FLIR and KAIST apps, the trainer, its hooks and event writers, and
-    ``train_net``) and the model, ops and training modules load none of
-    cv2, PyYAML or Pillow: the card's machine may lack them."""
+    ``train_net``), the model, ops and training modules, ``export``,
+    ``model_zoo`` and ``parallel`` load none of cv2, PyYAML or Pillow: the
+    card's machine may lack them."""
     code = textwrap.dedent(
         """
         import sys
@@ -130,6 +136,9 @@ def test_imports_load_no_cv2_yaml_or_pil():
         import proben_tpu_torch.utils.memory
         import proben_tpu_torch.utils.serialize
         import proben_tpu_torch.utils.video_visualizer
+        import proben_tpu_torch.export
+        import proben_tpu_torch.model_zoo
+        import proben_tpu_torch.parallel
         import chip_smoke
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("cv2", "yaml", "PIL", "orbax", "tensorstore")))

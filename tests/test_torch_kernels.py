@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from proben_tpu_torch.ops import roi_align as t_ra
-from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+from proben_tpu_torch.ops import nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
+from proben_tpu_torch.structures.boxes import pairwise_iou
 
 BF = torch.bfloat16
 STRIDES = (4, 8, 16, 32)
@@ -366,13 +367,13 @@ def test_single_level_roi_align_kernel_gradients_p14():
 
 @pytest.mark.cuda
 def test_kernel_functions_pass_gradients():
-    """K1 (``StemPool``: kernel forward, plain recomputed backward) and
-    K2/K3 (``WindowedRoIAlign``) hand their inputs the plain composition's
-    gradients."""
+    """K1 (the op ``proben::stem_pool``: kernel forward, plain recomputed
+    backward) and K2/K3 (``proben::roi_align_fwd`` with the backward op)
+    hand their inputs the plain composition's gradients."""
     _cuda()
     x, w, scale, bias = [torch.from_numpy(a).cuda().to(BF) for a in _stem_inputs(1, 32, 48, 3)]
     leaves = [t.clone().requires_grad_() for t in (w, scale, bias)]
-    out = stem_cuda.StemPool.apply(x, *leaves)
+    out = stem_cuda.stem_pool(x, *leaves)
     g = torch.randn_like(out)
     got = torch.autograd.grad(out, leaves, g)
     plain = [t.clone().requires_grad_() for t in (w, scale, bias)]
@@ -394,13 +395,13 @@ def test_kernel_functions_pass_gradients():
 
 
 def test_stem_function_backward_is_the_plain_gradient_cpu():
-    """On CPU tensors ``StemPool`` runs the plain version forward and
-    recomputes it in the backward: its gradients equal autograd through the
+    """On CPU tensors the op ``proben::stem_pool`` runs the plain version
+    forward and recomputes it in its registered backward: its gradients equal autograd through the
     plain composition exactly, for each input that asks for one."""
     x, w, scale, bias = [torch.from_numpy(a).to(BF) for a in _stem_inputs(1, 20, 28, 3)]
     g = torch.from_numpy(np.random.RandomState(2).randn(1, 5, 7, 64).astype(np.float32)).to(BF)
     leaves = [w.clone().requires_grad_(), scale.clone(), bias.clone().requires_grad_()]
-    got = torch.autograd.grad(stem_cuda.StemPool.apply(x, *leaves), [leaves[0], leaves[2]], g)
+    got = torch.autograd.grad(stem_cuda.stem_pool(x, *leaves), [leaves[0], leaves[2]], g)
     plain = [w.clone().requires_grad_(), scale.clone(), bias.clone().requires_grad_()]
     want = torch.autograd.grad(stem_cuda.stem_pool_plain(x, *plain), [plain[0], plain[2]], g)
     for a, b in zip(got, want):
@@ -450,6 +451,61 @@ def test_cpu_wrappers_run_the_plain_versions():
                     t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, 2)):
         torch.testing.assert_close(d, e)
     assert (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches) == before
+
+
+@pytest.mark.cuda
+def test_custom_ops_on_the_card_match_their_plain_versions():
+    """The ``torch.library`` ops called directly on CUDA tensors: K1, K2 and
+    K3 (one launch each) against their plain versions on the same inputs,
+    with the tolerances of the wrapper tests above; NMS's fixpoint op on
+    the card equal to its CPU run."""
+    _cuda()
+    x, w, scale, bias = [torch.from_numpy(a).cuda().to(BF) for a in _stem_inputs(1, 30, 98, 4)]
+    before = (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches)
+    got = torch.ops.proben.stem_pool(x, w, scale, bias).float()
+    torch.testing.assert_close(got, stem_cuda.stem_pool_plain(x, w, scale, bias).float(),
+                               rtol=2.0 ** -6, atol=0.05)
+    feats = [torch.rand(2, 64 >> i, 64 >> i, 32, device="cuda") for i in range(4)]
+    boxes = torch.tensor([[[2.0, 3.0, 40.0, 30.0], [10.0, 5.0, 120.0, 100.0]]] * 2, device="cuda")
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(feats, boxes, STRIDES)
+    pooled = torch.ops.proben.roi_align_fwd(feats, lvl, y0, x0, wy, wx, 2)
+    torch.testing.assert_close(pooled, roi_align_cuda.roi_align_fwd_plain(feats, lvl, y0, x0, wy, wx, 2),
+                               rtol=1e-5, atol=1e-5)
+    g = torch.randn_like(pooled)
+    shapes = [tuple(f.shape) for f in feats]
+    dfs = torch.ops.proben.roi_align_bwd(g, [d for s in shapes for d in s], lvl, y0, x0, wy, wx, 2)
+    for a, b in zip(dfs, t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, 2)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches) == tuple(
+        n + 1 for n in before)
+    rng = np.random.RandomState(4)
+    xy = rng.rand(3, 60, 2) * 50
+    b = torch.from_numpy(np.concatenate([xy, xy + 8 + rng.rand(3, 60, 2) * 20], -1).astype(np.float32))
+    suppress = (pairwise_iou(b, b) > 0.3) & torch.ones(60, 60, dtype=torch.bool).triu(1)
+    valid = torch.from_numpy(rng.rand(3, 60) > 0.1)
+    want = torch.ops.proben.nms_fixpoint(suppress, valid)
+    assert torch.equal(torch.ops.proben.nms_fixpoint(suppress.cuda(), valid.cuda()).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_opcheck_on_cuda_tensors():
+    """``torch.library.opcheck`` (schema, fake, autograd registration,
+    dispatch) on each op's CUDA implementation."""
+    _cuda()
+    x, w, scale, bias = [torch.from_numpy(a).cuda().to(BF) for a in _stem_inputs(1, 20, 28, 3)]
+    torch.library.opcheck(torch.ops.proben.stem_pool.default, (x, w.requires_grad_(), scale, bias))
+    feats = [torch.rand(2, 32 >> i, 40 >> i, 8, device="cuda").requires_grad_() for i in range(4)]
+    boxes = torch.tensor([[[2.0, 3.0, 40.0, 30.0], [0.0, 0.0, 100.0, 90.0]]] * 2, device="cuda")
+    lvl, y0, x0, wy, wx, _ = roi_align_cuda.window_inputs(feats, boxes, STRIDES)
+    torch.library.opcheck(torch.ops.proben.roi_align_fwd.default, (feats, lvl, y0, x0, wy, wx, 2))
+    g = torch.randn(4, 7, 7, 8, device="cuda")
+    shapes = [d for f in feats for d in f.shape]
+    torch.library.opcheck(torch.ops.proben.roi_align_bwd.default, (g, shapes, lvl, y0, x0, wy, wx, 2))
+    bx = boxes.reshape(-1, 4)
+    suppress = (pairwise_iou(bx, bx) > 0.3) & torch.ones(4, 4, dtype=torch.bool, device="cuda").triu(1)
+    torch.library.opcheck(torch.ops.proben.nms_fixpoint.default,
+                          (suppress, torch.ones(4, dtype=torch.bool, device="cuda")))
 
 
 # ---------------------------------------------------------------------------

@@ -465,8 +465,8 @@ def test_event_storage_and_json_lines_match_jax(tmp_path):
 
 def test_batch_norm_matches_jax():
     """``sync_batch_norm`` on one process (training and eval) and
-    ``precise_bn_stats`` against JAX's, f32 to 1e-5; a cross-device group
-    raises, naming the DDP item."""
+    ``precise_bn_stats`` against JAX's, f32 to 1e-5; a group raises where
+    no process group is initialised."""
     from proben_tpu.models import batch_norm as jax_bn
     from proben_tpu_torch.models import batch_norm as bn
 
@@ -488,7 +488,9 @@ def test_batch_norm_matches_jax():
     want = jax_bn.precise_bn_stats([tuple(map(jnp.asarray, p)) for p in pairs])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="DDP"):
+    # across ranks it needs a process group (tests/test_torch_ddp.py runs one)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
         bn.sync_batch_norm(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in params.items()},
                            group=object())
 

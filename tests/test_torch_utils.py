@@ -301,16 +301,18 @@ def test_flop_count_toys_against_jax():
 
 
 def test_kernel_wrappers_report_their_plain_versions_flops():
-    """K1, K2 and K3 through their wrappers' plain branches (CPU tensors)
-    count ``stem_flops`` and ``roi_align_flops``, the numbers their kernel
-    branches report for the same inputs. K1's equals the mode's own count
-    of its plain version. K2's and K3's is RoIAlign's arithmetic, not the
-    plain versions' dense window contractions: 2 * C per (output bin,
-    touched pixel), the touched pixels counted independently here as the
-    nonzeros of each bin's row of the map's Jacobian (K3 with a one-hot
-    cotangent). ``reported_work`` replaces what the mode counts inside it,
-    so the report alone counts; a report given as a function is called
-    only inside ``flop_count``."""
+    """K1, K2 and K3 through their ops' CPU implementations (the plain
+    versions) and the plain versions themselves count ``stem_flops`` and
+    ``roi_align_flops``, the numbers the CUDA implementations count for the
+    same inputs. K1's equals the mode's own count of its plain version.
+    K2's and K3's is RoIAlign's arithmetic, not the plain versions' dense
+    window contractions: 2 * C per (output bin, touched pixel), the touched
+    pixels counted independently here as the nonzeros of each bin's row of
+    the map's Jacobian (K3 with a one-hot cotangent). The plain versions
+    are ops with the same flop formula, so the mode does not count the
+    contractions inside them; a forward and backward through the K2 op, or
+    through the plain version's op, counts K2's and K3's formulas once
+    each."""
     rng = np.random.RandomState(5)
     x = torch.from_numpy(rng.rand(2, 24, 30, 3).astype(np.float32)).to(torch.bfloat16)
     w = torch.from_numpy(rng.randn(7, 7, 3, 64).astype(np.float32) * 0.05).to(torch.bfloat16)
@@ -336,7 +338,7 @@ def test_kernel_wrappers_report_their_plain_versions_flops():
             touched += sum(int((d[..., ch] != 0).sum()) for d in grads for ch in range(len(bins)))
     k2 = roi_align_cuda.roi_align_flops(wy, wx, 8)
     assert k2 == 2 * 8 * touched
-    # the plain version's two dense contractions over each RoI's window, which the report replaces
+    # the plain versions' two dense contractions over each RoI's window, which their ops' formula replaces
     dense = 2 * 10 * 7 * 8 * roi_align.WIN_X * (roi_align.WIN_Y + 7)
     assert 0 < k2 < dense / 10
     assert analysis.flop_count(roi_align_cuda.roi_align_fwd, *args) == k2
@@ -346,16 +348,13 @@ def test_kernel_wrappers_report_their_plain_versions_flops():
     assert analysis.flop_count(roi_align_cuda.roi_align_bwd, *bargs) == k2
     assert analysis.flop_count(roi_align_cuda.roi_align_bwd_plain, *bargs) == k2
 
-    def reported(x, w, s, b):
-        with analysis.reported_work(123):
-            stem_cuda.stem_pool_plain(x, w, s, b)
-        with analysis.reported_work(lambda: 7):
-            stem_cuda.stem_pool_plain(x, w, s, b)
-        return x.float() @ torch.ones(3, 2)
+    def pooled_and_grads(impl, *features):
+        leaves = [f.clone().requires_grad_() for f in features]
+        out = roi_align_cuda.windowed_roi_align(impl, lvl, y0, x0, wy, wx, 5, leaves)
+        return torch.autograd.grad(out, leaves, g)
 
-    assert analysis.flop_count(reported, x, w, s, b) == 123 + 7 + 2 * 2 * 24 * 30 * 3 * 2
-    with analysis.reported_work(lambda: 1 // 0):  # outside flop_count: never called
-        pass
+    assert analysis.flop_count(pooled_and_grads, "kernel", *feats) == 2 * k2
+    assert analysis.flop_count(pooled_and_grads, "plain", *feats) == 2 * k2
 
 
 def test_nms_counts_no_flops():
@@ -373,8 +372,8 @@ def test_nms_counts_no_flops():
 
 
 def test_flop_count_of_the_model_is_the_same_through_kernels_and_plain():
-    """A tiny R50-FPN in bf16, batch 1: inference through the kernels'
-    wrappers (their plain branches here) and through the plain paths
+    """A tiny R50-FPN in bf16, batch 1: inference through the kernels' ops
+    (their plain implementations here) and through the plain paths
     (``stem_impl``, ``roi_align_impl`` "plain") count the same FLOPs."""
     counts = []
     rng = np.random.RandomState(6)
