@@ -160,25 +160,37 @@ Phases, each raising on a miss (exit code != 0, no result line):
    (equal but for each path's RoIAlign share on its own proposals);
    ``apps/flir.py draw`` on 4 val
    images (K1 and K2 once per image, both overlays written for each);
-16. export (``export_phase``, run right after phase 4 on its calibrated
+16. the user commands of ``apps/`` (``tools_phase``): a synthetic FLIR
+   tree of 32 train pairs; ``plain_train_net`` from
+   ``faster_rcnn_R_101_FLIR.yaml`` (R101-FPN, bf16, batch 16, detectron2
+   weights of random affines) for 20 iterations with a checkpoint every
+   10 (launches counted from 0 around the command: K1-K3 once per step,
+   ``image_io`` once per mapped batch; ``metrics.json``'s line finite, two
+   checkpoints; K1-K3 held against their plain versions on the loop's
+   next batch); ``benchmark`` eval at batch 8 (12 iterations), train at 16
+   (8) and data at 16 (6), launches counted around each, img/s beside the
+   card; ``visualize_data`` and ``visualize_json_results`` on 4 val images
+   each (``image_io`` once per image); one ``convert_torchvision`` round
+   trip of an R50;
+17. export (``export_phase``, run right after phase 4 on its calibrated
    model): ``export_model`` of ``rcnn_inference`` at batch 8, saved and
    loaded with ``load_exported``; the graph's ``proben.stem_pool`` and
    ``proben.roi_align_fwd`` nodes, K1 and K2 once per call of the loaded
    program, its detections equal eager's bit for bit, img/s of both;
-17. data-parallel training (``ddp_phase``): ``faster_rcnn_R_101_FLIR.yaml``
+18. data-parallel training (``ddp_phase``): ``faster_rcnn_R_101_FLIR.yaml``
    at ``IMS_PER_BATCH`` 16 on a synthetic 16-pair tree, one process, then
    2 gloo ranks sharing the card (8 images each), 3 steps: losses per step,
    the parameters' update against the one process's, the ranks' parameters
    bit for bit, K1-K3 once per step per rank and held against their plain
    versions on rank 0's next batch of 8, ms per step and peak memory per
    rank (NCCL across cards is not exercised);
-18. the model zoo (``zoo_phase``): ``model_zoo.get(..., trained=True)``
+19. the model zoo (``zoo_phase``): ``model_zoo.get(..., trained=True)``
    from a ``PROBEN_ZOO_DIR`` holding the same ``.pkl`` equals the model
-   ``DefaultTrainer`` loaded from it in phase 17, tensor for tensor;
-19. one JSON line per kernel, one for each slice and fusion mode, one for
+   ``DefaultTrainer`` loaded from it in phase 18, tensor for tensor;
+20. one JSON line per kernel, one for each slice and fusion mode, one for
    the FLIR and one for the KAIST evaluation, one for the trainer, one for
    the other heads, one for the other datasets, one for the surface phase,
-   one each for export, DDP and the zoo,
+   one for the user commands, one each for export, DDP and the zoo,
    one listing every kernel (launches per path, the C = 512, C = 4 and
    C = 6 readings, K2 and K3 at P = 14 / C = 1024 and on Cascade's last
    stage, ``image_io`` with flips and with crops at the training shapes
@@ -4122,14 +4134,324 @@ def surface_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# the user commands of apps/: the plain loop, benchmark, visualizers, converter
+# ---------------------------------------------------------------------------
+
+
+PLAIN_STEPS = 20  # plain_train_net iterations (metrics.json every 20, a checkpoint every 10)
+BENCH_RUNS = (("eval", 8, 12), ("train", TRAIN_BATCH, 8), ("data", TRAIN_BATCH, 6))  # (task, batch, iters)
+VIS_IMAGES = 4  # images through each visualizer
+
+
+def kept_loader():
+    """A ``TrainLoader`` subclass to put in an app module's namespace: it
+    records the time of every ``next`` call and, on ``close``, takes one
+    more batch (the loop's next) before it closes; its instances are in
+    its ``made``."""
+    from proben_tpu_torch.data import TrainLoader
+
+    class KeptLoader(TrainLoader):
+        made = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.times, self.next_batch = [], None
+            KeptLoader.made.append(self)
+
+        def __next__(self):
+            self.times.append(time.perf_counter())
+            return super().__next__()
+
+        def close(self, timeout: float = 60.0):
+            if self.next_batch is None:
+                self.next_batch = TrainLoader.__next__(self)
+            super().close(timeout)
+
+    return KeptLoader
+
+
+def plain_train_run(root, register, card):
+    """``apps/plain_train_net.py`` as a user runs it: the shipped
+    ``faster_rcnn_R_101_FLIR.yaml`` (R101-FPN, bf16, batch 16, flips,
+    warm-up) on the tree's train split, detectron2 weights of random
+    affines, ``PLAIN_STEPS`` iterations, a checkpoint every 10. Every
+    launch counter is set to 0 just before the command and read just after:
+    K1, K2 and K3 once per iteration, ``image_io`` once per batch the loop's
+    loader mapped. Then the loss line in ``metrics.json`` finite, two
+    checkpoints kept, and K1-K3 held against their plain versions on the
+    loop's next batch with the loop's model (``held_batch_checks``)."""
+    import types
+    from unittest import mock
+
+    from proben_tpu_torch.apps import plain_train_net
+    from proben_tpu_torch.config import get_cfg, model_config_from_cfg
+    from proben_tpu_torch.engine import trainable_mask
+
+    yaml_path = os.path.join(HERE, "configs", "FLIR-Detection", "faster_rcnn_R_101_FLIR.yaml")
+    out = os.path.join(root, "out", "plain")
+    os.makedirs(out, exist_ok=True)
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml_path)
+    weights = d2_weights(cfg, 50, os.path.join(out, "init.pth"))
+    opts = ["OUTPUT_DIR", out, "MODEL.WEIGHTS", weights, "DATASETS.TRAIN", "['smoke_tools_train']",
+            "SOLVER.MAX_ITER", str(PLAIN_STEPS), "SOLVER.CHECKPOINT_PERIOD", "10", "SEED", "50"]
+    cfg.merge_from_list(opts)
+    label = "plain_train_net"
+    kept = kept_loader()
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(plain_train_net, "TrainLoader", kept):
+        state = plain_train_net.main(["--config-file", yaml_path, "--register", register, *opts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    (loader,) = kept.made
+    per_step = {k: launches[k] / PLAIN_STEPS for k in ("stem_pool", "roi_align_fwd", "roi_align_bwd")}
+    if per_step != {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1} or \
+            launches["image_io"] != loader.batches_mapped or loader.batches_mapped < PLAIN_STEPS:
+        raise AssertionError(f"{label}: launches {launches} over {PLAIN_STEPS} steps, "
+                             f"{loader.batches_mapped} batches mapped")
+    with open(os.path.join(out, "metrics.json")) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    losses = {k: v for k, v in lines[-1].items() if k.startswith("loss") or k == "total_loss"} if lines else {}
+    ckpts = sorted(d for d in os.listdir(os.path.join(out, "checkpoints")) if d.startswith("iter_"))
+    if len(lines) != 1 or lines[0]["iteration"] != PLAIN_STEPS - 1 or not losses \
+            or not all(np.isfinite(v) for v in losses.values()) or lines[0]["loss_finite"] != 1.0:
+        raise AssertionError(f"{label}: metrics.json {lines}")
+    if ckpts != ["iter_0000009", "iter_0000019"] or state.step != PLAIN_STEPS:
+        raise AssertionError(f"{label}: checkpoints {ckpts}, step {state.step}")
+    moved = all(p.requires_grad for p in state.model.parameters())  # no trainable mask, as in JAX
+    # the held checks ask every group that asks for a gradient to get one:
+    # the sections the forward runs without one leave that set
+    mask = trainable_mask(state.model, cfg.MODEL.BACKBONE.FREEZE_AT)
+    for n, p in state.model.named_parameters():
+        p.requires_grad_(mask[n])
+    # the loop's rate over its window: from the first batch taken to the
+    # last, every step but the last whole (hooks, loader and the checkpoint
+    # at iteration 9 included); the median step (the first and the
+    # checkpoint steps fall out of it) and the whole command beside it
+    steps_s = np.diff(loader.times)
+    img_s = TRAIN_BATCH * len(steps_s) / float(loader.times[-1] - loader.times[0])
+    median_img_s = TRAIN_BATCH / float(np.median(steps_s[1:]))
+    b = loader.next_batch
+    watch = types.SimpleNamespace(model=state.model, model_cfg=model_config_from_cfg(cfg), state=None,
+                                  step_fn=None, held={"image": b["image"], "image_size": b["image_size"],
+                                                      "gt": b["gt"]})
+    held = held_batch_checks(watch, label, stem=True, bare_steps=0)
+    log(f"{label} ({card}): {PLAIN_STEPS} steps of {TRAIN_BATCH} in {wall:.1f} s (the command: "
+        f"{TRAIN_BATCH * PLAIN_STEPS / wall:.2f} img/s), {img_s:.2f} img/s over steps 1-{len(steps_s)} "
+        f"(first to last batch taken, one checkpoint), median step {np.median(steps_s[1:]) * 1e3:.1f} ms "
+        f"({median_img_s:.2f} img/s), launches {launches}, metrics.json {losses}")
+    return dict(steps=PLAIN_STEPS, launches_run=launches, launches_per_step=per_step,
+                batches_mapped=loader.batches_mapped, image_io_per_batch=launches["image_io"] / loader.batches_mapped,
+                metrics_line=lines[0], checkpoints=ckpts, all_parameters_trainable=moved,
+                step_ms=[float(v) * 1e3 for v in steps_s], window_img_s=img_s, median_step_img_s=median_img_s,
+                command_img_s=TRAIN_BATCH * PLAIN_STEPS / wall, wall_s=wall, held_batch=held)
+
+
+def benchmark_runs(yaml_path, card):
+    """``apps/benchmark.py`` for each of ``BENCH_RUNS`` from the shipped
+    FLIR YAML, every launch counter set to 0 just before each and read just
+    after: eval launches K1 and K2 once per call, train K1-K3 once per step
+    (a synthetic batch: no ``image_io``), data ``image_io`` once per batch
+    its loader mapped, from ``smoke_tools_train`` as registered in this
+    process; each prints the JAX tool's line, whose img/s is kept beside
+    the card."""
+    import re
+    from unittest import mock
+
+    from proben_tpu_torch.apps import benchmark
+
+    out = {}
+    expect = {"eval": {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 0, "image_io": 0},
+              "train": {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, "image_io": 0}}
+    for task, batch, iters in BENCH_RUNS:
+        kept = kept_loader()
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        with mock.patch.object(benchmark, "TrainLoader", kept):
+            line, result = benchmark.main(["--task", task, "--batch", str(batch), "--iters", str(iters),
+                                           "--config-file", yaml_path, "DATASETS.TRAIN", "['smoke_tools_train']"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = launch_counts()
+        calls = iters + 1  # one untimed call first
+        if task == "data":
+            (loader,) = kept.made
+            ok = launches["image_io"] == loader.batches_mapped >= calls and not any(
+                launches[k] for k in ("stem_pool", "roi_align_fwd", "roi_align_bwd"))
+            per_call = {"image_io": launches["image_io"] / loader.batches_mapped}
+            if tuple(result["image"].shape) != (batch, 800, 1024, 3):
+                raise AssertionError(f"benchmark data: batch {tuple(result['image'].shape)}")
+        else:
+            per_call = {k: v / calls for k, v in launches.items()}
+            ok = per_call == expect[task]
+            finite = torch.isfinite(result.scores).all() if task == "eval" else all(
+                np.isfinite(float(v)) for v in result.values())
+            if not finite:
+                raise AssertionError(f"benchmark {task}: non-finite output")
+        if not ok:
+            raise AssertionError(f"benchmark {task}: launches {launches} over {calls} calls")
+        img_s = float(re.search(r"([0-9.]+) img/s", line).group(1))
+        out[task] = dict(line=line, img_s=img_s, batch=batch, iters=iters, launches_run=launches,
+                         launches_per_call=per_call, wall_s=wall, card=card)
+        log(f"benchmark {task} ({card}): {line}; launches {launches}; {wall:.1f} s")
+    return out
+
+
+def visualizer_runs(root, card):
+    """``apps/visualize_data.py`` and ``apps/visualize_json_results.py`` on
+    the first ``VIS_IMAGES`` images of the tree's val split, read on the
+    card (``image_io`` once per image, counted from 0 around each), the
+    predictions a JSON of the ground truth moved by 2 pixels (score 0.9)
+    and one box under the threshold per image: each image written, of its
+    source's size (twice its width for the side-by-side one), and drawn
+    on."""
+    import importlib
+
+    from proben_tpu_torch.apps import visualize_data, visualize_json_results
+    from proben_tpu_torch.data import DatasetCatalog, MetadataCatalog
+
+    cv2 = importlib.import_module("cv2")
+    dicts = DatasetCatalog.get("smoke_tools_val")[:VIS_IMAGES]
+    # the JSON holds the dataset's category ids, the dicts contiguous ones
+    dataset_id = {v: k for k, v in MetadataCatalog.get("smoke_tools_val").thing_dataset_id_to_contiguous_id.items()}
+    preds = [{"image_id": d["image_id"], "category_id": dataset_id[a["category_id"]], "score": score,
+              "bbox": [a["bbox"][0] + 2, a["bbox"][1] + 2, a["bbox"][2], a["bbox"][3]]}
+             for d in dicts for a, score in zip(d["annotations"] * 2, [0.9] * len(d["annotations"]) + [0.1])]
+    pred_json = os.path.join(root, "preds.json")
+    with open(pred_json, "w") as f:
+        json.dump(preds, f)
+    out, stats = os.path.join(root, "out"), {}
+    runs = (("visualize_data", lambda d: visualize_data.main(
+                ["--dataset", "smoke_tools_val", "--max-images", str(VIS_IMAGES), "--output-dir", d]),
+             lambda name: name + ".png", 1),
+            ("visualize_json_results", lambda d: visualize_json_results.main(
+                ["--input", pred_json, "--dataset", "smoke_tools_val", "--output", d]),
+             lambda name: name, 2))
+    for label, run, written, widen in runs:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        dest = os.path.join(out, label)
+        n = run(dest)
+        wall = time.perf_counter() - t
+        launches = launch_counts()
+        images = []
+        for d in dicts[:n]:
+            src = cv2.imread(d["file_name"], cv2.IMREAD_COLOR)
+            got = cv2.imread(os.path.join(dest, written(os.path.basename(d["file_name"]))), cv2.IMREAD_COLOR)
+            if got is None or got.shape != (src.shape[0], widen * src.shape[1], 3) or np.array_equal(
+                    got[:, :src.shape[1]], src):
+                raise AssertionError(f"{label}: {d['file_name']} not drawn as expected")
+            images.append(got.shape)
+        if launches["image_io"] != VIS_IMAGES or len(images) != VIS_IMAGES:
+            raise AssertionError(f"{label}: {len(images)} images, launches {launches}")
+        stats[label] = dict(images=len(images), launches=launches, wall_s=wall, card=card)
+        log(f"{label} ({card}): {len(images)} images in {wall:.2f} s, launches {launches}")
+    return stats
+
+
+def converter_round_trip(root):
+    """``apps/convert_torchvision.py`` on a torchvision-named R50 state
+    dict made from a parameter pytree of random affines (every detectron2
+    backbone name mapped back to torchvision's, plus ``fc.*``): the
+    ``.pkl``'s keys are the detectron2 names, ``fc.*`` left out, and
+    ``import_detectron2_checkpoint`` of it gives the pytree's backbone back
+    to 1e-6 (each affine folded twice)."""
+    import contextlib
+    import io
+    import pickle
+
+    from proben_tpu_torch.apps import convert_torchvision
+    from proben_tpu_torch.checkpoint import import_detectron2_checkpoint
+    from proben_tpu_torch.models import build_config, init_rcnn, random_affines
+
+    cfg = build_config(depth=50, input_format="BGR", num_classes=3)
+    params = random_affines(init_rcnn(51, cfg), 51)
+    d2 = {k[len("backbone.bottom_up."):]: v for k, v in d2_state_dict(params).items()
+          if k.startswith("backbone.bottom_up.")}
+
+    def to_torchvision(k):
+        if k.startswith("stem."):
+            k = k[len("stem."):]
+        for t in (1, 2, 3, 4):
+            k = k.replace(f"res{t + 1}.", f"layer{t}.")
+        k = k.replace("shortcut.norm", "downsample.1").replace("shortcut", "downsample.0")
+        for t in (1, 2, 3):
+            k = k.replace(f"conv{t}.norm", f"bn{t}")
+        return k
+
+    tv = {to_torchvision(k): torch.from_numpy(v) for k, v in d2.items()}
+    tv["fc.weight"], tv["fc.bias"] = torch.zeros(1000, 2048), torch.zeros(1000)
+    src, dst = os.path.join(root, "r50_torchvision.pth"), os.path.join(root, "r50_d2.pkl")
+    torch.save(tv, src)
+    printed = io.StringIO()  # the command prints one line per key
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        convert_torchvision.main([src, dst])
+    wall = time.perf_counter() - t
+    if "Unconverted keys: ['fc.weight', 'fc.bias']" not in printed.getvalue():
+        raise AssertionError(f"convert_torchvision printed {printed.getvalue()[-300:]}")
+    with open(dst, "rb") as f:
+        res = pickle.load(f)
+    if sorted(res["model"]) != sorted(d2) or not res["matching_heuristics"]:
+        raise AssertionError(f"convert_torchvision: keys {sorted(set(res['model']) ^ set(d2))[:5]}")
+    template = init_rcnn(52, cfg)
+    got = flat_tree(import_detectron2_checkpoint(dst, template, strict=False)["backbone"])
+    want = flat_tree(params["backbone"])
+    err = max(float(np.max(np.abs(got[k] - w) / (np.abs(w) + 1e-12))) for k, w in want.items())
+    if got.keys() != want.keys() or err > 1e-6:
+        raise AssertionError(f"convert_torchvision: round trip off by {err:.3g} relative")
+    log(f"convert_torchvision: {len(res['model'])} tensors, backbone back within {err:.3g} relative, "
+        f"{wall:.2f} s")
+    return dict(tensors=len(res["model"]), max_rel_err=err, wall_s=wall)
+
+
+def tools_phase(card):
+    """The user commands of ``apps/`` on a synthetic FLIR tree of 32 train
+    pairs (the first ``VIS_IMAGES`` also the val split): ``plain_train_run``,
+    ``benchmark_runs``, ``visualizer_runs`` and ``converter_round_trip``.
+    One ``tools`` JSON line."""
+    import tempfile
+
+    from proben_tpu_torch.apps import flir, train_net
+    from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
+    from proben_tpu_torch.native import io
+
+    t0 = time.time()
+    stats = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="flir_tools_") as root:
+        with io.JpegCodec() as codec:
+            write_flir_train_tree(codec, root, n=32, n_val=VIS_IMAGES)
+        register = f"smoke_tools_train,{os.path.join(root, TRAIN_JSON_NAME)},{os.path.join(root, 'thermal_8_bit')}"
+        flir.register_flir("smoke_tools_val", root)
+        yaml_path = os.path.join(HERE, "configs", "FLIR-Detection", "faster_rcnn_R_101_FLIR.yaml")
+        stats["plain_train_net"] = plain_train_run(root, register, card)
+        torch.cuda.empty_cache()
+        train_net.register_datasets([register])
+        stats["benchmark"] = benchmark_runs(yaml_path, card)
+        torch.cuda.empty_cache()
+        stats.update(visualizer_runs(root, card))
+        stats["convert_torchvision"] = converter_round_trip(root)
+    stats["seconds"] = time.time() - t0
+    log(f"tools phase: {stats['seconds']:.1f} s")
+    return stats
+
+
+# ---------------------------------------------------------------------------
 # export, data-parallel training and the model zoo
 # ---------------------------------------------------------------------------
 
 
 EXPORTED_PATH = "bgr_exported_inference (loaded program, per batch)"
 DDP_PATH = "flir_thermal_only_ddp_train (per step and rank, 2 gloo ranks on one card)"
+DDP3_PATH = "flir_thermal_only_ddp_train (per step and training rank, 3 gloo ranks on one card, rank 2 sits out)"
 DDP_STEPS = 3
-DDP_WORLD = 2
+DDP_WORLD = 2  # the ranks that train: the most, up to the ranks started, that divide IMS_PER_BATCH 16
+DDP_SPAWNS = (2, 3)  # ranks started: all train, then rank 2 sits out in a group of ranks 0-1
 DDP_FIRST_LOSS_RTOL = 2e-3  # bf16 forward at batch 8 against 16 (6.2e-5 on an H100)
 DDP_LOSS_RTOL = 5e-2  # of the total loss, after updates from gradients rounded per half batch
 DDP_UPDATE_RTOL = 5e-2  # of the one process's update, L2 (2.4e-3 on an H100)
@@ -4243,8 +4565,8 @@ def ddp_train(cfg, hooks=()):
     losses, K1-K3 launches counted around every step, per-step ms, peak GB,
     the run's ``image_io`` launches and the batches its loader mapped (the
     loader maps ahead of the step, so ``image_io`` is held to the run, not
-    to a step), the parameters before the first step (on the host), the
-    trainer)."""
+    to a step), the parameters before the first step (on the host; None
+    on a rank that sits out), the trainer)."""
     from proben_tpu_torch.engine import CallbackHook, DefaultTrainer
 
     zero_launch_counts()  # before the trainer: its loader starts mapping when it is built
@@ -4273,8 +4595,9 @@ def ddp_train(cfg, hooks=()):
                             *hooks])
     trainer.train()
     torch.cuda.synchronize()
-    io = {"image_io": launch_counts()["image_io"], "batches_mapped": trainer.train_loader.batches_mapped}
-    return steps, launches, ms, torch.cuda.max_memory_allocated() / 1e9, io, clock["initial"], trainer
+    loader = trainer.train_loader  # None on a rank that sits out
+    io = {"image_io": launch_counts()["image_io"], "batches_mapped": loader.batches_mapped if loader else 0}
+    return steps, launches, ms, torch.cuda.max_memory_allocated() / 1e9, io, clock.get("initial"), trainer
 
 
 def params_digest(model):
@@ -4287,48 +4610,125 @@ def params_digest(model):
     return h.hexdigest()
 
 
-def ddp_rank(rank, init_file, root, weights, reference, result, dtype):
-    """One rank of ``ddp_phase``: gloo on the shared card, the trainer at
-    its rows of each global batch; writes its losses, launches, step times,
-    peak memory, how far its parameters are from the one-process run's
-    (``reference``: its parameters before and after; the largest
-    difference, and the L2 norm of the difference of the two runs' updates
-    over the one process's update) and a digest of its parameters to
-    ``result``. Rank 0 then holds K1-K3 against their plain versions on its
-    own next batch of 8 from its loader, with its model after the last
-    step (``held_batch_checks``, no timed steps), after its launches were
-    counted."""
+def ddp_rank(rank, init_file, root, weights, reference, result, dtype, nprocs):
+    """One of ``nprocs`` ranks of ``ddp_phase``: gloo on the shared card,
+    the trainer at its rows of each global batch; writes its losses,
+    launches, step times, peak memory, how far its parameters are from the
+    one-process run's (``reference``: its parameters before and after; the
+    largest difference, and the L2 norm of the difference of the two runs'
+    updates over the one process's update) and a digest of its parameters
+    to ``result``. A rank that sits out writes its mesh, its steps and
+    launches (none) and whether its log says it sits out. In the run where
+    every rank trains, rank 0 then holds K1-K3 against their plain versions
+    on its own next batch of 8 from its loader, with its model after the
+    last step (``held_batch_checks``, no timed steps), after its launches
+    were counted."""
     import torch.distributed as dist
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=DDP_WORLD)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=nprocs)
     try:
         from proben_tpu_torch.apps import flir
         from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
 
         flir.register_flir("smoke_ddp", root, TRAIN_JSON_NAME)
-        watch = TrainWatch(count_iter=0, hold_batch=True) if rank == 0 else None
+        out_dir = os.path.join(root, f"out_ddp{nprocs}")
+        watch = TrainWatch(count_iter=0, hold_batch=True) if rank == 0 and nprocs == DDP_WORLD else None
         steps, launches, ms, peak, io, _, trainer = ddp_train(
-            ddp_cfg(weights, os.path.join(root, "out_ddp"), "smoke_ddp", dtype), watch.hooks() if watch else ())
+            ddp_cfg(weights, out_dir, "smoke_ddp", dtype), watch.hooks() if watch else ())
+        mesh = trainer.mesh
+        got = dict(rank=rank, world=mesh.world, sits_out=mesh.sits_out, subgroup=mesh.group is not None,
+                   device=str(trainer.device), steps=steps, launches=launches, io=io)
+        if mesh.sits_out:
+            with open(os.path.join(out_dir, f"log.txt.rank{rank}")) as f:
+                got.update(logged=f"rank {rank} sits out" in f.read(), launched=launch_counts())
+            torch.save(got, os.path.join(result, f"rank{rank}.pt"))
+            return
         held = None
         if watch is not None:
             if tuple(watch.held["image"].shape[:1]) != (TRAIN_BATCH // DDP_WORLD,):
                 raise AssertionError(f"ddp rank 0: held batch {tuple(watch.held['image'].shape)}")
             held = held_batch_checks(watch, "ddp rank 0", stem=dtype == "bfloat16", bare_steps=0)
         ref = torch.load(reference, map_location=trainer.device)
-        got, want, start = trainer.model.state_dict(), ref["final"], ref["initial"]
-        gaps = {k: float((got[k].float() - v.float()).abs().max()) for k, v in want.items()}
+        now, want, start = trainer.model.state_dict(), ref["final"], ref["initial"]
+        gaps = {k: float((now[k].float() - v.float()).abs().max()) for k, v in want.items()}
         worst = max(gaps, key=gaps.get)
-        diff = sum(float(((got[k].double() - v.double()) ** 2).sum()) for k, v in want.items())
+        diff = sum(float(((now[k].double() - v.double()) ** 2).sum()) for k, v in want.items())
         update = sum(float(((v.double() - start[k].double()) ** 2).sum()) for k, v in want.items())
-        torch.save(dict(rank=rank, world=trainer.mesh.world, device=str(trainer.device), steps=steps,
-                        launches=launches, ms=ms, peak_gb=peak, io=io, param_gap=gaps[worst], worst=worst,
-                        update_gap=(diff / update) ** 0.5, held=held,
-                        rows=trainer.train_loader.rows, digest=params_digest(trainer.model)),
-                   os.path.join(result, f"rank{rank}.pt"))
+        got.update(ms=ms, peak_gb=peak, param_gap=gaps[worst], worst=worst, update_gap=(diff / update) ** 0.5,
+                   held=held, rows=trainer.train_loader.rows, digest=params_digest(trainer.model))
+        torch.save(got, os.path.join(result, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def ddp_spawn(nprocs, root, weights, reference, dtype):
+    """``ddp_rank`` on ``nprocs`` spawned ranks; their results in rank
+    order."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="ddp_", dir=root) as tmp:
+        ctx = mp.spawn(ddp_rank, args=(os.path.join(tmp, "init"), root, weights, reference, tmp, dtype, nprocs),
+                       nprocs=nprocs, join=False)
+        deadline = time.time() + 600
+        while not ctx.join(1.0):
+            if time.time() > deadline:
+                for proc in ctx.processes:
+                    proc.terminate()
+                raise AssertionError(f"ddp: the {nprocs} ranks did not finish within 600 s")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(nprocs)]
+
+
+def ddp_compare(ranks, one, dtype, label):
+    """Checks of the training ranks ``ranks`` against the one process's run
+    ``one`` (see ``ddp_phase``); returns the gaps."""
+    if any(r["world"] != DDP_WORLD or r["device"] != "cuda:0" for r in ranks):
+        raise AssertionError(f"{label}: ranks {[(r['rank'], r['world'], r['device']) for r in ranks]}")
+    if [tuple(r["rows"]) for r in ranks] != [(0, 8), (8, 16)]:
+        raise AssertionError(f"{label}: the ranks' rows {[r['rows'] for r in ranks]}")
+    # K1 takes bf16 only: the float32 witness runs the plain stem
+    per_step = {"stem_pool": int(dtype == "bfloat16"), "roi_align_fwd": 1, "roi_align_bwd": 1}
+    for r in ranks + [one]:
+        if len(r["launches"]) != DDP_STEPS or any(c != per_step for c in r["launches"]):
+            raise AssertionError(f"{label}: launches per step {r['launches']}, expected {per_step}")
+        if r["io"]["image_io"] != r["io"]["batches_mapped"] or r["io"]["batches_mapped"] < DDP_STEPS:
+            raise AssertionError(f"{label}: image_io launches {r['io']} (one per batch mapped)")
+    if ranks[0]["steps"] != ranks[1]["steps"] or ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError(f"{label}: the two ranks' losses or parameters differ")
+    loss_gaps = []  # per step, the largest gap over the losses (see ddp_phase)
+    own_gaps = []  # per step and loss, the gap over that loss's own size (recorded, checked at step 1)
+    for i, (got, want) in enumerate(zip(ranks[0]["steps"], one["steps"])):
+        if set(got) != set(want) or got["loss_finite"] != 1.0 or want["loss_finite"] != 1.0:
+            raise AssertionError(f"{label}: step metrics {got} against {want}")
+        own_gaps.append({k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()})
+        scale = {k: abs(v) if i == 0 else abs(want["total_loss"]) for k, v in want.items()}
+        loss_gaps.append(max(abs(got[k] - v) / max(scale[k], 1e-12) for k, v in want.items()))
+    param_gap = max(r["param_gap"] for r in ranks)
+    update_gap = max(r["update_gap"] for r in ranks)
+    log(f"{label} ({dtype}): against one process at batch {TRAIN_BATCH}, {DDP_STEPS} steps: "
+        f"largest loss gap per step {[float(f'{g:.3g}') for g in loss_gaps]} (step 1 of each loss, "
+        f"later of the total loss), the ranks' update "
+        f"{update_gap:.3g} of the one process's away (L2), largest parameter gap {param_gap:.3g} "
+        f"({ranks[0]['worst']}); total losses {[s['total_loss'] for s in ranks[0]['steps']]} against "
+        f"{[s['total_loss'] for s in one['steps']]}; launches per step per rank {per_step}, image_io once per "
+        f"mapped batch; ms per step {[round(float(np.median(r['ms'][1:])), 1) for r in ranks]} per rank, "
+        f"{float(np.median(one['ms'][1:])):.1f} in one process; peak "
+        f"{[round(r['peak_gb'], 2) for r in ranks]} GB per rank, {one['peak_gb']:.2f} in one process")
+    log(f"{label}: per step, each loss of the ranks / of the one process (gap over the loss's own size): " + "; ".join(
+        f"step {i + 1}: " + ", ".join(f"{k} {got[k]:.6g} / {want[k]:.6g} ({own_gaps[i][k]:.3g})"
+                                      for k in sorted(want) if k != "loss_finite")
+        for i, (got, want) in enumerate(zip(ranks[0]["steps"], one["steps"]))))
+    if loss_gaps[0] > DDP_FIRST_LOSS_RTOL or max(loss_gaps) > DDP_LOSS_RTOL or update_gap > DDP_UPDATE_RTOL:
+        raise AssertionError(f"{label}: the ranks' run differs from the one process's beyond the tolerance: "
+                             f"losses {loss_gaps}, update {update_gap}")
+    return dict(loss_gap_rel=loss_gaps, loss_gap_own=own_gaps, update_gap=update_gap, param_gap=param_gap,
+                worst_param=ranks[0]["worst"], launches_per_step={**per_step, "image_io": 1},
+                losses=[s["total_loss"] for s in ranks[0]["steps"]], step_metrics=ranks[0]["steps"],
+                image_io=[r["io"] for r in ranks], ms_per_step=[float(np.median(r["ms"][1:])) for r in ranks],
+                peak_gb=[r["peak_gb"] for r in ranks])
 
 
 def ddp_phase(card, root, weights, dtype="bfloat16"):
@@ -4336,8 +4736,13 @@ def ddp_phase(card, root, weights, dtype="bfloat16"):
     at ``IMS_PER_BATCH`` 16 from ``weights``, first in one process (world
     1), then on 2 ranks (``torch.multiprocessing`` spawn, gloo with a
     ``file://`` init; NCCL refuses two ranks on one device), 8 images each,
-    for ``DDP_STEPS`` steps. Checks: every step's losses of the ranks (the
-    same on both, averaged over them) against the one process's; the
+    for ``DDP_STEPS`` steps, then on 3 ranks, of which, as in the JAX
+    trainer, the first 2 (the most that divide the batch) train in a process
+    group of their own and rank 2 sits out: it takes no step, launches
+    nothing, logs that it sits out, and the others do not wait on it.
+    Checks, in each run, of ranks 0-1 (``ddp_compare``): every step's
+    losses of the ranks (the same on both, averaged over them) against the
+    one process's; the
     parameters after the last step against its, and bit for bit between the
     ranks; K1, K2 and K3 launched once per step on every rank, and
     ``image_io`` once per batch the rank's loader mapped (its 8 rows in one
@@ -4363,9 +4768,6 @@ def ddp_phase(card, root, weights, dtype="bfloat16"):
     that those gaps are bf16 rounding. The ms per step and the peak memory
     of each rank are measured with the two ranks sharing the card; the
     readings are printed."""
-    import tempfile
-
-    import torch.multiprocessing as mp
     from proben_tpu_torch.apps import flir
     from proben_tpu_torch.apps.flir import TRAIN_JSON_NAME
 
@@ -4380,68 +4782,35 @@ def ddp_phase(card, root, weights, dtype="bfloat16"):
     del initial
     del trainer
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="ddp_", dir=root) as tmp:
-        ctx = mp.spawn(ddp_rank, args=(os.path.join(tmp, "init"), root, weights, reference, tmp, dtype),
-                       nprocs=DDP_WORLD, join=False)
-        deadline = time.time() + 600
-        while not ctx.join(1.0):
-            if time.time() > deadline:
-                for proc in ctx.processes:
-                    proc.terminate()
-                raise AssertionError("ddp: the ranks did not finish within 600 s")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DDP_WORLD)]
-    if any(r["world"] != DDP_WORLD or r["device"] != "cuda:0" for r in ranks):
-        raise AssertionError(f"ddp: ranks {[(r['rank'], r['world'], r['device']) for r in ranks]}")
-    if [tuple(r["rows"]) for r in ranks] != [(0, 8), (8, 16)]:
-        raise AssertionError(f"ddp: the ranks' rows {[r['rows'] for r in ranks]}")
-    # K1 takes bf16 only: the float32 witness runs the plain stem
-    per_step = {"stem_pool": int(dtype == "bfloat16"), "roi_align_fwd": 1, "roi_align_bwd": 1}
-    for r in ranks + [one]:
-        if len(r["launches"]) != DDP_STEPS or any(c != per_step for c in r["launches"]):
-            raise AssertionError(f"ddp: launches per step {r['launches']}, expected {per_step}")
-        if r["io"]["image_io"] != r["io"]["batches_mapped"] or r["io"]["batches_mapped"] < DDP_STEPS:
-            raise AssertionError(f"ddp: image_io launches {r['io']} (one per batch mapped)")
-    if ranks[0]["steps"] != ranks[1]["steps"] or ranks[0]["digest"] != ranks[1]["digest"]:
-        raise AssertionError("ddp: the two ranks' losses or parameters differ")
-    loss_gaps = []  # per step, the largest gap over the losses (see the docstring)
-    own_gaps = []  # per step and loss, the gap over that loss's own size (recorded, checked at step 1)
-    for i, (got, want) in enumerate(zip(ranks[0]["steps"], one["steps"])):
-        if set(got) != set(want) or got["loss_finite"] != 1.0 or want["loss_finite"] != 1.0:
-            raise AssertionError(f"ddp: step metrics {got} against {want}")
-        own_gaps.append({k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()})
-        scale = {k: abs(v) if i == 0 else abs(want["total_loss"]) for k, v in want.items()}
-        loss_gaps.append(max(abs(got[k] - v) / max(scale[k], 1e-12) for k, v in want.items()))
-    held = ranks[0]["held"]
-    param_gap = max(r["param_gap"] for r in ranks)
-    update_gap = max(r["update_gap"] for r in ranks)
-    log(f"ddp ({dtype}): 2 gloo ranks on one card against one process at batch {TRAIN_BATCH}, {DDP_STEPS} steps: "
-        f"largest loss gap per step {[float(f'{g:.3g}') for g in loss_gaps]} (step 1 of each loss, "
-        f"later of the total loss), the ranks' update "
-        f"{update_gap:.3g} of the one process's away (L2), largest parameter gap {param_gap:.3g} "
-        f"({ranks[0]['worst']}); total losses {[s['total_loss'] for s in ranks[0]['steps']]} against "
-        f"{[s['total_loss'] for s in one['steps']]}; launches per step per rank {per_step}, image_io once per "
-        f"mapped batch; ms per step {[round(float(np.median(r['ms'][1:])), 1) for r in ranks]} per rank, "
-        f"{float(np.median(one['ms'][1:])):.1f} in one process; peak "
-        f"{[round(r['peak_gb'], 2) for r in ranks]} GB per rank, {one['peak_gb']:.2f} in one process")
-    log("ddp: per step, each loss of the ranks / of the one process (gap over the loss's own size): " + "; ".join(
-        f"step {i + 1}: " + ", ".join(f"{k} {got[k]:.6g} / {want[k]:.6g} ({own_gaps[i][k]:.3g})"
-                                      for k in sorted(want) if k != "loss_finite")
-        for i, (got, want) in enumerate(zip(ranks[0]["steps"], one["steps"]))))
-    if loss_gaps[0] > DDP_FIRST_LOSS_RTOL or max(loss_gaps) > DDP_LOSS_RTOL or update_gap > DDP_UPDATE_RTOL:
-        raise AssertionError(f"ddp: the ranks' run differs from the one process's beyond the tolerance: "
-                             f"losses {loss_gaps}, update {update_gap}")
+    runs, seconds = {}, {}
+    for nprocs in DDP_SPAWNS:
+        t = time.time()
+        runs[nprocs] = ddp_spawn(nprocs, root, weights, reference, dtype)
+        seconds[nprocs] = time.time() - t
+    ranks = runs[DDP_WORLD]
+    stats = ddp_compare(ranks, one, dtype, f"ddp, {DDP_WORLD} gloo ranks on one card")
+    if any(r["sits_out"] or r["subgroup"] for r in ranks):
+        raise AssertionError("ddp: a rank of the run where all train sits out or has a group of its own")
+    three = runs[3]
+    idle = three[2]
+    if not idle["sits_out"] or idle["world"] != DDP_WORLD or idle["steps"] or idle["launches"] or \
+            not idle["logged"] or any(idle["launched"].values()) or idle["io"]["batches_mapped"]:
+        raise AssertionError(f"ddp, 3 ranks: rank 2 {idle}")
+    if any(r["sits_out"] or not r["subgroup"] for r in three[:2]):
+        raise AssertionError("ddp, 3 ranks: ranks 0-1 not in a group of their own")
+    three_stats = ddp_compare(three[:2], one, dtype, "ddp, 3 gloo ranks on one card, rank 2 sits out")
+    same = three[0]["digest"] == ranks[0]["digest"]
+    log(f"ddp, 3 ranks: rank 2 sat out (no step, no launch, logged); ranks 0-1's parameters "
+        f"{'equal' if same else 'differ from'} the 2-rank run's bit for bit; "
+        f"{seconds[2]:.1f} s for the 2-rank run, {seconds[3]:.1f} s for the 3-rank run")
     return dict(card=card, dtype=dtype, world=DDP_WORLD, backend="gloo", batch=TRAIN_BATCH, steps=DDP_STEPS,
-                loss_gap_rel=loss_gaps, loss_gap_own=own_gaps, update_gap=update_gap, param_gap=param_gap,
-                worst_param=ranks[0]["worst"], held_batch_rank0=held,
-                losses=[s["total_loss"] for s in ranks[0]["steps"]],
+                **stats, held_batch_rank0=ranks[0]["held"],
                 losses_one_process=[s["total_loss"] for s in one["steps"]],
-                step_metrics=ranks[0]["steps"], step_metrics_one_process=one["steps"],
-                launches_per_step={**per_step, "image_io": 1},
-                image_io=[r["io"] for r in ranks],
-                ms_per_step=[float(np.median(r["ms"][1:])) for r in ranks],
-                ms_per_step_one_process=float(np.median(one["ms"][1:])),
-                peak_gb=[r["peak_gb"] for r in ranks], peak_gb_one_process=one["peak_gb"],
-                seconds=time.time() - t0)
+                step_metrics_one_process=one["steps"],
+                ms_per_step_one_process=float(np.median(one["ms"][1:])), peak_gb_one_process=one["peak_gb"],
+                three_ranks=dict(three_stats, sat_out={k: idle[k] for k in ("rank", "world", "steps", "logged")},
+                                 bitwise_equal_to_two_ranks=same, seconds=seconds[3]),
+                two_ranks_seconds=seconds[2], seconds=time.time() - t0)
 
 
 def zoo_phase(root, weights, trainer_state):
@@ -4611,6 +4980,8 @@ def main() -> int:
     datasets_stats = datasets_phase(card)
     surface_stats = surface_phase(card)
     torch.cuda.empty_cache()
+    tools_stats = tools_phase(card)
+    torch.cuda.empty_cache()
     ddp_stats, zoo_stats = ddp_zoo_phases(card)
 
     paths = {"bgr_inference": launches, "bgr_train": train_launches, "bgrt_inference": ef_launches,
@@ -4635,7 +5006,17 @@ def main() -> int:
                  "image_io": surface_stats["crop_train"]["image_io"]["per_train_batch"]},
              f"flir_draw ({surface_stats['draw']['images']} images)": surface_stats["draw"]["launches"],
              EXPORTED_PATH: export_stats["launches"],
-             DDP_PATH: ddp_stats["launches_per_step"]}
+             DDP_PATH: ddp_stats["launches_per_step"],
+             DDP3_PATH: ddp_stats["three_ranks"]["launches_per_step"],
+             "plain_train_net (K1-K3 per step, image_io per training batch)": {
+                 **tools_stats["plain_train_net"]["launches_per_step"],
+                 "image_io": tools_stats["plain_train_net"]["image_io_per_batch"]},
+             **{f"benchmark_{task} (per {'batch' if task == 'data' else 'call'})": {
+                 k: v for k, v in run["launches_per_call"].items() if v}
+                for task, run in tools_stats["benchmark"].items()},
+             **{f"{name} ({tools_stats[name]['images']} images)": {
+                 k: v for k, v in tools_stats[name]["launches"].items() if v}
+                for name in ("visualize_data", "visualize_json_results")}}
     for d in (k1, k2, k3):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
@@ -4670,6 +5051,7 @@ def main() -> int:
     print(json.dumps({"datasets": {**datasets_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"surface": {**surface_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"export": {**export_stats, "card": card}}))
+    print(json.dumps({"tools": {**tools_stats, "total_seconds": time.time() - t0}}))
     print(json.dumps({"ddp": ddp_stats}))
     print(json.dumps({"zoo": zoo_stats}))
     k_io["launches"] = flir_stats["thermal_only"]["launches_per_batch"]["image_io"]

@@ -10,7 +10,8 @@ registers a COCO-format one (repeatable). ``--eval-only`` evaluates
 DATASETS.TEST with the (resumed) weights. Runs on ``--device`` (default
 ``cuda``; ``cpu`` runs the plain versions); data parallel under
 ``torchrun --nproc_per_node N -m proben_tpu_torch.apps.train_net ...``,
-one rank per card (``DefaultTrainer``; N must divide IMS_PER_BATCH).
+one rank per card (``DefaultTrainer``: the first ranks that divide
+IMS_PER_BATCH train, any others sit out).
 """
 
 from __future__ import annotations
@@ -42,17 +43,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def register_datasets(specs: Sequence[str]) -> None:
+    """Register each "name,json_path,image_root" as a COCO-format dataset
+    (replacing a dataset of that name)."""
+    for spec in specs:
+        name, json_path, image_root = spec.split(",")
+        DatasetCatalog.remove(name)
+        register_coco_instances(name, {}, json_path, image_root)
+
+
 def setup(args: argparse.Namespace):
-    """The config of the parsed arguments, with their datasets registered."""
+    """The config of the parsed arguments (``config_file``, ``opts``), with
+    their datasets (``register``) registered."""
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    for spec in args.register:
-        name, json_path, image_root = spec.split(",")
-        DatasetCatalog.remove(name)
-        register_coco_instances(name, {}, json_path, image_root)
+    register_datasets(args.register)
     return cfg
 
 
@@ -63,7 +71,8 @@ def main(argv: Optional[Sequence[str]] = None):
     trainer = DefaultTrainer(cfg, device=args.device)
     trainer.resume_or_load(resume=args.resume)
     if args.eval_only:
-        trainer.train_loader.close()
+        if trainer.train_loader is not None:  # None on a rank that sits out
+            trainer.train_loader.close()
         results = trainer.evaluate()
         print(results)
         return results

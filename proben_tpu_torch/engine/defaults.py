@@ -9,11 +9,13 @@ runs there in every step (a batch that does not fit raises). Data parallel
 the caller initialised) every rank runs on its own device
 (``cuda:LOCAL_RANK``) with its equal share of each global batch, and the
 step averages the gradients over the ranks, so the update is the one-device
-step of the global batch (JAX: one SPMD program over the mesh). The number
-of ranks must divide ``IMS_PER_BATCH``; the JAX package instead shards over
-the largest number of devices that does. Only rank 0 writes checkpoints,
-``metrics.json`` and the evaluation; the ranks meet at a barrier after
-each. Hooks around the loop (timer, lr, writers, periodic checkpoint,
+step of the global batch (JAX: one SPMD program over the mesh). As in JAX,
+the ranks that train are the first n, n the largest number of ranks that
+divides ``IMS_PER_BATCH`` (``parallel.dividing_group``; a process group of
+their own when n is not all of them); a rank past them maps no rows, takes
+no step and returns from ``train`` at once. Only rank 0 writes checkpoints,
+``metrics.json`` and the evaluation; the training ranks meet at a barrier
+after each. Hooks around the loop (timer, lr, writers, periodic checkpoint,
 PreciseBN, eval) in the JAX package's order; ``torch.save`` checkpoints
 under ``OUTPUT_DIR/checkpoints`` with resume; detectron2 checkpoint loading
 from ``MODEL.WEIGHTS``.
@@ -46,7 +48,7 @@ from ..checkpoint import (
 from ..config import mapper_config_from_cfg, model_config_from_cfg, solver_config_from_cfg
 from ..data import DatasetCatalog, DatasetMapper, TrainLoader, build_test_loader
 from ..models import RCNN, build_model, init_rcnn
-from ..parallel import broadcast_from_first, data_parallel_group, replicate
+from ..parallel import broadcast_from_first, data_parallel_group, dividing_group, replicate
 from ..solver.build import build_lr_schedule
 from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter, TensorboardWriter
 from ..utils.logger import setup_logger
@@ -60,7 +62,7 @@ from .hooks import (
     PreciseBNHook,
 )
 from .predictor import Predictor
-from .train import TrainState, make_train_step, trainable_mask
+from .train import TrainState, device_batch, make_train_step, trainable_mask
 
 logger = logging.getLogger(__name__)
 
@@ -69,11 +71,9 @@ Device = Union[str, torch.device]
 
 class DefaultTrainer:
     def __init__(self, cfg, train_loader=None, params=None, device: Device = "cuda"):
-        self.mesh = data_parallel_group(device)
+        # every rank takes part in the group's creation, the ranks that sit out too
+        self.mesh = dividing_group(data_parallel_group(device), cfg.SOLVER.IMS_PER_BATCH)
         setup_logger(cfg.OUTPUT_DIR, distributed_rank=self.mesh.rank)
-        if cfg.SOLVER.IMS_PER_BATCH % self.mesh.world:
-            raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not split "
-                             f"over {self.mesh.world} ranks: the number of ranks must divide it")
         self.cfg = cfg
         self.device = self.mesh.device
         self.model_cfg = model_config_from_cfg(cfg)
@@ -87,14 +87,14 @@ class DefaultTrainer:
                 logger.info("loading weights from %s", cfg.MODEL.WEIGHTS)
                 params = import_detectron2_checkpoint(cfg.MODEL.WEIGHTS, params, strict=False)
         self.model: RCNN = replicate(
-            build_model(self.model_cfg, params=params, device=self.device).train())
+            build_model(self.model_cfg, params=params, device=self.device).train(), self.mesh)
         init_state, self._train_step = make_train_step(
-            self.model_cfg, self.solver_cfg, self.build_trainable_mask(self.model),
-            self.mesh.rank, self.mesh.world)
+            self.model_cfg, self.solver_cfg, self.build_trainable_mask(self.model), self.mesh)
         self.state: TrainState = init_state(self.model, seed)
 
-        self.train_loader = train_loader or self.build_train_loader(
-            cfg, self.device, self.mesh.rank, self.mesh.world)
+        self.train_loader = train_loader
+        if train_loader is None and not self.mesh.sits_out:
+            self.train_loader = self.build_train_loader(cfg, self.device, self.mesh.rank, self.mesh.world)
         self.checkpointer = CheckpointManager(
             os.path.join(cfg.OUTPUT_DIR, "checkpoints"),
             higher_is_better=True,
@@ -182,8 +182,8 @@ class DefaultTrainer:
     # -- checkpointing ---------------------------------------------------------
 
     def _barrier(self):
-        if self.mesh.world > 1:
-            dist.barrier()
+        if self.mesh.world > 1 and not self.mesh.sits_out:
+            dist.barrier(group=self.mesh.group)
 
     def save_checkpoint(self):
         if self.mesh.rank == 0:
@@ -192,8 +192,10 @@ class DefaultTrainer:
 
     def resume_or_load(self, resume: bool = True):
         """Resume from the latest checkpoint under ``OUTPUT_DIR``; then,
-        data parallel, every rank takes rank 0's parameters, momentum and
-        step."""
+        data parallel, every training rank takes rank 0's parameters,
+        momentum and step. Nothing on a rank that sits out."""
+        if self.mesh.sits_out:
+            return
         if resume:
             restored = self.checkpointer.restore_latest(train_state_tree(self.state))
             if restored is not None:
@@ -202,22 +204,16 @@ class DefaultTrainer:
                 logger.info("resumed from iter %d", self.start_iter)
         if self.mesh.world > 1:
             steps = torch.tensor([self.start_iter, self.state.step], device=self.device)
-            broadcast_from_first([*self.model.parameters(), *self.state.momentum.values(), steps])
+            broadcast_from_first([*self.model.parameters(), *self.state.momentum.values(), steps],
+                                 self.mesh)
             self.start_iter, step = (int(v) for v in steps.tolist())
             self.state = dataclasses.replace(self.state, step=step)
 
     # -- the loop ---------------------------------------------------------------
 
     def run_step(self):
-        batch = next(self.train_loader)
-        gt = batch["gt"]
-        device_batch = {
-            "image": batch["image"].to(self.device),
-            "image_size": batch["image_size"].to(self.device),
-            "gt": type(gt)(gt.boxes.to(self.device), gt.classes.to(self.device),
-                           gt.valid.to(self.device)),
-        }
-        self.state, metrics = self._train_step(self.state, device_batch)
+        batch = device_batch(next(self.train_loader), self.device)
+        self.state, metrics = self._train_step(self.state, batch)
         self._last_metrics = metrics
 
     def _write_metrics(self):
@@ -228,6 +224,10 @@ class DefaultTrainer:
             self.storage.put_scalar(k, v)
 
     def train(self) -> TrainState:
+        if self.mesh.sits_out:
+            logger.info("rank %d sits out: the first %d ranks divide IMS_PER_BATCH %d and train",
+                        self.mesh.rank, self.mesh.world, self.cfg.SOLVER.IMS_PER_BATCH)
+            return self.state
         logger.info("starting training from iter %d to %d", self.start_iter, self.max_iter)
         self.model.train()
         with EventStorage(self.start_iter) as self.storage:
@@ -256,7 +256,9 @@ class DefaultTrainer:
         """``test`` of the live model (no second copy of the weights); the
         model is back in training mode afterwards, its ``requires_grad``
         flags untouched. Data parallel: rank 0 evaluates, the others return
-        {}, and the ranks meet at a barrier."""
+        {}, and the training ranks meet at a barrier."""
+        if self.mesh.sits_out:
+            return {}
         try:
             if self.mesh.rank == 0:
                 return self.test(self.cfg, self.model, device=self.device)

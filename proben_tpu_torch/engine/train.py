@@ -20,7 +20,7 @@ import torch
 from ..models.rcnn import RCNN, ModelConfig, rcnn_train_losses
 from ..models.resnet import freeze_mask
 from ..ops.sampling import Draws, GlobalBatchDraws
-from ..parallel.mesh import all_mean
+from ..parallel.mesh import DataMesh, all_mean
 from ..solver.build import SolverConfig, build_optimizer, flat_cat, split_like
 
 Tensor = torch.Tensor
@@ -56,6 +56,14 @@ def step_seed(seed: int, step: int) -> int:
     return hash((seed, step)) & 0x7FFF_FFFF_FFFF_FFFF
 
 
+def device_batch(batch: Mapping, device) -> Dict:
+    """The step's inputs of a loader batch ("image", "image_size", "gt"),
+    on ``device``."""
+    gt = batch["gt"]
+    return {"image": batch["image"].to(device), "image_size": batch["image_size"].to(device),
+            "gt": type(gt)(gt.boxes.to(device), gt.classes.to(device), gt.valid.to(device))}
+
+
 def losses_and_grads(
     model: RCNN, cfg: ModelConfig, batch: Mapping, generator: Draws
 ) -> Tuple[Dict[str, Tensor], Tensor, Dict[str, Tensor]]:
@@ -83,14 +91,14 @@ def _keep_finite(new: Mapping[str, Tensor], old: Mapping[str, Tensor], finite: T
     return split_like(torch.where(finite & torch.isfinite(n), n, o), old)
 
 
-def _mean_over_ranks(losses, total, grads, world):
-    """(losses, total, grads), each averaged over the ``world`` ranks in one
-    all-reduce of their flat concatenation; unchanged at world 1."""
-    if world == 1:
+def _mean_over_ranks(losses, total, grads, mesh: Optional[DataMesh]):
+    """(losses, total, grads), each averaged over the ranks of ``mesh`` in
+    one all-reduce of their flat concatenation; unchanged at world 1."""
+    if mesh is None or mesh.world == 1:
         return losses, total, grads
     parts = {**{f"loss/{k}": v.float() for k, v in losses.items()}, "total": total.float(),
              **{f"grad/{k}": v for k, v in grads.items()}}
-    mean = split_like(all_mean(flat_cat(parts.values()), world), parts)
+    mean = split_like(all_mean(flat_cat(parts.values()), mesh), parts)
     return ({k: mean[f"loss/{k}"].to(v.dtype) for k, v in losses.items()},
             mean["total"].to(total.dtype), {k: mean[f"grad/{k}"] for k in grads})
 
@@ -99,8 +107,7 @@ def make_train_step(
     model_cfg: ModelConfig,
     solver_cfg: SolverConfig,
     trainable_mask: Optional[Mapping[str, bool]] = None,
-    rank: int = 0,
-    world: int = 1,
+    mesh: Optional[DataMesh] = None,
 ) -> Tuple[Callable, Callable]:
     """Returns (init_state, train_step).
 
@@ -110,14 +117,14 @@ def make_train_step(
     in ``losses_and_grads``; ``metrics`` holds every loss, ``total_loss``
     and ``loss_finite`` (1.0 or 0.0), as device tensors.
 
-    Data parallel (``world`` > 1, the default process group): ``batch`` is
-    this rank's equal share of the global batch (``parallel.shard_batch``),
-    the random draws are the global batch's (``ops.sampling.
-    GlobalBatchDraws``), and the gradients, the losses and the total loss
-    are averaged over the ranks before the update, so every rank keeps or
-    skips it together and applies the one-device step of the global batch
-    (the losses are means over images: the mean of equal shards' means is
-    the global mean).
+    Data parallel (``mesh``, a ``parallel.DataMesh`` of world > 1; None:
+    one process): ``batch`` is this rank's equal share of the global batch
+    (``parallel.shard_batch``), the random draws are the global batch's
+    (``ops.sampling.GlobalBatchDraws``), and the gradients, the losses and
+    the total loss are averaged over the mesh's ranks before the update, so
+    every rank keeps or skips it together and applies the one-device step
+    of the global batch (the losses are means over images: the mean of
+    equal shards' means is the global mean).
     """
     optimizer = build_optimizer(solver_cfg, trainable_mask)
 
@@ -130,9 +137,10 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Mapping) -> Tuple[TrainState, Dict[str, Tensor]]:
         state.generator.manual_seed(step_seed(state.seed, state.step))
-        draws = state.generator if world == 1 else GlobalBatchDraws(state.generator, rank, world)
+        draws = (state.generator if mesh is None or mesh.world == 1
+                 else GlobalBatchDraws(state.generator, mesh.rank, mesh.world))
         losses, total, grads = losses_and_grads(state.model, model_cfg, batch, draws)
-        losses, total, grads = _mean_over_ranks(losses, total, grads, world)
+        losses, total, grads = _mean_over_ranks(losses, total, grads, mesh)
         params = dict(state.model.named_parameters())
         finite = torch.isfinite(total)
         with torch.no_grad():

@@ -13,14 +13,16 @@ all-reduce (``all_mean``), so every rank applies the one-device update of
 the global batch. The backend is NCCL when each rank has a card of its own
 and gloo when ranks share a card or run on the CPU (NCCL refuses two ranks
 on one device). One process with no group is world 1, and nothing here
-communicates.
+communicates. A trainer whose global batch the ranks do not divide trains on
+the first ranks that do (``dividing_group``, JAX: the mesh spans the largest
+number of devices that divides the batch); the other ranks sit out.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Iterable, Union
+from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -32,11 +34,20 @@ from ..device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
     """This process's place in the data-parallel group: its rank, the
-    number of ranks and its device."""
+    number of ranks and its device, and the process group of those ranks
+    (None: the default group). ``all_mean``, ``broadcast_from_first`` and
+    ``replicate`` take the mesh, so the group and its size travel together;
+    ``models.batch_norm.sync_batch_norm`` takes its ``group``. A rank at or
+    past ``world`` is not in the group (``sits_out``)."""
 
     rank: int
     world: int
     device: torch.device
+    group: Optional[object] = None
+
+    @property
+    def sits_out(self) -> bool:
+        return self.rank >= self.world
 
 
 def _rank_device(device: torch.device, local_rank: int) -> torch.device:
@@ -67,6 +78,19 @@ def data_parallel_group(device: Union[str, torch.device] = "cuda") -> DataMesh:
     return DataMesh(rank, world, _rank_device(device, local_rank))
 
 
+def dividing_group(mesh: DataMesh, batch_size: int) -> DataMesh:
+    """The ranks that share a global batch of ``batch_size``: ranks 0 to
+    n - 1 of ``mesh``, n the largest number up to ``mesh.world`` that
+    divides ``batch_size`` (JAX ``engine/defaults.py``: the mesh spans
+    ``devices[:n_dp]``). Returns this rank's mesh of world n: with a new
+    process group of those ranks when 1 < n < ``mesh.world``, which every
+    rank of ``mesh`` must therefore call, in the same order
+    (``torch.distributed.new_group``); a rank at or past n ``sits_out``."""
+    n = max(d for d in range(1, mesh.world + 1) if batch_size % d == 0)
+    group = dist.new_group(list(range(n))) if 1 < n < mesh.world else mesh.group
+    return DataMesh(mesh.rank, n, mesh.device, group)
+
+
 def shard_batch(batch, rank: int, world: int):
     """This rank's rows of a global batch: the ``rank``-th of ``world``
     equal slices of the leading axis of every tensor and array, and of every
@@ -88,28 +112,31 @@ def shard_batch(batch, rank: int, world: int):
     return batch
 
 
-def broadcast_from_first(tensors: Iterable[torch.Tensor]) -> None:
-    """Overwrite ``tensors`` on every rank with rank 0's, in place; nothing
-    without a group of more than one rank."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+def broadcast_from_first(tensors: Iterable[torch.Tensor], mesh: DataMesh) -> None:
+    """Overwrite ``tensors`` on every rank of ``mesh`` with its rank 0's, in
+    place, over ``mesh.group``; nothing at world 1 or on a rank that sits
+    out."""
+    if mesh.world == 1 or mesh.sits_out:
         return
     with torch.no_grad():
         for t in tensors:
-            dist.broadcast(t.data, src=0)
+            dist.broadcast(t.data, src=0, group=mesh.group)
 
 
-def replicate(model: torch.nn.Module) -> torch.nn.Module:
-    """Rank 0's parameters and buffers on every rank (JAX ``replicate``:
-    the parameters' sharding is replicated); returns ``model``."""
-    broadcast_from_first(list(model.parameters()) + list(model.buffers()))
+def replicate(model: torch.nn.Module, mesh: DataMesh) -> torch.nn.Module:
+    """Rank 0's parameters and buffers on every rank of ``mesh`` (JAX
+    ``replicate``: the parameters' sharding is replicated); returns
+    ``model``."""
+    broadcast_from_first(list(model.parameters()) + list(model.buffers()), mesh)
     return model
 
 
-def all_mean(flat: torch.Tensor, world: int) -> torch.Tensor:
-    """The mean over the ranks of a 1-D tensor: one all-reduce of the sum,
-    then a division by ``world``; ``flat`` itself at world 1."""
-    if world == 1:
+def all_mean(flat: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The mean over the ranks of ``mesh`` of a 1-D tensor: one all-reduce
+    of the sum over ``mesh.group``, then a division by ``mesh.world``;
+    ``flat`` itself at world 1."""
+    if mesh.world == 1:
         return flat
     flat = flat.contiguous()
-    dist.all_reduce(flat)
-    return flat / world
+    dist.all_reduce(flat, group=mesh.group)
+    return flat / mesh.world

@@ -22,6 +22,7 @@ from proben_tpu.models.anchors import multilevel_anchors as jax_multilevel_ancho
 from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
 from proben_tpu_torch.models import rcnn as t_rcnn
 from proben_tpu_torch.models.anchors import multilevel_anchors
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W = 128, 160
 

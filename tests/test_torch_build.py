@@ -3,6 +3,7 @@ is rebuilt when its source, any local header or any flag changes. CPU only:
 nothing is compiled."""
 
 from proben_tpu_torch import _build
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def test_library_key_follows_sources_headers_and_flags(tmp_path, monkeypatch):

@@ -45,6 +45,7 @@ from proben_tpu_torch.models.roi_heads import ROIHeadsConfig
 from proben_tpu_torch.models.rpn import RPNConfig, apply_rpn_head
 from proben_tpu_torch.ops.roi_align_cuda import single_level_roi_align
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W = 96, 128
 SIZES = np.array([[96, 128], [90, 120]], np.int32)  # second image padded

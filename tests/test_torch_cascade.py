@@ -34,6 +34,7 @@ from proben_tpu_torch.models.box_head import OutputLayers, init_output_layers
 from proben_tpu_torch.models.fast_rcnn import FastRCNNConfig, fast_rcnn_inference, fast_rcnn_losses
 from proben_tpu_torch.models.roi_heads import ROIHeadsConfig
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H = W = 128
 R, G, C = 40, 2, 64

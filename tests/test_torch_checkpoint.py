@@ -44,8 +44,11 @@ from proben_tpu_torch.engine import make_train_step, trainable_mask
 from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
 from proben_tpu_torch.models.box_head import BoxHead, apply_box_head
 from proben_tpu_torch.models.layers import fold_batchnorm
+from proben_tpu_torch.models.roi_heads import ROIHeadsConfig
+from proben_tpu_torch.models.rpn import RPNConfig
 from proben_tpu_torch.solver import SolverConfig
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def assert_trees_equal(got, want):
@@ -132,8 +135,13 @@ def _synth_d2_state_dict(template, rng):
 
 
 def _template(fmt, num_classes=3):
+    """JAX's parameter tree of the config: the structure, shapes and dtypes
+    of its init (``jax.eval_shape``, which draws nothing: the eager threefry
+    init of an R50 costs ~15 s on an 8-core CPU), filled with seeded normal numbers."""
     cfg = jax_build_config(depth=50, input_format=fmt, enable_gaussian_nll=True, num_classes=num_classes)
-    return jax.tree_util.tree_map(np.asarray, jax_init_rcnn(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(0)
+    return jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape, dtype=np.float32).astype(s.dtype),
+                                  jax.eval_shape(lambda: jax_init_rcnn(jax.random.PRNGKey(0), cfg)))
 
 
 @pytest.fixture(scope="module", params=["BGR", "BGRTTT"])
@@ -402,7 +410,11 @@ H, W = 96, 128
 
 
 def _train_setup(seed_params):
-    cfg = build_config(depth=50, num_classes=3, enable_gaussian_nll=True)
+    # small proposal and sample counts: what is held (a resumed step equals
+    # the uninterrupted one bit for bit) does not depend on them
+    cfg = build_config(depth=50, num_classes=3, enable_gaussian_nll=True,
+                       rpn=RPNConfig(pre_nms_topk_train=256, post_nms_topk_train=128),
+                       roi=ROIHeadsConfig(num_classes=3, batch_size_per_image=128))
     model = build_model(cfg, params=random_affines(init_rcnn(seed_params, cfg), seed_params), device="cpu")
     solver = SolverConfig(base_lr=0.01, warmup_iters=4, warmup_factor=0.1)
     init, step = make_train_step(cfg, solver, trainable_mask(model, cfg.freeze_at))

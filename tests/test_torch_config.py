@@ -28,6 +28,7 @@ from proben_tpu_torch.config import (
     solver_config_from_cfg,
 )
 from proben_tpu_torch.config import yaml_subset
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 YAMLS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))

@@ -42,6 +42,7 @@ from proben_tpu_torch.data import (
 from proben_tpu_torch.data import transforms
 from proben_tpu_torch.native.io import compose_resize_pad, compose_resize_pad_plain, resize_u8_cv2
 from proben_tpu_torch.structures import BoxMode, GroundTruth, convert_box_mode
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 THERMAL = [(128, 160), (128, 160), (100, 140)]
 RGB = [(256, 300), (300, 256), (200, 250)]

@@ -25,6 +25,7 @@ from proben_tpu.evaluation import build_evaluator as jax_build_evaluator
 from proben_tpu.evaluation import inference_on_dataset as jax_inference_on_dataset
 from proben_tpu_torch import data
 from proben_tpu_torch.evaluation import build_evaluator, inference_on_dataset
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 VOC_CLASSES = data.pascal_voc.VOC_CLASS_NAMES
 N_LVIS_CATS = 30

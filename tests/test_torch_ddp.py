@@ -4,8 +4,11 @@ rank-aware ``DefaultTrainer``, ``TrainLoader``, ``DatasetMapper`` and
 ``file://`` init in ``tmp_path``, held to one process on the same global
 batch.
 
-The two ranks run the tiny R50 trainer of tests/test_torch_trainer.py at
-``IMS_PER_BATCH`` 2 (one image per rank) for 2 steps with real random
+The trainer's spawn starts 3 ranks at ``IMS_PER_BATCH`` 2: as in the JAX
+trainer, the first 2 (the most ranks that divide the batch) train in a
+process group of their own and the third sits out. The two ranks run the
+tiny R50 trainer of tests/test_torch_trainer.py (one image per rank) for 2
+steps with real random
 sampling (not the identity sampling of the JAX comparisons): the mapper's
 flips and sizes and the sampled anchors and RoIs are drawn for the global
 batch and each rank keeps its rows, so every rank computes what the
@@ -34,13 +37,12 @@ import torch.multiprocessing as mp
 from proben_tpu_torch.config import get_cfg, mapper_config_from_cfg
 from proben_tpu_torch.data import DatasetCatalog, DatasetMapper, TrainLoader, register_coco_instances
 from proben_tpu_torch.engine import CallbackHook, DefaultTrainer
-from proben_tpu_torch.engine import defaults as t_defaults
 from proben_tpu_torch.models import batch_norm as bn
-from proben_tpu_torch.parallel import DataMesh, all_mean, data_parallel_group, shard_batch
+from proben_tpu_torch.parallel import DataMesh, all_mean, data_parallel_group, dividing_group, shard_batch
 
 H, W, PAD = 64, 80, (64, 96)
 NAME = "tiny_torch_ddp_ds"
-TIMEOUT = 240  # seconds for a spawned pair of ranks
+TIMEOUT = 240  # seconds for a spawned set of ranks
 
 
 def _no_tensorboard():
@@ -118,21 +120,25 @@ def _cfg(out_dir, batch=2):
 
 
 def _train(cfg):
-    """(losses per step, final parameters, the trainer's mesh) of a
-    ``DefaultTrainer`` run on the CPU."""
+    """(losses per step, final parameters, the trainer) of a
+    ``DefaultTrainer`` run on the CPU after ``resume_or_load`` (nothing to
+    resume: data parallel, rank 0's parameters, momentum and step go to
+    the training ranks); no step on a rank that sits out."""
     trainer = DefaultTrainer(cfg, device="cpu")
+    trainer.resume_or_load(resume=True)
     steps = []
     trainer.register_hooks([CallbackHook(after_step=lambda t: steps.append(
         {k: float(v) for k, v in t._last_metrics.items()}))])
     trainer.train()
     params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-    return steps, params, trainer.mesh
+    return steps, params, trainer
 
 
-def _spawn(fn, tmp_path, *args):
-    """Run ``fn(rank, init_file, *args)`` on 2 spawned ranks; fail on a rank's
+def _spawn(fn, tmp_path, *args, nprocs=2):
+    """Run ``fn(rank, init_file, *args)`` on ``nprocs`` spawned ranks (the
+    world size is ``args[-1]``'s where ``fn`` takes one); fail on a rank's
     error or after ``TIMEOUT`` s."""
-    ctx = mp.spawn(fn, args=(str(tmp_path / "init"),) + args, nprocs=2, join=False)
+    ctx = mp.spawn(fn, args=(str(tmp_path / "init"),) + args, nprocs=nprocs, join=False)
     deadline = time.monotonic() + TIMEOUT
     while not ctx.join(1.0):
         if time.monotonic() > deadline:
@@ -141,37 +147,87 @@ def _spawn(fn, tmp_path, *args):
             pytest.fail(f"the ranks did not finish within {TIMEOUT} s")
 
 
-def _init(rank, init_file):
+def _init(rank, init_file, world=2):
     torch.set_num_threads(2)
     _no_tensorboard()
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=2)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
 
 
-def _trainer_rank(rank, init_file, root, out_dir, result_dir):
-    _init(rank, init_file)
+def _bn_inputs():
+    rng = np.random.RandomState(6)
+    x = (rng.randn(4, 5, 6, 3) * 3 + 1).astype(np.float32)
+    g = rng.randn(4, 5, 6, 3).astype(np.float32)
+    params = {"weight": rng.rand(3).astype(np.float32) + 0.5, "bias": rng.randn(3).astype(np.float32),
+              "running_mean": rng.randn(3).astype(np.float32),
+              "running_var": rng.rand(3).astype(np.float32) + 0.5}
+    return x, g, params
+
+
+def _sync_bn_half(rank, x, g, params, group):
+    """``sync_batch_norm`` of rank ``rank``'s half of ``x`` over ``group``:
+    (output, the input's gradient against cotangent ``g``, new running
+    statistics)."""
+    half = x.shape[0] // 2
+    xr = torch.from_numpy(x[rank * half:(rank + 1) * half]).requires_grad_()
+    out, new = bn.sync_batch_norm(xr, {k: torch.from_numpy(v) for k, v in params.items()}, group=group)
+    (grad,) = torch.autograd.grad((out * torch.from_numpy(g[rank * half:(rank + 1) * half])).sum(), xr)
+    return {"out": out.detach(), "grad": grad, "running": {k: v.detach() for k, v in new.items()}}
+
+
+def _trainer_rank(rank, init_file, root, out_dir, result_dir, world):
+    _init(rank, init_file, world)
     try:
         _register(root)
-        steps, params, mesh = _train(_cfg(out_dir))
+        steps, params, trainer = _train(_cfg(out_dir))
+        mesh = trainer.mesh
         assert (mesh.rank, mesh.world) == (rank, 2)
-        torch.save({"steps": steps, "params": params}, os.path.join(result_dir, f"rank{rank}.pt"))
+        got = {"steps": steps, "sits_out": mesh.sits_out}
+        if not mesh.sits_out:  # its parameters, and SyncBN over the training ranks' own group
+            got.update(params=params, bn=_sync_bn_half(rank, *_bn_inputs(), mesh.group))
+        torch.save(got, os.path.join(result_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
+def _sync_bn_whole():
+    x, g, params = _bn_inputs()
+    xt = torch.from_numpy(x).requires_grad_()
+    out, new = bn.sync_batch_norm(xt, {k: torch.from_numpy(v) for k, v in params.items()})
+    (grad,) = torch.autograd.grad((out * torch.from_numpy(g)).sum(), xt)
+    return out.detach(), grad, new
+
+
+def _assert_bn_halves_equal_whole(halves):
+    out, grad, new = _sync_bn_whole()
+    torch.testing.assert_close(torch.cat([r["out"] for r in halves]), out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(torch.cat([r["grad"] for r in halves]), grad, rtol=1e-5, atol=1e-5)
+    for r in halves:
+        for k, v in new.items():
+            torch.testing.assert_close(r["running"][k], v.detach(), rtol=1e-5, atol=1e-6)
+
+
 def test_two_ranks_equal_one_process_and_rank0_writes_the_metrics(tmp_path):
-    """2 gloo ranks of ``DefaultTrainer`` (one image each) against one
-    process at the global batch of 2, over 2 steps: every loss of every
-    step and the parameters after the last; both ranks hold the same
-    parameters; one ``metrics.json``, written by rank 0, with one line per
-    step."""
+    """3 gloo ranks of ``DefaultTrainer`` at a global batch of 2: as in the
+    JAX trainer, ranks 0 and 1 (one image each, a process group of their
+    own) train and rank 2 sits out, takes no step and raises nothing.
+    Against one process at the global batch of 2, over 2 steps: every loss
+    of every step and the parameters after the last; both training ranks
+    hold the same parameters; one ``metrics.json``, written by rank 0, with
+    one line per step. ``sync_batch_norm`` over the training ranks' group
+    equals one process on the whole batch (as in the test below)."""
     root = str(tmp_path / "tree")
     _write_tree(root)
     _register(root)
     out = tmp_path / "ddp"
-    _spawn(_trainer_rank, tmp_path, root, str(out), str(tmp_path))
+    _spawn(_trainer_rank, tmp_path, root, str(out), str(tmp_path), 3, nprocs=3)
+    idle = torch.load(tmp_path / "rank2.pt")
+    assert idle["sits_out"] and idle["steps"] == [] and "params" not in idle
+    assert "rank 2 sits out" in (out / "log.txt.rank2").read_text()
     ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
-    want_steps, want_params, mesh = _train(_cfg(tmp_path / "one"))
-    assert (mesh.rank, mesh.world) == (0, 1)
+    assert not any(r["sits_out"] for r in ranks)
+    _assert_bn_halves_equal_whole([r["bn"] for r in ranks])
+    want_steps, want_params, trainer = _train(_cfg(tmp_path / "one"))
+    assert (trainer.mesh.rank, trainer.mesh.world) == (0, 1)
 
     assert len(want_steps) == 2 and all(r["steps"] == ranks[0]["steps"] for r in ranks)
     for got, want in zip(ranks[0]["steps"], want_steps):
@@ -193,15 +249,10 @@ def test_two_ranks_equal_one_process_and_rank0_writes_the_metrics(tmp_path):
     assert (out / "log.txt.rank1").exists()
 
 
-def _sync_bn_rank(rank, init_file, x, g, params, result_dir):
+def _sync_bn_rank(rank, init_file, result_dir):
     _init(rank, init_file)
     try:
-        half = x.shape[0] // 2
-        xr = torch.from_numpy(x[rank * half:(rank + 1) * half]).requires_grad_()
-        out, new = bn.sync_batch_norm(xr, {k: torch.from_numpy(v) for k, v in params.items()},
-                                      group=dist.group.WORLD)
-        (grad,) = torch.autograd.grad((out * torch.from_numpy(g[rank * half:(rank + 1) * half])).sum(), xr)
-        torch.save({"out": out.detach(), "grad": grad, "running": {k: v.detach() for k, v in new.items()}},
+        torch.save(_sync_bn_half(rank, *_bn_inputs(), dist.group.WORLD),
                    os.path.join(result_dir, f"bn{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -212,22 +263,8 @@ def test_sync_batch_norm_over_two_ranks_equals_the_global_batch(tmp_path):
     batch: its output, its running statistics and the input's gradient
     (through the autograd-aware all-reduce) equal one process's on the
     whole batch, f32 to 1e-5."""
-    rng = np.random.RandomState(6)
-    x = (rng.randn(4, 5, 6, 3) * 3 + 1).astype(np.float32)
-    g = rng.randn(4, 5, 6, 3).astype(np.float32)
-    params = {"weight": rng.rand(3).astype(np.float32) + 0.5, "bias": rng.randn(3).astype(np.float32),
-              "running_mean": rng.randn(3).astype(np.float32),
-              "running_var": rng.rand(3).astype(np.float32) + 0.5}
-    _spawn(_sync_bn_rank, tmp_path, x, g, params, str(tmp_path))
-    xt = torch.from_numpy(x).requires_grad_()
-    out, new = bn.sync_batch_norm(xt, {k: torch.from_numpy(v) for k, v in params.items()})
-    (grad,) = torch.autograd.grad((out * torch.from_numpy(g)).sum(), xt)
-    ranks = [torch.load(tmp_path / f"bn{r}.pt") for r in range(2)]
-    torch.testing.assert_close(torch.cat([r["out"] for r in ranks]), out.detach(), rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(torch.cat([r["grad"] for r in ranks]), grad, rtol=1e-5, atol=1e-5)
-    for r in ranks:
-        for k, v in new.items():
-            torch.testing.assert_close(r["running"][k], v.detach(), rtol=1e-5, atol=1e-6)
+    _spawn(_sync_bn_rank, tmp_path, str(tmp_path))
+    _assert_bn_halves_equal_whole([torch.load(tmp_path / f"bn{r}.pt") for r in range(2)])
 
 
 def _env_rank(rank, init_file, port, result_dir):
@@ -238,7 +275,7 @@ def _env_rank(rank, init_file, port, result_dir):
 
     mesh = data_parallel_group("cpu")
     try:
-        got = all_mean(torch.tensor([float(rank), 10.0 * rank]), mesh.world)
+        got = all_mean(torch.tensor([float(rank), 10.0 * rank]), mesh)
         torch.save({"mesh": (mesh.rank, mesh.world, str(mesh.device)), "backend": dist.get_backend(),
                     "mean": got}, os.path.join(result_dir, f"env{rank}.pt"))
     finally:
@@ -263,15 +300,56 @@ def test_data_parallel_group_from_torchruns_environment(tmp_path):
     assert data_parallel_group("cpu") == DataMesh(0, 1, torch.device("cpu"))
 
 
-def test_a_world_that_does_not_divide_the_batch_raises(tmp_path, monkeypatch):
-    """The number of ranks must divide ``IMS_PER_BATCH`` (the JAX trainer
-    shards over the largest number of devices that divides it instead):
-    ``DefaultTrainer`` raises, and so do ``TrainLoader`` and
-    ``shard_batch``."""
-    monkeypatch.setattr(t_defaults, "data_parallel_group",
-                        lambda device: DataMesh(0, 2, torch.device("cpu")))
-    with pytest.raises(ValueError, match="IMS_PER_BATCH 3 does not split over 2 ranks"):
-        DefaultTrainer(_cfg(tmp_path, batch=3), device="cpu")
+def _alone_rank(rank, init_file, root, out_dir, result_dir):
+    """One of 2 gloo ranks of ``DefaultTrainer`` at ``IMS_PER_BATCH`` 3:
+    its mesh, its loader's share, its steps and parameters, and, where it
+    sits out, what ``evaluate`` returns."""
+    _init(rank, init_file)
+    try:
+        _register(root)
+        steps, params, trainer = _train(_cfg(out_dir, batch=3))
+        mesh, loader = trainer.mesh, trainer.train_loader
+        got = {"mesh": (mesh.rank, mesh.world, mesh.group is None), "sits_out": mesh.sits_out,
+               "loader": None if loader is None else (loader.world, loader.rows),
+               "steps": steps, "params": params}
+        if mesh.sits_out:
+            got["evaluate"] = trainer.evaluate()
+        torch.save(got, os.path.join(result_dir, f"alone{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_world_that_does_not_divide_the_batch_raises(tmp_path):
+    """Where the ranks do not divide ``IMS_PER_BATCH``, ``DefaultTrainer``
+    trains on the most first ranks that do, as the JAX trainer shards over
+    the largest number of devices that divides it, and raises nothing: 2
+    gloo ranks at a batch of 3. Rank 0 trains alone (world 1, the default
+    group, a loader of the whole batch) and does not wait on rank 1, which
+    sits out (no loader, no step, ``evaluate`` returns {}). Rank 0's losses
+    and parameters equal one process's (tolerances as above: other thread
+    counts, other summation orders). ``dividing_group`` makes no process
+    group for n = 1. A ``TrainLoader`` or ``shard_batch`` given a world
+    that does not divide its batch still raises."""
+    root = str(tmp_path / "tree")
+    _write_tree(root)
+    _register(root)
+    cpu = torch.device("cpu")
+    assert dividing_group(DataMesh(1, 4, cpu), 5) == DataMesh(1, 1, cpu)
+    assert dividing_group(DataMesh(3, 4, cpu), 8) == DataMesh(3, 4, cpu)
+    out = tmp_path / "alone"
+    _spawn(_alone_rank, tmp_path, root, str(out), str(tmp_path))
+    alone, idle = (torch.load(tmp_path / f"alone{r}.pt") for r in range(2))
+    assert alone["mesh"] == (0, 1, True) and not alone["sits_out"] and alone["loader"] == (1, (0, 3))
+    assert idle["mesh"] == (1, 1, True) and idle["sits_out"] and idle["loader"] is None
+    assert idle["steps"] == [] and idle["evaluate"] == {}
+    assert "rank 1 sits out" in (out / "log.txt.rank1").read_text()
+    want_steps, want_params, _ = _train(_cfg(tmp_path / "one", batch=3))
+    assert len(want_steps) == len(alone["steps"]) == 2
+    for got, want in zip(alone["steps"], want_steps):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+    for k, want in want_params.items():
+        np.testing.assert_allclose(alone["params"][k].numpy(), want.numpy(), rtol=0, atol=1e-6, err_msg=k)
     mapper = DatasetMapper(mapper_config_from_cfg(_cfg(tmp_path)), is_train=True, device="cpu")
     with pytest.raises(ValueError, match="does not split"):
         TrainLoader([{}] * 4, mapper, 3, num_workers=1, rank=0, world=2)

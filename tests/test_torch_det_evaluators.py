@@ -27,6 +27,7 @@ from proben_tpu.evaluation import sem_seg as jax_sem_seg
 from proben_tpu.structures import detections as jax_detections
 from proben_tpu_torch.evaluation import build, cityscapes, cocoeval, lvis, panoptic, pascal_voc, rle, sem_seg
 from proben_tpu_torch.structures import detections
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def _equal(a, b):

@@ -44,6 +44,7 @@ from proben_tpu_torch.models import rcnn as t_rcnn
 from proben_tpu_torch.models.rpn import RPNConfig
 from proben_tpu_torch.ops import nms, roi_align_cuda
 from proben_tpu_torch.structures.boxes import pairwise_iou
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 STRIDES = (4, 8, 16, 32)
 FLIR_YAML = "FLIR-Detection/faster_rcnn_R_101_FLIR.yaml"
@@ -80,6 +81,7 @@ import json, sys
 import torch
 from proben_tpu_torch.export import load_exported
 out_dir = sys.argv[1]
+torch.set_num_threads(int(sys.argv[2]))  # eager's, so that both sum in one order
 loaded = load_exported(out_dir)
 images, sizes = torch.load(out_dir + "/inputs.pt")
 with torch.no_grad():
@@ -106,8 +108,8 @@ def test_tiny_detector_exports_with_its_ops_and_equals_eager(tmp_path):
         want = t_rcnn.rcnn_inference(model, cfg, images, sizes)
     torch.save((images, sizes), tmp_path / "inputs.pt")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-    out = subprocess.run([sys.executable, "-c", _LOAD_ALONE, str(tmp_path)], cwd=root,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _LOAD_ALONE, str(tmp_path), str(torch.get_num_threads())],
+                         cwd=root, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     got = torch.load(tmp_path / "outputs.pt")

@@ -31,6 +31,7 @@ from proben_tpu.evaluation import FLIREvaluator as JaxFLIREvaluator
 from proben_tpu.models import init_rcnn as jax_init_rcnn
 from proben_tpu_torch.apps import flir
 from proben_tpu_torch.evaluation import FLIREvaluator
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 METHODS = ("thermal_only", "early_fusion")
 SCORE, BOX = ("avg", "max", "probEn"), ("avg", "s-avg", "v-avg", "argmax")

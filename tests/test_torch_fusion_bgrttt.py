@@ -13,6 +13,7 @@ from torch_fusion_common import (  # noqa: F401  (the tests, collected here)
     test_detections_match_jax,
     test_predictor_takes_fused_batches,
 )
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 @pytest.fixture(scope="module", params=["BGRTTT"])

@@ -48,6 +48,7 @@ from torch_fusion_common import (
     _scale_rpn,
     _train_cfgs,
 )
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 STEPS = 4
 YAML = os.path.join(os.path.dirname(__file__), "..", "configs", "FLIR-Detection",

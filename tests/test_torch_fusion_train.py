@@ -37,6 +37,7 @@ from torch_fusion_common import (
     _scale_rpn,
     _train_cfgs,
 )
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def _boxes(rng, b, k, span):
@@ -84,10 +85,14 @@ def test_gaussian_blur_matches_jax():
 def test_dual_tree_round_trip_is_exact():
     """JAX's own R101 BGRTTT ``init_rcnn`` tree loads into the port with
     ``strict=True`` (``backbone_2``, ``fpn_2`` and the 512-wide heads
-    included) and comes back unchanged."""
+    included) and comes back unchanged. The tree is JAX's init's structure,
+    shapes and dtypes (``jax.eval_shape``: its eager threefry draws of two
+    R101s cost ~12 s on an 8-core CPU), filled with seeded normal numbers."""
     jcfg = jax_build_config(depth=101, input_format="BGRTTT", num_classes=3,
                             enable_gaussian_nll=True)
-    tree = jax.tree_util.tree_map(np.asarray, jax_init_rcnn(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(0)
+    tree = jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape, dtype=np.float32).astype(s.dtype),
+                                  jax.eval_shape(lambda: jax_init_rcnn(jax.random.PRNGKey(0), jcfg)))
     cfg = build_config(depth=101, input_format="BGRTTT", num_classes=3, enable_gaussian_nll=True)
     model = build_model(cfg, params=tree, device="cpu")
     assert model.rpn_head.conv.weight.shape[1] == 512

@@ -14,6 +14,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -48,6 +49,11 @@ def test_imports_load_no_jax_and_no_proben_tpu():
         import proben_tpu_torch.apps.flir
         import proben_tpu_torch.apps.kaist
         import proben_tpu_torch.apps.train_net
+        import proben_tpu_torch.apps.plain_train_net
+        import proben_tpu_torch.apps.benchmark
+        import proben_tpu_torch.apps.visualize_data
+        import proben_tpu_torch.apps.visualize_json_results
+        import proben_tpu_torch.apps.convert_torchvision
         import proben_tpu_torch.checkpoint.ckpt
         import proben_tpu_torch.checkpoint.paths
         import proben_tpu_torch.checkpoint.torch_import
@@ -105,8 +111,8 @@ def test_imports_load_no_jax_and_no_proben_tpu():
 
 def test_imports_load_no_cv2_yaml_or_pil():
     """The runtime slice (config, data, evaluation, native IO, checkpoints,
-    the FLIR and KAIST apps, the trainer, its hooks and event writers, and
-    ``train_net``), the model, ops and training modules, ``export``,
+    the FLIR and KAIST apps, the trainer, its hooks and event writers,
+    ``train_net`` and the other commands of ``apps/``), the model, ops and training modules, ``export``,
     ``model_zoo`` and ``parallel`` load none of cv2, PyYAML or Pillow: the
     card's machine may lack them."""
     code = textwrap.dedent(
@@ -115,6 +121,11 @@ def test_imports_load_no_cv2_yaml_or_pil():
         import proben_tpu_torch.apps.flir
         import proben_tpu_torch.apps.kaist
         import proben_tpu_torch.apps.train_net
+        import proben_tpu_torch.apps.plain_train_net
+        import proben_tpu_torch.apps.benchmark
+        import proben_tpu_torch.apps.visualize_data
+        import proben_tpu_torch.apps.visualize_json_results
+        import proben_tpu_torch.apps.convert_torchvision
         import proben_tpu_torch.checkpoint
         import proben_tpu_torch.config
         import proben_tpu_torch.data
@@ -157,8 +168,10 @@ def test_imports_load_no_cv2_yaml_or_pil():
 # where the JAX package draws polygons and writes Cityscapes' mask PNGs with
 # it; matplotlib only where the PR-curve plot is asked for; cv2 where the JAX
 # package rasterizes polygons and draws (``PolygonMasks.rasterize``, the
-# visualizers)
+# visualizers, and ``apps/visualize_json_results.py``'s ``main``, which reads
+# and writes its images with cv2 as the JAX tool does)
 ALLOWED_IMPORTS = {
+    ("proben_tpu_torch/apps/visualize_json_results.py", "cv2"),
     ("proben_tpu_torch/data/detection_utils.py", "cv2"),
     ("proben_tpu_torch/data/transforms.py", "cv2"),
     ("proben_tpu_torch/evaluation/build.py", "PIL"),
@@ -271,6 +284,36 @@ def test_structures_and_utils_import_cv2_only_where_they_draw():
                 "utils/analysis.py", "utils/env.py", "utils/memory.py", "utils/serialize.py",
                 "utils/video_visualizer.py", "apps/flir.py"):
         assert _import_owners(f"proben_tpu_torch/{rel}", "cv2") == [], rel
+
+
+def test_tool_commands_import_cv2_only_in_the_json_visualizers_main():
+    """The five commands of ``tools/`` that the port carries import no cv2
+    at module level: ``visualize_json_results`` imports it in ``main``
+    (as the JAX tool does), the others not at all (``visualize_data``
+    draws through ``Visualizer`` and reads through ``read_image``)."""
+    assert _import_owners("proben_tpu_torch/apps/visualize_json_results.py", "cv2") == ["main"]
+    for name in ("plain_train_net", "benchmark", "visualize_data", "convert_torchvision"):
+        assert _import_owners(f"proben_tpu_torch/apps/{name}.py", "cv2") == [], name
+
+
+def test_tool_commands_raise_without_cuda(monkeypatch, tmp_path):
+    """``plain_train_net``, ``benchmark``, the two visualizers and the
+    converter default to the card and raise without one, before touching
+    any data or file."""
+    from proben_tpu_torch.apps import (benchmark, convert_torchvision, plain_train_net, visualize_data,
+                                       visualize_json_results)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [(plain_train_net.main, ["OUTPUT_DIR", str(tmp_path / "plain")]),
+             (benchmark.main, ["--task", "eval"]),
+             (visualize_data.main, ["--dataset", "absent", "--output-dir", str(tmp_path / "vis")]),
+             (visualize_json_results.main, ["--input", str(tmp_path / "absent.json"), "--output",
+                                            str(tmp_path / "json"), "--dataset", "absent"]),
+             (convert_torchvision.main, [str(tmp_path / "absent.pth"), str(tmp_path / "out.pkl")])]
+    for main, argv in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
+    assert sorted(os.listdir(tmp_path)) == []
 
 
 def test_no_orbax_in_the_package_and_no_jax_package_in_the_converter():

@@ -37,6 +37,7 @@ from proben_tpu_torch.apps.flir import load_params
 from proben_tpu_torch.data import read_image
 from proben_tpu_torch.evaluation import KAISTEvaluator, load_detections_txt
 from proben_tpu_torch.native import io
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 METHODS = ("thermal_only", "middle_fusion")
 

@@ -13,6 +13,7 @@ import pytest
 
 from proben_tpu.evaluation import kaist as jax_kaist
 from proben_tpu_torch.evaluation import kaist
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def _img(i, set_num=6):

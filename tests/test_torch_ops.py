@@ -23,6 +23,7 @@ from proben_tpu_torch.ops.box_transform import SCALE_CLAMP, apply_deltas
 from proben_tpu_torch.ops.nms import batched_nms_mask, nms_mask
 from proben_tpu_torch.ops.topk import topk_stable
 from proben_tpu_torch.structures import boxes as t_boxes
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 T = torch.from_numpy
 

@@ -19,6 +19,7 @@ import torch
 
 from proben_tpu import fusion as jax_fusion
 from proben_tpu_torch import fusion
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 SCORE_METHODS = ("probEn", "avg", "max")
 BOX_METHODS = ("v-avg", "s-avg", "avg", "argmax")

@@ -45,6 +45,7 @@ from proben_tpu_torch.models import retinanet as t_retina
 from proben_tpu_torch.models.fpn import FPN, apply_fpn, init_fpn
 from proben_tpu_torch.models.rpn import RPNConfig
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H = W = 128
 SIZES = np.array([[128, 128], [120, 110]], np.int32)

@@ -24,6 +24,7 @@ from proben_tpu.ops import roi_align as jax_ra
 from proben_tpu.ops.roi_align_pallas import multilevel_roi_align_pallas
 from proben_tpu_torch.ops import roi_align as t_ra
 from proben_tpu_torch.ops import roi_align_cuda
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 STRIDES = (4, 8, 16, 32)
 B, K, BASE, C = 2, 32, 64, 32

@@ -29,6 +29,7 @@ from proben_tpu.ops.roi_align import wholemap_roi_align_grad
 from proben_tpu.ops.roi_align_bwd_pallas import wholemap_grad_pallas
 from proben_tpu_torch.ops import roi_align as t_ra
 from proben_tpu_torch.ops import roi_align_cuda
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 STRIDES = (4, 8, 16, 32)
 P = 7

@@ -36,6 +36,7 @@ from proben_tpu_torch.models import build_config, build_model, init_rcnn, random
 from proben_tpu_torch.models import rcnn as t_rcnn
 from proben_tpu_torch.models.fast_rcnn import FastRCNNConfig
 from proben_tpu_torch.models.rpn import RPNConfig, apply_rpn_head
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W = 128, 160
 SIZES = np.array([[128, 160], [120, 150]], np.int32)  # second image padded

@@ -19,6 +19,7 @@ from proben_tpu.models.layers import affine, conv2d, max_pool
 from proben_tpu.ops.stem_pallas import stem_pool_pallas
 from proben_tpu_torch.models.resnet import apply_stem, Stem
 from proben_tpu_torch.ops import stem_cuda
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 BF = torch.bfloat16
 

@@ -42,6 +42,7 @@ from proben_tpu_torch.models import build_config, build_model, init_rcnn, random
 from proben_tpu_torch.models import rcnn as t_rcnn
 from proben_tpu_torch.solver import SolverConfig
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W = 128, 160
 SIZES = np.array([[128, 160], [120, 150]], np.int32)

@@ -23,6 +23,7 @@ import pytest
 from proben_tpu_torch.apps import flir, kaist, train_net
 from proben_tpu_torch.data import DatasetCatalog, register_coco_instances
 from proben_tpu_torch.engine import CallbackHook
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W = 64, 80
 CATEGORIES = [{"id": 1, "name": "person"}, {"id": 2, "name": "bicycle"}, {"id": 3, "name": "car"}]

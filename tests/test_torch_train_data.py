@@ -39,6 +39,7 @@ from proben_tpu_torch.data import (
 )
 from proben_tpu_torch.data import transforms as tt
 from proben_tpu_torch.native.io import compose_resize_pad, compose_resize_pad_plain
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 THERMAL = [(128, 160), (128, 160), (100, 140), (120, 96)]
 RGB = [(256, 300), (300, 256), (200, 250), (240, 200)]

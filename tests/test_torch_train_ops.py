@@ -31,6 +31,7 @@ from proben_tpu_torch.ops.matcher import match
 from proben_tpu_torch.ops.sampling import sample_topk_indices, subsample_labels
 from proben_tpu_torch.solver import build as solver
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def _boxes(rng, shape, lo=0.0, span=100.0, size=(4.0, 40.0)):

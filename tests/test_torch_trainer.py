@@ -43,6 +43,7 @@ from proben_tpu_torch.engine import CallbackHook, DefaultTrainer, PreciseBNHook
 from proben_tpu_torch.models import build_model, init_rcnn, random_affines
 from proben_tpu_torch.models import rcnn as t_rcnn
 from proben_tpu_torch.utils.events import EventStorage, JSONWriter, get_event_storage
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W, PAD = 64, 80, (64, 96)
 PRE, POST, G = 64, 32, 8

@@ -40,6 +40,7 @@ from proben_tpu_torch.models.fast_rcnn import FastRCNNConfig
 from proben_tpu_torch.models.rpn import RPNConfig
 from proben_tpu_torch.models.tta import DetectionTTA
 from proben_tpu_torch.structures import GroundTruth
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 H, W = 96, 128
 PRE, POST, DETS = 200, 50, 20

@@ -53,6 +53,7 @@ from proben_tpu_torch.structures import rotated_boxes as rot
 from proben_tpu_torch.utils import analysis, env, memory, serialize
 from proben_tpu_torch.utils.video_visualizer import VideoVisualizer
 from proben_tpu_torch.utils.visualizer import PaperVisualizer, Visualizer
+from torch_cores import share_cores  # noqa: F401  (autouse: PyTorch's share of the cores)
 
 
 def _boxes(rng, n, lo=-10.0, span=80.0):
