@@ -1,0 +1,6 @@
+"""Share of the traced training span in which nothing runs on the device."""
+
+
+def read(layers):
+    t = layers.trace
+    return 100.0 * (1.0 - t.busy_s / t.window_s) if layers.kind == "train" else None
