@@ -821,7 +821,6 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
     as the f32 control, less 5 points. ``expect``: the launches of each
     kernel in one batch; ``hi``: the top of the background-bias bracket."""
     from proben_tpu_torch.engine import Predictor
-    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
 
     cfg = model.cfg
     calibrate_rpn(model, images_list[0])
@@ -830,10 +829,9 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
     log(f"calibration: background bias {bias:.4g} -> {n_dets:.1f} dets/img")
     batch = {"image": images_list[0], "image_size": sizes, "orig_size": sizes,
              "image_id": list(range(BATCH))}
-    stem_cuda.launches = 0
-    roi_align_cuda.launches = 0
+    zero_launch_counts()
     out_k = pred.predict_batch(batch)
-    launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches}
+    launches = launch_counts("stem_pool", "roi_align_fwd")
     log(f"{cfg.input_format} inference launches: {launches}")
     if launches != expect:
         raise AssertionError(f"kernel launches per batch {launches}, expected {expect}")
@@ -1050,7 +1048,6 @@ def train_phase(model, batch, expect, steps=8, warmup=2):
     difference (``k3_only_check``), then train img/s with K3 and with the
     plain backward. ``expect``: the launches of each kernel in one step."""
     from proben_tpu_torch.engine.train import make_train_step, trainable_mask
-    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
     from proben_tpu_torch.solver import SolverConfig
 
     cfg = model.cfg
@@ -1064,10 +1061,9 @@ def train_phase(model, batch, expect, steps=8, warmup=2):
     gaps, control = k3_only_check(model, cfg, batch, f"{cfg.input_format} batch {BATCH}")
 
     # the main path: one step, every launch counter read around it
-    stem_cuda.launches = roi_align_cuda.launches = roi_align_cuda.bwd_launches = 0
+    zero_launch_counts()
     state, m = train_step(state, batch)
-    launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
-                "roi_align_bwd": roi_align_cuda.bwd_launches}
+    launches = launch_counts("stem_pool", "roi_align_fwd", "roi_align_bwd")
     log(f"{cfg.input_format} training step launches: {launches}")
     if launches != expect:
         raise AssertionError(f"kernel launches per training step {launches}, expected {expect}")
@@ -1088,9 +1084,9 @@ def train_phase(model, batch, expect, steps=8, warmup=2):
     for name in ("kernel", "plain backward"):
         if name == "kernel":
             timed(warmup)
-            before = roi_align_cuda.bwd_launches
+            before = launch_counts()["roi_align_bwd"]
             rates[name] = timed(steps)
-            if roi_align_cuda.bwd_launches - before != steps:
+            if launch_counts()["roi_align_bwd"] - before != steps:
                 raise AssertionError("K3 did not launch once per timed step")
         else:
             with plain_backward():
@@ -1498,7 +1494,6 @@ def flir_phase(card):
     from proben_tpu_torch.engine import Predictor
     from proben_tpu_torch.evaluation import COCODataset, FLIREvaluator, inference_on_dataset
     from proben_tpu_torch.native import io
-    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
 
     stats = {"card": card}
     with tempfile.TemporaryDirectory(prefix="flir_val_") as root, io.JpegCodec() as codec:
@@ -1545,12 +1540,11 @@ def flir_phase(card):
                             and np.allclose(app["scores"][i], rec["scores"], atol=1e-6)):
                         raise AssertionError(f"FLIR {method}: the app's detections of image {i} "
                                              "differ from Predictor.predict_batch's")
-                stem_cuda.launches = roi_align_cuda.launches = io.launches = 0
+                zero_launch_counts()
                 timing.records.clear()
                 results = flir.evaluate_map(method, root, "", out_dir, batch_size=BATCH, cfg=cfg,
                                             params=params)
-                launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
-                            "image_io": io.launches}
+                launches = launch_counts("stem_pool", "roi_align_fwd", "image_io")
                 n_batches = -(-len(dicts) // BATCH)
                 expect = {"stem_pool": expect_k1 * n_batches, "roi_align_fwd": n_batches,
                           "image_io": n_batches}
@@ -1841,7 +1835,6 @@ def kaist_phase(card):
     from proben_tpu_torch.evaluation import KAISTEvaluator, load_detections_txt
     from proben_tpu_torch.models import build_model, init_rcnn
     from proben_tpu_torch.native import io
-    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
 
     stats = {"card": card}
     with tempfile.TemporaryDirectory(prefix="kaist_") as root, io.JpegCodec() as codec:
@@ -1876,12 +1869,11 @@ def kaist_phase(card):
             if fp.keys() != fs.keys() or rel > 1e-6:
                 raise AssertionError(f"KAIST {method}: imported parameters off the source by {rel} relative")
 
-            stem_cuda.launches = roi_align_cuda.launches = io.launches = 0
+            zero_launch_counts()
             out_txt, var_npz = os.path.join(root, f"{method}_dets.txt"), os.path.join(root, f"{method}_vars.npz")
             results = kaist.predict_split(method, root, split, params, cfg=cfg, out_txt=out_txt,
                                           var_npz=var_npz, batch_size=BATCH)
-            launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
-                        "image_io": io.launches}
+            launches = launch_counts("stem_pool", "roi_align_fwd", "image_io")
             expect = {"stem_pool": k1 * n_batches, "roi_align_fwd": n_batches, "image_io": n_batches}
             if launches != expect:
                 raise AssertionError(f"KAIST {method}: launches {launches}, expected {expect}")
@@ -1961,10 +1953,9 @@ def kaist_phase(card):
         t_bf16 = runs["thermal_only"]
         cfg32 = kaist.build_kaist_cfg("thermal_only")
         mcfg32 = model_config_from_cfg(cfg32)
-        stem_cuda.launches = roi_align_cuda.launches = io.launches = 0
+        zero_launch_counts()
         res32 = kaist.predict_split("thermal_only", root, split, t_bf16["params"], cfg=cfg32, batch_size=BATCH)
-        launches = {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
-                    "image_io": io.launches}
+        launches = launch_counts("stem_pool", "roi_align_fwd", "image_io")
         expect = {"stem_pool": 0, "roi_align_fwd": n_batches, "image_io": n_batches}
         if launches != expect:
             raise AssertionError(f"KAIST thermal_only, float32: launches {launches}, expected {expect}")
@@ -2031,19 +2022,26 @@ TRAIN_STEPS = 12  # per training app run; its rates are medians of the last 10 s
 COUNTED = ("stem_pool", "roi_align_fwd", "roi_align_bwd", "image_io")
 
 
-def launch_counts():
-    from proben_tpu_torch.native import io
-    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+# each counted kernel's launch counter in ``proben_tpu_torch.utils.tracing``
+LAUNCH_COUNTERS = {"stem_pool": "k1.launches", "roi_align_fwd": "k2.launches",
+                   "roi_align_bwd": "k3.launches", "image_io": "io.launches"}
+_launch_base: dict = {}
 
-    return {"stem_pool": stem_cuda.launches, "roi_align_fwd": roi_align_cuda.launches,
-            "roi_align_bwd": roi_align_cuda.bwd_launches, "image_io": io.launches}
+
+def launch_counts(*kernels):
+    """Launches of each counted kernel (or of ``kernels`` alone) since the
+    last ``zero_launch_counts``."""
+    from proben_tpu_torch.utils import tracing
+
+    now = tracing.counters()
+    return {k: now.get(LAUNCH_COUNTERS[k], 0) - _launch_base.get(k, 0) for k in kernels or COUNTED}
 
 
 def zero_launch_counts():
-    from proben_tpu_torch.native import io
-    from proben_tpu_torch.ops import roi_align_cuda, stem_cuda
+    from proben_tpu_torch.utils import tracing
 
-    stem_cuda.launches = roi_align_cuda.launches = roi_align_cuda.bwd_launches = io.launches = 0
+    now = tracing.counters()
+    _launch_base.update({k: now.get(c, 0) for k, c in LAUNCH_COUNTERS.items()})
 
 
 def write_flir_train_tree(codec, root, n=64, n_val=32, seed=5):
@@ -2098,10 +2096,10 @@ def check_train_mapper(codec, cfg, dicts, seed):
     fmt, pad = mcfg.input_format, tuple(mcfg.pad_shape)
     mapper = DatasetMapper(mcfg, is_train=True, seed=seed)
     try:
-        io.launches = 0
+        zero_launch_counts()
         batch = collate(mapper.map_batch(dicts))
         torch.cuda.synchronize()
-        one_launch = io.launches
+        one_launch = launch_counts()["image_io"]
         map_ms = host_ms(lambda: mapper.map_batch(dicts), reps=3)
     finally:
         mapper.close()
@@ -3828,10 +3826,10 @@ def check_crop_mapper(codec, cfg, dicts, seed):
     fmt, pad = mcfg.input_format, tuple(mcfg.pad_shape)
     mapper = DatasetMapper(mcfg, is_train=True, seed=seed)
     try:
-        io.launches = 0
+        zero_launch_counts()
         batch = collate(mapper.map_batch(dicts))
         torch.cuda.synchronize()
-        one_launch = io.launches
+        one_launch = launch_counts()["image_io"]
     finally:
         mapper.close()
     if one_launch != 1:

@@ -126,7 +126,10 @@ class ProfilerHook(HookBase):
     """Trace chosen iterations with ``torch.profiler`` (host and, on the
     card, CUDA activity) and write a Chrome trace per iteration,
     ``OUTPUT_DIR/trace_iter<N>.json`` (reference ``hooks.py:235``
-    AutogradProfiler -> chrome trace)."""
+    AutogradProfiler -> chrome trace). The program's stage spans
+    (``train.step``, ``rcnn.features``, ``train.backward``, ...; see
+    ``utils/tracing.py``) appear in these traces as ``user_annotation``
+    ranges around the kernels they launch."""
 
     def __init__(self, enter_predicate, output_dir: str):
         self._pred = enter_predicate

@@ -12,6 +12,7 @@ from ..device import resolve_device
 from ..models.rcnn import ModelConfig, RCNN, rcnn_inference, rcnn_inference_given_boxes
 from ..structures.boxes import clip_boxes
 from ..structures.detections import Detections
+from ..utils import tracing
 
 
 class Predictor:
@@ -54,21 +55,28 @@ class Predictor:
         """``batch`` as the data loaders build it: "image" (N, H, W, C) raw,
         "image_size" and "orig_size" (N, 2), "image_id", optional "num_real".
         Returns per-image dicts of numpy arrays trimmed to valid detections."""
-        det = self.infer(batch["image"], batch["image_size"], batch["orig_size"]).to_numpy()
-        out = []
-        for i in range(batch.get("num_real", det.boxes.shape[0])):
-            m = det.valid[i]
-            rec = {
-                "boxes": det.boxes[i][m],
-                "scores": det.scores[i][m],
-                "classes": det.classes[i][m],
-                "image_id": batch["image_id"][i],
-            }
-            if det.probs is not None:
-                rec["probs"] = det.probs[i][m]
-            if det.class_logits is not None:
-                rec["class_logits"] = det.class_logits[i][m]
-            if det.variance is not None:
-                rec["vars"] = det.variance[i][m]
-            out.append(rec)
-        return out
+        with tracing.span("predictor.predict_batch"):
+            det = self.infer(batch["image"], batch["image_size"], batch["orig_size"])
+            with tracing.span("predictor.to_host"):
+                return _trim(det.to_numpy(), batch)
+
+
+def _trim(det: Detections, batch: Dict) -> List[Dict[str, np.ndarray]]:
+    """Per-image dicts of numpy detections, trimmed to the valid ones."""
+    out = []
+    for i in range(batch.get("num_real", det.boxes.shape[0])):
+        m = det.valid[i]
+        rec = {
+            "boxes": det.boxes[i][m],
+            "scores": det.scores[i][m],
+            "classes": det.classes[i][m],
+            "image_id": batch["image_id"][i],
+        }
+        if det.probs is not None:
+            rec["probs"] = det.probs[i][m]
+        if det.class_logits is not None:
+            rec["class_logits"] = det.class_logits[i][m]
+        if det.variance is not None:
+            rec["vars"] = det.variance[i][m]
+        out.append(rec)
+    return out

@@ -22,6 +22,7 @@ from ..models.resnet import freeze_mask
 from ..ops.sampling import Draws, GlobalBatchDraws
 from ..parallel.mesh import DataMesh, all_mean
 from ..solver.build import SolverConfig, build_optimizer, flat_cat, split_like
+from ..utils import tracing
 
 Tensor = torch.Tensor
 
@@ -76,7 +77,8 @@ def losses_and_grads(
         losses = rcnn_train_losses(model, cfg, batch["image"], batch["image_size"], batch["gt"],
                                    generator)
         total = sum(losses.values())
-        grads = torch.autograd.grad(total, [p for _, p in named], allow_unused=True)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(total, [p for _, p in named], allow_unused=True)
     return (
         {k: v.detach() for k, v in losses.items()},
         total.detach(),
@@ -96,11 +98,12 @@ def _mean_over_ranks(losses, total, grads, mesh: Optional[DataMesh]):
     one all-reduce of their flat concatenation; unchanged at world 1."""
     if mesh is None or mesh.world == 1:
         return losses, total, grads
-    parts = {**{f"loss/{k}": v.float() for k, v in losses.items()}, "total": total.float(),
-             **{f"grad/{k}": v for k, v in grads.items()}}
-    mean = split_like(all_mean(flat_cat(parts.values()), mesh), parts)
-    return ({k: mean[f"loss/{k}"].to(v.dtype) for k, v in losses.items()},
-            mean["total"].to(total.dtype), {k: mean[f"grad/{k}"] for k in grads})
+    with tracing.span("train.all_reduce"):
+        parts = {**{f"loss/{k}": v.float() for k, v in losses.items()}, "total": total.float(),
+                 **{f"grad/{k}": v for k, v in grads.items()}}
+        mean = split_like(all_mean(flat_cat(parts.values()), mesh), parts)
+        return ({k: mean[f"loss/{k}"].to(v.dtype) for k, v in losses.items()},
+                mean["total"].to(total.dtype), {k: mean[f"grad/{k}"] for k in grads})
 
 
 def make_train_step(
@@ -136,25 +139,27 @@ def make_train_step(
         return TrainState(model, momentum, 0, seed, torch.Generator(device=device))
 
     def train_step(state: TrainState, batch: Mapping) -> Tuple[TrainState, Dict[str, Tensor]]:
-        state.generator.manual_seed(step_seed(state.seed, state.step))
-        draws = (state.generator if mesh is None or mesh.world == 1
-                 else GlobalBatchDraws(state.generator, mesh.rank, mesh.world))
-        losses, total, grads = losses_and_grads(state.model, model_cfg, batch, draws)
-        losses, total, grads = _mean_over_ranks(losses, total, grads, mesh)
-        params = dict(state.model.named_parameters())
-        finite = torch.isfinite(total)
-        with torch.no_grad():
-            new_params, new_momentum = optimizer.update(
-                grads, state.momentum, {n: p.detach() for n, p in params.items()}, state.step
-            )
-            names = list(new_params)
-            momentum = dict(state.momentum)
-            momentum.update(_keep_finite(new_momentum, {n: state.momentum[n] for n in names}, finite))
-            kept = _keep_finite(new_params, {n: params[n].detach() for n in names}, finite)
-            torch._foreach_copy_([params[n] for n in names], [kept[n] for n in names])
-        metrics = dict(losses)
-        metrics["total_loss"] = total
-        metrics["loss_finite"] = finite.to(torch.float32)
-        return dataclasses.replace(state, momentum=momentum, step=state.step + 1), metrics
+        with tracing.span("train.step"):
+            state.generator.manual_seed(step_seed(state.seed, state.step))
+            draws = (state.generator if mesh is None or mesh.world == 1
+                     else GlobalBatchDraws(state.generator, mesh.rank, mesh.world))
+            losses, total, grads = losses_and_grads(state.model, model_cfg, batch, draws)
+            losses, total, grads = _mean_over_ranks(losses, total, grads, mesh)
+            with tracing.span("train.update"), torch.no_grad():
+                params = dict(state.model.named_parameters())
+                finite = torch.isfinite(total)
+                new_params, new_momentum = optimizer.update(
+                    grads, state.momentum, {n: p.detach() for n, p in params.items()}, state.step
+                )
+                names = list(new_params)
+                with tracing.span("train.nan_guard"):
+                    momentum = dict(state.momentum)
+                    momentum.update(_keep_finite(new_momentum, {n: state.momentum[n] for n in names}, finite))
+                    kept = _keep_finite(new_params, {n: params[n].detach() for n in names}, finite)
+                torch._foreach_copy_([params[n] for n in names], [kept[n] for n in names])
+            metrics = dict(losses)
+            metrics["total_loss"] = total
+            metrics["loss_finite"] = finite.to(torch.float32)
+            return dataclasses.replace(state, momentum=momentum, step=state.step + 1), metrics
 
     return init_state, train_step

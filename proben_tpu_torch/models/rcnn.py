@@ -25,6 +25,7 @@ from ..device import resolve_device
 from ..ops.sampling import Draws
 from ..structures.boxes import clip_boxes
 from ..structures.detections import Detections, GroundTruth
+from ..utils import tracing
 from .anchors import multilevel_anchors
 from .box_head import apply_box_head, apply_output_layers, init_box_head, init_output_layers
 from .fast_rcnn import FastRCNNConfig, fast_rcnn_losses
@@ -310,12 +311,16 @@ def rcnn_inference(
 ) -> Detections:
     """Batched inference; Detections with a leading axis N, boxes in the
     model-input frame (``postprocess_boxes`` rescales them)."""
-    features = extract_features(model, cfg, preprocess(cfg, images))
-    boxes, _, valid = propose(model, cfg, features, image_sizes)
-    pooled = pool_proposals(cfg, features, boxes)
-    return roi_heads_predict_from_pooled(
-        model.roi, pooled, boxes, valid, image_sizes, cfg.rcnn, dtype=cfg.dtype
-    )
+    with tracing.span("rcnn.features"):
+        features = extract_features(model, cfg, preprocess(cfg, images))
+    with tracing.span("rcnn.rpn"):
+        boxes, _, valid = propose(model, cfg, features, image_sizes)
+    with tracing.span("rcnn.roi_pool"):
+        pooled = pool_proposals(cfg, features, boxes)
+    with tracing.span("rcnn.box"):
+        return roi_heads_predict_from_pooled(
+            model.roi, pooled, boxes, valid, image_sizes, cfg.rcnn, dtype=cfg.dtype
+        )
 
 
 @torch.inference_mode()
@@ -330,11 +335,15 @@ def rcnn_inference_given_boxes(
     to score merged boxes: (probs (N, K, C+1) softmax with the background
     last, class logits (N, K, C+1), variance (N, K, 1) or None). No NMS, no
     box regression."""
-    features = extract_features(model, cfg, preprocess(cfg, images))
-    x = apply_box_head(model.roi.box_head, pool_proposals(cfg, features, boxes), dtype=cfg.dtype)
-    logits, _, variance = apply_output_layers(model.roi.output, x)
-    logits = logits.float()
-    return torch.softmax(logits, dim=-1), logits, variance
+    with tracing.span("rcnn.features"):
+        features = extract_features(model, cfg, preprocess(cfg, images))
+    with tracing.span("rcnn.roi_pool"):
+        pooled = pool_proposals(cfg, features, boxes)
+    with tracing.span("rcnn.box"):
+        x = apply_box_head(model.roi.box_head, pooled, dtype=cfg.dtype)
+        logits, _, variance = apply_output_layers(model.roi.output, x)
+        logits = logits.float()
+        return torch.softmax(logits, dim=-1), logits, variance
 
 
 def rcnn_train_losses(
@@ -350,22 +359,27 @@ def rcnn_train_losses(
     proposals carry no gradient (the reference detaches them too); all
     images' sampled RoIs are pooled in one batched call, whose backward is
     kernel K3 on the card."""
-    features = extract_features(model, cfg, preprocess(cfg, images), training=True)
-    logits, deltas = rpn_outputs(model, cfg, features)
-    anchors = anchors_for(features)
-    losses = rpn_losses(logits, deltas, anchors, gt.boxes, gt.valid, generator, cfg.rpn)
-    with torch.no_grad():
-        boxes, _, valid = find_top_proposals(
-            logits, deltas, anchors, image_sizes, cfg.rpn.pre_nms_topk_train,
-            cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len,
+    with tracing.span("rcnn.features"):
+        features = extract_features(model, cfg, preprocess(cfg, images), training=True)
+    with tracing.span("rcnn.rpn"):
+        logits, deltas = rpn_outputs(model, cfg, features)
+        anchors = anchors_for(features)
+        losses = rpn_losses(logits, deltas, anchors, gt.boxes, gt.valid, generator, cfg.rpn)
+        with torch.no_grad():
+            boxes, _, valid = find_top_proposals(
+                logits, deltas, anchors, image_sizes, cfg.rpn.pre_nms_topk_train,
+                cfg.rpn.post_nms_topk_train, cfg.rpn.nms_thresh, cfg.rpn.min_box_side_len,
+            )
+        s_boxes, gt_classes, gt_boxes, s_valid, _ = label_and_sample_proposals(
+            boxes, valid, gt, generator, cfg.roi
         )
-    s_boxes, gt_classes, gt_boxes, s_valid, _ = label_and_sample_proposals(
-        boxes, valid, gt, generator, cfg.roi
-    )
-    x = apply_box_head(model.roi.box_head, pool_proposals(cfg, features, s_boxes), dtype=cfg.dtype)
-    cls_logits, box_deltas, variance = apply_output_layers(model.roi.output, x)
-    losses.update(fast_rcnn_losses(cls_logits, box_deltas, variance, s_boxes, gt_classes, s_valid,
-                                   gt_boxes, cfg.rcnn))
+    with tracing.span("rcnn.roi_pool"):
+        pooled = pool_proposals(cfg, features, s_boxes)
+    with tracing.span("rcnn.box"):
+        x = apply_box_head(model.roi.box_head, pooled, dtype=cfg.dtype)
+        cls_logits, box_deltas, variance = apply_output_layers(model.roi.output, x)
+        losses.update(fast_rcnn_losses(cls_logits, box_deltas, variance, s_boxes, gt_classes, s_valid,
+                                       gt_boxes, cfg.rcnn))
     return {k: v.mean() for k, v in losses.items()}
 
 

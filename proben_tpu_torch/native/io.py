@@ -18,18 +18,13 @@ the kernel fail, they raise.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
-
-# launches of the compose kernel (never of the plain version); a training
-# loader's worker threads launch it concurrently, so the count is locked
-launches = 0
-_launches_lock = threading.Lock()
+from ..utils import tracing
 
 FORMATS = {"BGR": (0, 3), "BGRT": (1, 4), "BGRTTT": (2, 6)}  # code, channels
 Crop = Tuple[int, int, int, int]  # y0, x0, ch, cw: a window of the thermal frame
@@ -302,9 +297,7 @@ def compose_resize_pad(
         code = lib.image_io_compose(desc_ptr.ctypes.data, desc_int.ctypes.data, desc_scale.ctypes.data,
                                     out.data_ptr(), n, pad_shape[0], pad_shape[1], fmt, c, _stream())
     _check(code, "compose_resize_pad")
-    global launches
-    with _launches_lock:
-        launches += -(-n // lib.image_io_max_batch())
+    tracing.count("io.launches", -(-n // lib.image_io_max_batch()))
     return out
 
 

@@ -15,7 +15,8 @@ The loop is the ``torch.library`` custom op ``proben::nms_fixpoint``, the
 same code on every device: ``torch.export`` keeps it as one opaque node
 (its fake gives the mask's shape), and ``utils.analysis.flop_count`` counts
 it as nothing (no flop formula: its 0/1 products solve the greedy
-recurrence, they are no model work).
+recurrence, they are no model work). It runs in the span ``nms.fixpoint``
+and counts ``nms.calls`` and ``nms.iters`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..structures.boxes import pairwise_iou
+from ..utils import tracing
 
 _NEG_INF = -1e10
 
@@ -57,15 +59,20 @@ def nms_fixpoint(suppress: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     ``suppress`` (..., N, N) bool, [i, j] where box i suppresses box j;
     ``valid`` (..., N) bool."""
     # 0/1 products summed in f32 are exact for any n the detector uses
-    suppress_f = suppress.to(torch.float32)
-    keep = valid
-    for _ in range(valid.shape[-1]):
-        hit = torch.matmul(keep.to(torch.float32)[..., None, :], suppress_f)[..., 0, :]
-        new_keep = valid & ~(hit > 0.5)
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
-    return keep.clone()
+    with tracing.span("nms.fixpoint"):
+        suppress_f = suppress.to(torch.float32)
+        keep = valid
+        iters = 0
+        for _ in range(valid.shape[-1]):
+            iters += 1
+            hit = torch.matmul(keep.to(torch.float32)[..., None, :], suppress_f)[..., 0, :]
+            new_keep = valid & ~(hit > 0.5)
+            if torch.equal(new_keep, keep):
+                break
+            keep = new_keep
+        tracing.count("nms.calls")
+        tracing.count("nms.iters", iters)
+        return keep.clone()
 
 
 @nms_fixpoint.register_fake

@@ -25,6 +25,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ..structures.boxes import clip
+from ..utils import tracing
 from .topk import topk_stable
 
 Tensor = torch.Tensor
@@ -352,11 +353,14 @@ def apply_oow_fallback(
 ) -> Tensor:
     """Replace up to ``capacity`` out-of-window rows per image (the first
     ones by index) with exact whole-map pooling, all images in one batched
-    pass. Eager: skipped when no row is out of window (one host sync), and
-    the pooled tensor is updated in place, which is safe because the caller
-    owns it. While ``torch.export`` traces, the skip is a ``torch.cond`` on
-    the device and the update is out of place, so the exported program
-    computes what the eager one does."""
+    pass. Eager: one host read of the per-image out-of-window counts skips
+    the pass when they are all 0 and feeds the counters ``roi.oow`` and
+    ``roi.oow_over_capacity`` (rows past ``capacity`` in their image, which
+    keep their windowed value); the pooled tensor is updated in place,
+    which is safe because the caller owns it. While ``torch.export``
+    traces, the skip is a ``torch.cond`` on the device and the update is
+    out of place, so the exported program computes what the eager one
+    does."""
     if capacity <= 0:
         return pooled
     capacity = min(capacity, boxes.shape[1])
@@ -372,12 +376,16 @@ def apply_oow_fallback(
 
         return torch.cond(oow.any(), update, lambda pooled, *_: pooled.clone(),
                           (pooled, oow, boxes, lvl_idx, *features))
-    if not bool(oow.any()):
+    with tracing.span("roi.fallback"):
+        per_image = oow.sum(1).tolist()
+        tracing.count("roi.oow", sum(per_image))
+        tracing.count("roi.oow_over_capacity", sum(max(n - capacity, 0) for n in per_image))
+        if not any(per_image):
+            return pooled
+        rows, idx, new = _fallback_rows(pooled, oow, features, boxes, lvl_idx, strides, output_size,
+                                        sampling_ratio, capacity)
+        pooled[rows, idx] = new
         return pooled
-    rows, idx, new = _fallback_rows(pooled, oow, features, boxes, lvl_idx, strides, output_size,
-                                    sampling_ratio, capacity)
-    pooled[rows, idx] = new
-    return pooled
 
 
 def _fallback_rows(pooled, oow, features, boxes, lvl_idx, strides, output_size,

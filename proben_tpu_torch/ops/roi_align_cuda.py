@@ -29,6 +29,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
+from ..utils import tracing
 from .roi_align import (
     WIN_X,
     WIN_Y,
@@ -44,10 +45,6 @@ from .roi_align import (
 )
 
 Tensor = torch.Tensor
-
-# launches of the CUDA kernels (never of the plain versions)
-launches = 0  # K2
-bwd_launches = 0  # K3
 
 _ARGS = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6
@@ -209,8 +206,7 @@ def _roi_align_fwd_cuda(features, lvl_idx, y0, x0, wy, wx, rois_per_image):
             out.data_ptr(), r, p, stream,
         )
     _build.check(code, "roi_align_fwd")
-    global launches
-    launches += 1
+    tracing.count("k2.launches")
     return out
 
 
@@ -319,8 +315,7 @@ def _roi_align_bwd_cuda(g, shapes, lvl_idx, y0, x0, wy, wx, rois_per_image):
             *hs, *ws, len(shapes), b, c, rois_per_image, r, p, stream,
         )
     _build.check(code, "roi_align_bwd")
-    global bwd_launches
-    bwd_launches += 1
+    tracing.count("k3.launches")
     return outs
 
 
@@ -425,10 +420,11 @@ def multilevel_roi_align(
         raise ValueError(f"unknown roi_align impl {impl!r}")
     b, k, _ = boxes.shape
     p = output_size
-    lvl_idx, y0, x0, wy, wx, oow = window_inputs(
-        features, boxes, strides, p, sampling_ratio, min_level, canonical_box_size,
-        canonical_level, s_max, levels,
-    )
+    with tracing.span("roi.window_inputs"):
+        lvl_idx, y0, x0, wy, wx, oow = window_inputs(
+            features, boxes, strides, p, sampling_ratio, min_level, canonical_box_size,
+            canonical_level, s_max, levels,
+        )
     pooled = windowed_roi_align(impl, lvl_idx, y0, x0, wy, wx, k, features)
     pooled = pooled.reshape(b, k, p, p, -1)
     return apply_oow_fallback(

@@ -26,9 +26,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
-
-# launches of the CUDA kernel (never of the plain version)
-launches = 0
+from ..utils import tracing
 
 _SIG = {
     "stem_pool_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
@@ -156,8 +154,7 @@ def _stem_pool_cuda(x, w, scale, bias):
             out.data_ptr(), n, h, wd, c, hs, ws, hp, wp, stream,
         )
     _build.check(code, "stem_pool")
-    global launches
-    launches += 1
+    tracing.count("k1.launches")
     return out
 
 

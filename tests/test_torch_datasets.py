@@ -414,13 +414,14 @@ def test_load_batch_refuses_a_file_cv2_cannot_read(tmp_path):
     ``FileNotFoundError`` (as the CPU reader does), before any decode or
     launch; nvJPEG is never tried on it."""
     from proben_tpu_torch.native import io
+    from proben_tpu_torch.utils import tracing
 
     bad = tmp_path / "broken.png"
     bad.write_bytes(b"\x89PNG\r\n\x1a\nnot really")
     codec = RecordingCodec()
-    before = io.launches
+    before = tracing.counters().get("io.launches", 0)
     with pytest.raises(FileNotFoundError, match="broken.png"):
         io.load_batch(codec, [str(bad)], None, "BGR", lambda h, w: (h, w))
     with pytest.raises(FileNotFoundError):
         io.decode_host(str(tmp_path / "missing.png"))
-    assert codec.decoded == [] and io.launches == before
+    assert codec.decoded == [] and tracing.counters().get("io.launches", 0) == before

@@ -13,9 +13,15 @@ import torch
 from proben_tpu_torch.ops import roi_align as t_ra
 from proben_tpu_torch.ops import nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
 from proben_tpu_torch.structures.boxes import pairwise_iou
+from proben_tpu_torch.utils import tracing
 
 BF = torch.bfloat16
 STRIDES = (4, 8, 16, 32)
+
+
+def launches(kernel: str) -> int:
+    """Launches of one kernel so far: ``k1``, ``k2``, ``k3`` or ``io``."""
+    return tracing.counters().get(f"{kernel}.launches", 0)
 
 
 def _cuda():
@@ -49,11 +55,11 @@ def test_stem_kernel_matches_plain(shape):
     stays within 2^-6 relative plus 0.05 absolute at these magnitudes."""
     _cuda()
     args = [torch.from_numpy(a).cuda().to(BF) for a in _stem_inputs(*shape)]
-    before = stem_cuda.launches
+    before = launches("k1")
     got = stem_cuda.stem_pool(*args).float()
     ref = stem_cuda.stem_pool_plain(*args).float()
     torch.cuda.synchronize()
-    assert stem_cuda.launches == before + 1
+    assert launches("k1") == before + 1
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, rtol=2.0 ** -6, atol=0.05)
 
@@ -100,11 +106,11 @@ def test_roi_align_kernel_matches_plain(dtype):
     (one bf16 ulp, rtol 2^-7). NaN rows must match."""
     _cuda()
     feats, lvl, y0, x0, wy, wx, k = _roi_case(dtype)
-    before = roi_align_cuda.launches
+    before = launches("k2")
     got = roi_align_cuda.roi_align_fwd(feats, lvl, y0, x0, wy, wx, k).float()
     ref = roi_align_cuda.roi_align_fwd_plain(feats, lvl, y0, x0, wy, wx, k).float()
     torch.cuda.synchronize()
-    assert roi_align_cuda.launches == before + 1
+    assert launches("k2") == before + 1
     rtol = 2.0 ** -7 if dtype == BF else 1e-5
     torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5, equal_nan=True)
     assert torch.isnan(got[[1, 33]]).all() and torch.isfinite(got[[0, 32]]).all()
@@ -157,12 +163,12 @@ def test_roi_align_bwd_kernel_matches_plain(dtype):
     ulp, rtol 2^-7). NaN windows (the NaN box) must match."""
     _cuda()
     shapes, lvl, y0, x0, wy, wx, k, g = _bwd_case(dtype)
-    before = roi_align_cuda.bwd_launches
+    before = launches("k3")
     got = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
     ref = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)
     mag = _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g)
     torch.cuda.synchronize()
-    assert roi_align_cuda.bwd_launches == before + 1
+    assert launches("k3") == before + 1
     bf = dtype == BF
     for a, r, m, s in zip(got, ref, mag, shapes):
         assert a.shape == s and a.dtype == dtype
@@ -237,11 +243,11 @@ def test_roi_align_bwd_kernel_cases(case):
     ``test_roi_align_bwd_kernel_matches_plain``."""
     _cuda()
     shapes, lvl, y0, x0, wy, wx, k, g = _bwd_inputs(case)
-    before = roi_align_cuda.bwd_launches
+    before = launches("k3")
     got = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
-    assert roi_align_cuda.bwd_launches == before + 1
+    assert launches("k3") == before + 1
     again = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
-    assert roi_align_cuda.bwd_launches == before + 2
+    assert launches("k3") == before + 2
     ref = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)
     mag = _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g)
     torch.cuda.synchronize()
@@ -297,11 +303,11 @@ def test_roi_align_kernel_p14(case, dtype):
     Tolerance as in ``test_roi_align_kernel_matches_plain``."""
     _cuda()
     feats, lvl, y0, x0, wy, wx, k = _p14_case(case, dtype)
-    before = roi_align_cuda.launches
+    before = launches("k2")
     got = roi_align_cuda.roi_align_fwd(feats, lvl, y0, x0, wy, wx, k).float()
     ref = roi_align_cuda.roi_align_fwd_plain(feats, lvl, y0, x0, wy, wx, k).float()
     torch.cuda.synchronize()
-    assert roi_align_cuda.launches == before + 1
+    assert launches("k2") == before + 1
     assert got.shape == (2 * k, 14, 14, feats[0].shape[-1])
     rtol = 2.0 ** -7 if dtype == BF else 1e-5
     torch.testing.assert_close(got, ref, rtol=rtol, atol=1e-5, equal_nan=True)
@@ -322,13 +328,13 @@ def test_roi_align_bwd_kernel_p14(case, dtype):
     rng = np.random.RandomState(6)
     g = torch.from_numpy(rng.randn(wy.shape[0], 14, 14, shapes[0][-1]).astype(np.float32))
     g = g.cuda().to(dtype)
-    before = roi_align_cuda.bwd_launches
+    before = launches("k3")
     got = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
     again = roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, k)
     ref = t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, k)
     mag = _abs_backward(shapes, lvl, y0, x0, wy, wx, k, g)
     torch.cuda.synchronize()
-    assert roi_align_cuda.bwd_launches == before + 2
+    assert launches("k3") == before + 2
     bf = dtype == BF
     for a, a2, r, m, s in zip(got, again, ref, mag, shapes):
         assert a.shape == s and a.dtype == dtype
@@ -353,12 +359,12 @@ def test_single_level_roi_align_kernel_gradients_p14():
     boxes = torch.from_numpy(np.concatenate([xy, xy + rng.rand(2, 24, 2) * 300 + 16], -1)
                              .astype(np.float32)).cuda()
     go = torch.randn(2, 24, 14, 14, 64, device="cuda")
-    before = (roi_align_cuda.launches, roi_align_cuda.bwd_launches)
+    before = (launches("k2"), launches("k3"))
     outs, grads = {}, {}
     for impl in ("kernel", "plain"):
         outs[impl] = roi_align_cuda.single_level_roi_align(feat, boxes, 16, 14, impl=impl)
         grads[impl], = torch.autograd.grad(outs[impl], feat, go)
-    assert (roi_align_cuda.launches, roi_align_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (launches("k2"), launches("k3")) == (before[0] + 1, before[1] + 1)
     assert outs["kernel"].shape == (2, 24, 14, 14, 64)
     torch.testing.assert_close(outs["kernel"], outs["plain"], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grads["kernel"], grads["plain"], rtol=1e-5, atol=1e-5)
@@ -436,7 +442,7 @@ def test_roi_align_bwd_wrapper_rejects_unsupported_input():
 def test_cpu_wrappers_run_the_plain_versions():
     """On CPU tensors the wrappers compute the plain versions and launch
     nothing."""
-    before = (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches)
+    before = (launches("k1"), launches("k2"), launches("k3"))
     args = [torch.from_numpy(a) for a in _stem_inputs(1, 16, 24, 3)]
     torch.testing.assert_close(stem_cuda.stem_pool(*args), stem_cuda.stem_pool_plain(*args))
     feats = [torch.rand(1, 16 >> i, 16 >> i, 8) for i in range(4)]
@@ -450,7 +456,7 @@ def test_cpu_wrappers_run_the_plain_versions():
     for d, e in zip(roi_align_cuda.roi_align_bwd(g, shapes, lvl, y0, x0, wy, wx, 2),
                     t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, 2)):
         torch.testing.assert_close(d, e)
-    assert (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches) == before
+    assert (launches("k1"), launches("k2"), launches("k3")) == before
 
 
 @pytest.mark.cuda
@@ -461,7 +467,7 @@ def test_custom_ops_on_the_card_match_their_plain_versions():
     the card equal to its CPU run."""
     _cuda()
     x, w, scale, bias = [torch.from_numpy(a).cuda().to(BF) for a in _stem_inputs(1, 30, 98, 4)]
-    before = (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches)
+    before = (launches("k1"), launches("k2"), launches("k3"))
     got = torch.ops.proben.stem_pool(x, w, scale, bias).float()
     torch.testing.assert_close(got, stem_cuda.stem_pool_plain(x, w, scale, bias).float(),
                                rtol=2.0 ** -6, atol=0.05)
@@ -477,7 +483,7 @@ def test_custom_ops_on_the_card_match_their_plain_versions():
     for a, b in zip(dfs, t_ra.roi_align_bwd_plain(g, shapes, lvl, y0, x0, wy, wx, 2)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     torch.cuda.synchronize()
-    assert (stem_cuda.launches, roi_align_cuda.launches, roi_align_cuda.bwd_launches) == tuple(
+    assert (launches("k1"), launches("k2"), launches("k3")) == tuple(
         n + 1 for n in before)
     rng = np.random.RandomState(4)
     xy = rng.rand(3, 60, 2) * 50
@@ -538,11 +544,11 @@ def test_image_io_kernel_matches_plain(fmt):
     sizes = [(80, 100), (30, 24), (33, 47)]
     t = [torch.from_numpy(a).cuda() for a in thermal]
     r = None if fmt == "BGR" else [torch.from_numpy(a).cuda() for a in rgb]
-    before = io.launches
+    before = launches("io")
     got = io.compose_resize_pad(t, r, fmt, sizes, (96, 112))
     ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (96, 112))
     torch.cuda.synchronize()
-    assert io.launches == before + 1
+    assert launches("io") == before + 1
     assert got.shape == (3, 96, 112, io.FORMATS[fmt][1])
     assert torch.equal(got, ref)
     assert not got[1, 30:].any() and not got[1, :, 24:].any()
@@ -566,12 +572,12 @@ def test_image_io_kernel_flips_match_plain(fmt):
     flips = [True, False, True, True]
     t = [torch.from_numpy(a).cuda() for a in thermal]
     r = None if fmt == "BGR" else [torch.from_numpy(a).cuda() for a in rgb]
-    before = io.launches
+    before = launches("io")
     got = io.compose_resize_pad(t, r, fmt, sizes, (96, 112), flips)
     ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (96, 112), flips)
     unflipped = io.compose_resize_pad(t, r, fmt, sizes, (96, 112))
     torch.cuda.synchronize()
-    assert io.launches == before + 2
+    assert launches("io") == before + 2
     assert torch.equal(got, ref)
     for i, ((h, w), f) in enumerate(zip(sizes, flips)):
         want = unflipped[i, :h, :w].flip(1) if f else unflipped[i, :h, :w]
@@ -602,12 +608,12 @@ def test_image_io_kernel_crops_match_plain(fmt):
     flips = [False, True, True, False, True]
     t = [torch.from_numpy(a).cuda() for a in thermal]
     r = None if fmt == "BGR" else [torch.from_numpy(a).cuda() for a in rgb]
-    before = io.launches
+    before = launches("io")
     got = io.compose_resize_pad(t, r, fmt, sizes, (96, 112), flips, crops)
     ref = io.compose_resize_pad_plain(t, r, fmt, sizes, (96, 112), flips, crops)
     uncropped = io.compose_resize_pad(t, r, fmt, sizes, (96, 112), flips)
     torch.cuda.synchronize()
-    assert io.launches == before + 2
+    assert launches("io") == before + 2
     assert torch.equal(got, ref)
     for i, (h, w) in enumerate(sizes):
         assert not got[i, h:].any() and not got[i, :, w:].any()
@@ -629,10 +635,10 @@ def test_image_io_kernel_at_equal_frame_sizes(fmt):
     hw = [(33, 47), (64, 80)]
     t = [torch.from_numpy(_u8(rng, h, w, 3)).cuda() for h, w in hw]
     r = [torch.from_numpy(_u8(rng, h, w, 3)).cuda() for h, w in hw]
-    before = io.launches
+    before = launches("io")
     got = io.compose_resize_pad(t, r, fmt, hw, (64, 80))
     torch.cuda.synchronize()
-    assert io.launches == before + 1
+    assert launches("io") == before + 1
     for i, (h, w) in enumerate(hw):
         thermal = t[i][..., :1] if fmt == "BGRT" else t[i]
         assert torch.equal(got[i, :h, :w], torch.cat([r[i], thermal], -1).float())
@@ -654,11 +660,11 @@ def test_image_io_kernel_splits_large_batches():
     t = [torch.from_numpy(_u8(rng, 12, 16, 1)).cuda() for _ in range(41)]
     r = [torch.from_numpy(_u8(rng, 20, 24, 3)).cuda() for _ in range(41)]
     sizes = [(15, 20)] * 40 + [(12, 16)]
-    before = io.launches
+    before = launches("io")
     got = io.compose_resize_pad(t, r, "BGRT", sizes, (16, 20))
     ref = io.compose_resize_pad_plain(t, r, "BGRT", sizes, (16, 20))
     torch.cuda.synchronize()
-    assert io.launches == before + 2
+    assert launches("io") == before + 2
     assert torch.equal(got, ref)
 
 
@@ -726,14 +732,14 @@ def test_load_batch_reads_files(tmp_path):
                 p = tmp_path / f"{kind}{i}.jpg"
                 p.write_bytes(codec.encode(torch.from_numpy(_u8(rng, *shape)).cuda()))
                 paths.append(str(p))
-        before = io.launches
+        before = launches("io")
         images, sizes, orig = io.load_batch(codec, tp, rp, "BGRTTT", lambda h, w: (2 * h, 2 * w),
                                             (80, 104))
         thermal = [codec.decode(open(p, "rb").read()) for p in tp]
         rgb = [codec.decode(open(p, "rb").read()) for p in rp]
         ref = io.compose_resize_pad_plain(thermal, rgb, "BGRTTT", [(80, 100)] * 2, (80, 104))
         torch.cuda.synchronize()
-    assert io.launches == before + 1
+    assert launches("io") == before + 1
     assert sizes.tolist() == [[80, 100]] * 2 and orig.tolist() == [[40, 50]] * 2
     assert torch.equal(images, ref)
 
@@ -756,11 +762,11 @@ def test_png_batch_canvas_equals_plain(tmp_path):
     with io.JpegCodec() as codec:
         jpeg = tmp_path / "b.jpg"
         jpeg.write_bytes(codec.encode(torch.from_numpy(_u8(rng, 60, 80, 3)).cuda()))
-        before = io.launches
+        before = launches("io")
         images, sizes, orig = io.load_batch(codec, [str(png), str(jpeg)], None, "BGR",
                                             lambda h, w: (h // 2 * 3, w // 2 * 3), (160, 304))
         torch.cuda.synchronize()
-        assert io.launches == before + 1
+        assert launches("io") == before + 1
         host = cv2.imread(str(png), cv2.IMREAD_COLOR)
         assert np.array_equal(host, png_pixels)
         ref = io.compose_resize_pad_plain([torch.from_numpy(host).cuda()], None, "BGR", [(150, 300)],
@@ -783,9 +789,9 @@ def test_image_io_wrapper_rejects_unsupported_input():
         io.compose_resize_pad(t, None, "BGR", [(9, 8)], (8, 8))
     with pytest.raises(ValueError, match="uint8"):
         io.compose_resize_pad([torch.zeros(8, 8, 1)], None, "BGR", [(8, 8)], (8, 8))
-    before = io.launches
+    before = launches("io")
     out = io.compose_resize_pad(t, None, "BGR", [(4, 4)], (8, 8))  # CPU: the plain version
-    assert io.launches == before and out.shape == (1, 8, 8, 3)
+    assert launches("io") == before and out.shape == (1, 8, 8, 3)
 
 
 def test_image_io_library_key_follows_its_link_libraries(tmp_path, monkeypatch):
