@@ -13,17 +13,22 @@ Phases, each raising on a miss (exit code != 0, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the main paths (K1 stem, K2 RoIAlign forward, K3
-   RoIAlign backward, ``image_io``: nvJPEG decode and the compose + resize
-   + pad kernel) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
+   RoIAlign backward, K4 bottleneck epilogue, ``image_io``: nvJPEG decode
+   and the compose + resize + pad kernel) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a``, one process per source, in parallel;
 3. K1 and K2 against their plain PyTorch versions on the card, at the
    inference path's shapes and on hazard inputs, with the tolerance stated
-   at each check; times (CUDA events) and bounds;
+   at each check; times (CUDA events) and bounds; K4 forward and backward
+   against the plain composition and its backward at R101's stage shapes
+   on 16 800x1024 images and at C4's res5 on 8 x 1000 RoIs
+   (``epilogue_phase``: maps bit for bit, parameter sums within one bf16
+   ulp, two backward calls bit for bit), device times and bounds;
 4. inference slice: random-init R101-FPN (random affines, so every residual
    branch is live; RPN and class head calibrated) through
    ``Predictor.predict_batch`` at batch 8, 800x1024 (true size 800x1000),
    bf16 -- every launch counter set to 0 just before and read just after --
-   then the same model with the plain versions forced, and in f32 as the
+   the same batch with K4 off (detections bit for bit), then the same model
+   with the plain versions forced (K4 off), and in f32 as the
    bf16-rounding control, detections and FPN maps compared (tolerances in
    ``slice_phase``), and pipelined img/s;
 5. K3 against its plain version at the training path's shapes (the FPN maps
@@ -197,12 +202,19 @@ Phases, each raising on a miss (exit code != 0, no result line):
    and on Cityscapes' PNGs); the last line is
    ``{"ok": true, "device": {...}}``.
 
+K4's counts (its launches, 3 a bottleneck block in each backbone forward
+and 3 a trainable block in each backward, and ``epilogue.plain``, the
+epilogues of float32 paths) are read on every path whose launches are
+counted; a path that misses ``k4_expect`` does not stop the run, which
+prints every other line, then a ``k4_misses`` line and fails.
+
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -354,6 +366,177 @@ def stem_phase(model):
         f"bound {results['bound_ms']:.4g} ms ({results['bound_by']}), "
         f"{ms / results['bound_ms']:.1f}x bound")
     return results
+
+
+# ---------------------------------------------------------------------------
+# K4: the bottleneck epilogue, forward and backward
+# ---------------------------------------------------------------------------
+
+# R101's stages on the cells' batch (16 images on the 800x1024 canvas):
+# name, width, map height and width, blocks
+K4_STAGES = (("res2", 64, 200, 256, 3), ("res3", 128, 100, 128, 4), ("res4", 256, 50, 64, 23),
+             ("res5", 512, 25, 32, 3))
+K4_FWD_BYTES = {"relu": 4, "identity": 6, "shortcut": 6}  # per element: maps read and written
+K4_BWD_BYTES = {"relu": 8, "identity": 10, "shortcut": 12}
+
+
+def device_ms(fn, n=10):
+    """Device time of one call of ``fn()`` in ms: the durations of the
+    device work of ``n`` calls in a profile, after two untimed calls (a
+    small map's kernels are shorter than the host's dispatch of a call, so
+    CUDA events around back-to-back calls would time the host)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / n / 1e3
+
+
+def epilogue_inputs(gen, kind, n, c, h, w):
+    """One case's inputs: bf16 channels_last maps (x, the residual or the
+    shortcut conv's output) and f32 (C,) parameters around a trained
+    FrozenBN's, then a seeded cotangent."""
+    def amap():
+        return (2 * torch.randn(n, h, w, c, generator=gen, device="cuda")).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    def params():
+        return (1 + 0.5 * torch.randn(c, generator=gen, device="cuda"),
+                0.5 * torch.randn(c, generator=gen, device="cuda"))
+
+    args = [amap(), *params()]
+    if kind != "relu":
+        args.append(amap())
+    if kind == "shortcut":
+        args += list(params())
+    return args + [None] * (6 - len(args)), amap()
+
+
+def check_epilogue(gen, kind, n, c, h, w, label):
+    """K4 against the plain composition on one case: the forward's map and
+    the backward's map gradients bit for bit (int16 views), the parameter
+    sums within one bf16 ulp of the larger of the two (K4 adds in another
+    order), two backward calls bit for bit. Then device ms of K4 and of
+    the plain versions, each over copies of the inputs that together pass
+    the 50 MB L2 three times, used in turn. A dict of the readings."""
+    import math
+
+    from proben_tpu_torch.ops import epilogue_cuda as ep
+
+    args, g = epilogue_inputs(gen, kind, n, c, h, w)
+    x, s, b, r, rs, rb = args
+    if not ep.kernel_takes(*args):
+        raise AssertionError(f"K4 {label}: the kernel does not take the stage's maps")
+    bits = lambda t: t.contiguous().view(torch.int16)  # noqa: E731
+    y, want = ep.block_epilogue(*args), ep.block_epilogue_plain(*args)
+    if not torch.equal(bits(y), bits(want)):
+        raise AssertionError(f"K4 {label}: the forward differs from the plain composition's bits")
+    shortcut = r if kind == "shortcut" else None
+    bwd_args = (g, y, x, s, shortcut, rs, kind != "relu")
+    got = torch.ops.proben.block_epilogue_bwd(*bwd_args)
+    again = torch.ops.proben.block_epilogue_bwd(*bwd_args)
+    plain = ep.block_epilogue_bwd_plain(*bwd_args)
+    sums = {1, 2, 4, 5}  # gscale, gbias and the shortcut's two: the rest are maps
+    ulps = 0.0
+    for i, (a, a2, p) in enumerate(zip(got, again, plain)):
+        same = torch.equal(bits(a), bits(a2)) if a.dtype == torch.bfloat16 else torch.equal(a, a2)
+        if not same:
+            raise AssertionError(f"K4 {label}: two backward calls differ (output {i})")
+        if i not in sums:
+            if not torch.equal(bits(a), bits(p)):
+                raise AssertionError(f"K4 {label}: backward output {i} differs from the plain backward's bits")
+            continue
+        ulp = torch.ldexp(torch.ones_like(p), torch.frexp(torch.maximum(a.abs(), p.abs())).exponent - 8)
+        ulps = max(ulps, float(((a - p).abs() / ulp).max()))
+    if ulps > 1.0:
+        raise AssertionError(f"K4 {label}: a parameter sum is {ulps:.3g} bf16 ulps off the plain backward's")
+    del y, want, got, again, plain
+
+    copies = max(1, math.ceil(150e6 / (x.numel() * 2 * (1 if kind == "relu" else 2))))
+    cases = [(args, g)] + [epilogue_inputs(gen, kind, n, c, h, w) for _ in range(copies - 1)]
+    ys = [ep.block_epilogue(*a) for a, _ in cases]
+    turn = {"i": 0}
+
+    def cycled(fn):
+        def call():
+            i = turn["i"] = (turn["i"] + 1) % len(cases)
+            return fn(i)
+        return call
+
+    def bwd(i):
+        a, gg = cases[i]
+        return torch.ops.proben.block_epilogue_bwd(gg, ys[i], a[0], a[1], a[3] if kind == "shortcut" else None,
+                                                   a[4], kind != "relu")
+
+    def bwd_plain(i):
+        a, gg = cases[i]
+        return ep.block_epilogue_bwd_plain(gg, ys[i], a[0], a[1], a[3] if kind == "shortcut" else None,
+                                           a[4], kind != "relu")
+
+    with torch.no_grad():
+        out = dict(ms=device_ms(cycled(lambda i: ep.block_epilogue(*cases[i][0]))),
+                   plain_ms=device_ms(cycled(lambda i: ep.block_epilogue_plain(*cases[i][0]))),
+                   bwd_ms=device_ms(cycled(bwd)), bwd_plain_ms=device_ms(cycled(bwd_plain)))
+    numel = x.numel()
+    out.update(numel=numel, sum_err_ulp=ulps, bound_ms=K4_FWD_BYTES[kind] * numel / HBM_BYTES_S * 1e3,
+               bwd_bound_ms=K4_BWD_BYTES[kind] * numel / HBM_BYTES_S * 1e3)
+    del cases, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def epilogue_phase(c4_rois):
+    """K4 at R101's stage shapes on the cells' batch (each stage's width
+    maps, identity and shortcut block outputs) and at C4's res5 on
+    ``c4_rois`` RoIs of 7x7 (``check_epilogue``), then per batch: a
+    forward's 99 epilogues and the backward's 90 over res3-res5 (training
+    at FREEZE_AT 2), K4's device ms against the plain versions' and the
+    bytes bound (3.35 TB/s)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, fwd, bwd = {}, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0), dict(
+        ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0)
+    for stage, width, h, w, blocks in K4_STAGES:
+        for kind, c, count in (("relu", width, 2 * blocks), ("identity", 4 * width, blocks - 1),
+                               ("shortcut", 4 * width, 1)):
+            label = f"{stage} {kind} C={c}"
+            r = cases[label] = dict(check_epilogue(gen, kind, 16, c, h, w, label), count=count)
+            fwd["ms"] += count * r["ms"]
+            fwd["plain_ms"] += count * r["plain_ms"]
+            fwd["bound_ms"] += count * r["bound_ms"]
+            fwd["bytes"] += count * K4_FWD_BYTES[kind] * r["numel"]
+            if stage != "res2":  # FREEZE_AT 2 runs res2 without grad
+                bwd["ms"] += count * r["bwd_ms"]
+                bwd["plain_ms"] += count * r["bwd_plain_ms"]
+                bwd["bound_ms"] += count * r["bwd_bound_ms"]
+                bwd["bytes"] += count * K4_BWD_BYTES[kind] * r["numel"]
+            log(f"K4 {label} (x{count} a batch): {r['ms']:.4g} ms ({r['bound_ms'] / r['ms'] * 100:.1f}% of "
+                f"the bytes bound), plain {r['plain_ms']:.4g}; backward {r['bwd_ms']:.4g} "
+                f"({r['bwd_bound_ms'] / r['bwd_ms'] * 100:.1f}%), plain {r['bwd_plain_ms']:.4g}; "
+                f"sums within {r['sum_err_ulp']:.3g} bf16 ulp")
+    c4 = {}
+    for kind, c in (("relu", 512), ("identity", 2048), ("shortcut", 2048)):
+        label = f"C4 res5 {kind} C={c}"
+        c4[label] = check_epilogue(gen, kind, c4_rois, c, 7, 7, label)
+        log(f"K4 {label} on {c4_rois} RoIs: {c4[label]['ms']:.4g} ms, plain {c4[label]['plain_ms']:.4g}")
+    log(f"K4 per batch of 16 800x1024 images: forward {fwd['ms']:.4g} ms (plain {fwd['plain_ms']:.4g}, "
+        f"bound {fwd['bound_ms']:.4g} ms for {fwd['bytes'] / 1e9:.2f} GB); backward over res3-res5 "
+        f"{bwd['ms']:.4g} ms (plain {bwd['plain_ms']:.4g}, bound {bwd['bound_ms']:.4g} ms for "
+        f"{bwd['bytes'] / 1e9:.2f} GB); maps bit for bit, sums within one bf16 ulp")
+    return dict(name="block_epilogue", route="cuda", source="proben_tpu_torch/csrc/block_epilogue.cu",
+                replaces="models/resnet.py's affine, residual add and ReLUs (XLA fuses them in JAX)",
+                max_abs_err=0.0, ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+                bound_by="bytes", library_ms=None, gflop=0.0, mbytes=fwd["bytes"] / 1e6,
+                deterministic=True, backward={k: (v / 1e6 if k == "bytes" else v) for k, v in bwd.items()},
+                sum_err_ulp=max(r["sum_err_ulp"] for r in list(cases.values()) + list(c4.values())),
+                per_case={k: {kk: r[kk] for kk in ("ms", "plain_ms", "bound_ms", "bwd_ms", "bwd_plain_ms",
+                                                   "bwd_bound_ms", "count")} for k, r in cases.items()},
+                c4_res5={k: {kk: r[kk] for kk in ("ms", "plain_ms", "bound_ms", "bwd_ms", "bwd_plain_ms")}
+                         for k, r in c4.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -793,14 +976,17 @@ def match_fraction(a, b, iou_min=0.95, score_tol=0.02):
     return hit / max(total, 1)
 
 
-def feature_gap(model, cfg_a, cfg_b, images):
+def feature_gap(model, cfg_a, cfg_b, images, plain=(False, True)):
     """Relative L2 difference of the p2..p6 maps of two configurations, per
-    stream for middle fusion (the concat's RGB and thermal halves)."""
+    stream for middle fusion (the concat's RGB and thermal halves);
+    ``plain``: whether each side runs with K4 off."""
     from proben_tpu_torch.models import rcnn
 
-    with torch.inference_mode():
-        fa = rcnn.extract_features(model, cfg_a, rcnn.preprocess(cfg_a, images))
-        fb = rcnn.extract_features(model, cfg_b, rcnn.preprocess(cfg_b, images))
+    def maps(c, off):
+        with torch.inference_mode(), (k4_off() if off else contextlib.nullcontext()):
+            return rcnn.extract_features(model, c, rcnn.preprocess(c, images))
+
+    fa, fb = maps(cfg_a, plain[0]), maps(cfg_b, plain[1])
     c = cfg_a.fpn_channels
     streams = {"rgb ": slice(0, c), "thermal ": slice(c, 2 * c)} if cfg_a.dual else {"": slice(None)}
     return {s + k: float((fa[k][:, sl].float() - fb[k][:, sl].float()).norm() / fb[k][:, sl].float().norm())
@@ -813,13 +999,16 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
     f32) moves the p5/p6 maps of this random R101 by ~1% and changes which
     near-tied proposals survive top-k and NMS, so the whole-path detections
     of two correct bf16 runs do not agree to 95%. Hence three checks: (1)
-    with the stem plain, K2 is the only difference, and >= 95% of the
+    with the stem plain and K4 off, K2 is the only difference, and >= 95% of the
     detections must match (class, IoU >= 0.95, |dscore| <= 0.02) both
     ways; (2) with both kernels, every FPN map may differ from the plain
     path's by at most 1.5x what bf16 rounding moves it (a wiring fault
     gives O(1)); (3) the whole-path detections must match at least as well
-    as the f32 control, less 5 points. ``expect``: the launches of each
-    kernel in one batch; ``hi``: the top of the background-bias bracket."""
+    as the f32 control, less 5 points. The plain path runs with K4 off;
+    before it, the batch with K4 off must give the kernel path's
+    detections bit for bit. ``expect``: the launches of each kernel and
+    K4's counts in one batch; ``hi``: the top of the background-bias
+    bracket."""
     from proben_tpu_torch.engine import Predictor
 
     cfg = model.cfg
@@ -831,10 +1020,17 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
              "image_id": list(range(BATCH))}
     zero_launch_counts()
     out_k = pred.predict_batch(batch)
-    launches = launch_counts("stem_pool", "roi_align_fwd")
-    log(f"{cfg.input_format} inference launches: {launches}")
-    if launches != expect:
-        raise AssertionError(f"kernel launches per batch {launches}, expected {expect}")
+    launches = launch_counts()
+    expect_launches(f"{cfg.input_format} inference", launches, expect)
+    # K4 keeps every rounding point: the same batch with K4 off gives the same detections, bit for bit
+    with k4_off():
+        zero_launch_counts()
+        out_off = pred.predict_batch(batch)
+        check_k4(f"{cfg.input_format} inference, K4 off", launch_counts(*K4_COUNTED),
+                 {"block_epilogue": 0, "epilogue_plain": expect["block_epilogue"]})
+    if not all(np.array_equal(a[k], b[k]) for a, b in zip(out_k, out_off) for k in ("boxes", "scores", "classes")):
+        raise AssertionError(f"{cfg.input_format} inference: detections with K4 differ from those with K4 off")
+    log(f"{cfg.input_format} inference: detections with K4 and with K4 off equal bit for bit")
     for r in out_k:
         if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
             raise AssertionError("non-finite detections")
@@ -844,8 +1040,9 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
     plain_cfg = cfg.replace(stem_impl="plain", roi_align_impl="plain")
     f32_cfg = plain_cfg.replace(compute_dtype="float32")
     plain = Predictor(model, plain_cfg)
-    out_p = plain.predict_batch(batch)
-    out_k2 = Predictor(model, cfg.replace(stem_impl="plain")).predict_batch(batch)
+    with k4_off():
+        out_p = plain.predict_batch(batch)
+        out_k2 = Predictor(model, cfg.replace(stem_impl="plain")).predict_batch(batch)
     out_32 = Predictor(model, f32_cfg).predict_batch(batch)
 
     def both(a, b):
@@ -853,7 +1050,7 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
 
     m_k2, m_all, m_32 = both(out_k2, out_p), both(out_k, out_p), both(out_p, out_32)
     gap_k = feature_gap(model, cfg, plain_cfg, images_list[0])
-    gap_32 = feature_gap(model, plain_cfg, f32_cfg, images_list[0])
+    gap_32 = feature_gap(model, plain_cfg, f32_cfg, images_list[0], plain=(True, True))
     dets_k = sum(len(r["scores"]) for r in out_k) / BATCH
     dets_p = sum(len(r["scores"]) for r in out_p) / BATCH
     log(f"detections: kernels {dets_k:.1f}/img, plain {dets_p:.1f}/img; matched (worse direction): "
@@ -874,15 +1071,16 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
 
     rates = {}
     for name, p in (("kernels", pred), ("plain", plain)):
-        run(p, 2)
-        iters = 12
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        run(p, iters)
-        b.record()
-        torch.cuda.synchronize()
+        with k4_off() if name == "plain" else contextlib.nullcontext():
+            run(p, 2)
+            iters = 12
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            run(p, iters)
+            b.record()
+            torch.cuda.synchronize()
         rates[name] = BATCH * iters / (a.elapsed_time(b) / 1e3)
         if name == "kernels":  # the kernel path's own peak (model, inputs, one batch in flight)
             peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1063,10 +1261,8 @@ def train_phase(model, batch, expect, steps=8, warmup=2):
     # the main path: one step, every launch counter read around it
     zero_launch_counts()
     state, m = train_step(state, batch)
-    launches = launch_counts("stem_pool", "roi_align_fwd", "roi_align_bwd")
-    log(f"{cfg.input_format} training step launches: {launches}")
-    if launches != expect:
-        raise AssertionError(f"kernel launches per training step {launches}, expected {expect}")
+    launches = launch_counts()
+    expect_launches(f"{cfg.input_format} training step", launches, expect)
     metrics = [m]
 
     def timed(n):
@@ -1544,14 +1740,13 @@ def flir_phase(card):
                 timing.records.clear()
                 results = flir.evaluate_map(method, root, "", out_dir, batch_size=BATCH, cfg=cfg,
                                             params=params)
-                launches = launch_counts("stem_pool", "roi_align_fwd", "image_io")
+                launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *K4_COUNTED)
                 n_batches = -(-len(dicts) // BATCH)
                 expect = {"stem_pool": expect_k1 * n_batches, "roi_align_fwd": n_batches,
-                          "image_io": n_batches}
+                          "image_io": n_batches, **k4_expect(expect_k1 * n_batches)}
                 log(f"FLIR {method}: launches {launches} over {n_batches} batches; "
                     f"bbox AP {results['bbox']['AP']:.3f}")
-                if launches != expect:
-                    raise AssertionError(f"FLIR {method}: launches {launches}, expected {expect}")
+                expect_launches(f"FLIR {method} evaluate_map", launches, expect)
                 if not np.isfinite(results["bbox"]["AP"]) or len(timing.records) != 1:
                     raise AssertionError(f"FLIR {method}: no mAP or no timing record")
                 # end to end over the whole split, warm: evaluate_map's body
@@ -1873,10 +2068,10 @@ def kaist_phase(card):
             out_txt, var_npz = os.path.join(root, f"{method}_dets.txt"), os.path.join(root, f"{method}_vars.npz")
             results = kaist.predict_split(method, root, split, params, cfg=cfg, out_txt=out_txt,
                                           var_npz=var_npz, batch_size=BATCH)
-            launches = launch_counts("stem_pool", "roi_align_fwd", "image_io")
-            expect = {"stem_pool": k1 * n_batches, "roi_align_fwd": n_batches, "image_io": n_batches}
-            if launches != expect:
-                raise AssertionError(f"KAIST {method}: launches {launches}, expected {expect}")
+            launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *K4_COUNTED)
+            expect = {"stem_pool": k1 * n_batches, "roi_align_fwd": n_batches, "image_io": n_batches,
+                      **k4_expect(k1 * n_batches)}
+            expect_launches(f"KAIST {method} predict_split", launches, expect)
             if sorted(results) != frames:
                 raise AssertionError(f"KAIST {method}: results for frames {sorted(results)}")
 
@@ -1955,10 +2150,10 @@ def kaist_phase(card):
         mcfg32 = model_config_from_cfg(cfg32)
         zero_launch_counts()
         res32 = kaist.predict_split("thermal_only", root, split, t_bf16["params"], cfg=cfg32, batch_size=BATCH)
-        launches = launch_counts("stem_pool", "roi_align_fwd", "image_io")
-        expect = {"stem_pool": 0, "roi_align_fwd": n_batches, "image_io": n_batches}
-        if launches != expect:
-            raise AssertionError(f"KAIST thermal_only, float32: launches {launches}, expected {expect}")
+        launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *K4_COUNTED)
+        expect = {"stem_pool": 0, "roi_align_fwd": n_batches, "image_io": n_batches,
+                  **k4_expect(n_batches, float32=True)}
+        expect_launches("KAIST thermal_only, float32, predict_split", launches, expect)
         if sorted(res32) != frames or not all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
                                               for r in res32.values()):
             raise AssertionError("KAIST thermal_only, float32: missing frames or values that are not finite")
@@ -2020,21 +2215,26 @@ def kaist_phase(card):
 TRAIN_BATCH = 16  # SOLVER.IMS_PER_BATCH of configs/Base-RCNN-FPN.yaml
 TRAIN_STEPS = 12  # per training app run; its rates are medians of the last 10 steps
 COUNTED = ("stem_pool", "roi_align_fwd", "roi_align_bwd", "image_io")
+# K4 (``block_epilogue``): its launches, forward and backward, and the
+# bottleneck epilogues that ran as the plain composition on CUDA maps
+K4_COUNTED = ("block_epilogue", "epilogue_plain")
 
 
 # each counted kernel's launch counter in ``proben_tpu_torch.utils.tracing``
 LAUNCH_COUNTERS = {"stem_pool": "k1.launches", "roi_align_fwd": "k2.launches",
-                   "roi_align_bwd": "k3.launches", "image_io": "io.launches"}
+                   "roi_align_bwd": "k3.launches", "image_io": "io.launches",
+                   "block_epilogue": "k4.launches", "epilogue_plain": "epilogue.plain"}
 _launch_base: dict = {}
 
 
 def launch_counts(*kernels):
-    """Launches of each counted kernel (or of ``kernels`` alone) since the
-    last ``zero_launch_counts``."""
+    """Launches of each counted kernel and K4's two counts (or of
+    ``kernels`` alone) since the last ``zero_launch_counts``."""
     from proben_tpu_torch.utils import tracing
 
     now = tracing.counters()
-    return {k: now.get(LAUNCH_COUNTERS[k], 0) - _launch_base.get(k, 0) for k in kernels or COUNTED}
+    return {k: now.get(LAUNCH_COUNTERS[k], 0) - _launch_base.get(k, 0)
+            for k in kernels or COUNTED + K4_COUNTED}
 
 
 def zero_launch_counts():
@@ -2042,6 +2242,47 @@ def zero_launch_counts():
 
     now = tracing.counters()
     _launch_base.update({k: now.get(c, 0) for k, c in LAUNCH_COUNTERS.items()})
+
+
+R101_BLOCKS = (3, 4, 23, 3)  # bottleneck blocks of res2..res5
+K4_MISSES: list = []  # every path whose K4 counts differ from ``k4_expect``'s
+
+
+def k4_expect(forwards=1, train_freeze_at=None, float32=False):
+    """K4's counts on a path of R101 backbones: three epilogues a
+    bottleneck block in each backbone forward (``forwards``, K1's launches
+    on a bf16 path; C4 runs res5 on its RoIs, the same 33 blocks), and
+    with ``train_freeze_at`` three backward launches more a forward for
+    each block of the stages it leaves trainable (2: res3-res5, 90; 3:
+    res4-res5, 78). A float32 path runs every forward epilogue as the
+    plain composition and launches K4 not at all."""
+    fwd = 3 * sum(R101_BLOCKS) * forwards
+    if float32:
+        return {"block_epilogue": 0, "epilogue_plain": fwd}
+    bwd = 0 if train_freeze_at is None else \
+        3 * sum(R101_BLOCKS[max(train_freeze_at - 1, 0):]) * forwards
+    return {"block_epilogue": fwd + bwd, "epilogue_plain": 0}
+
+
+def check_k4(label, got, want):
+    """K4's two counts on a path against ``want``: a difference is logged
+    and kept in ``K4_MISSES``; ``main`` fails on it once every path has
+    run, so one run names every path that missed."""
+    got = {k: got.get(k, 0) for k in K4_COUNTED}
+    want = {k: want[k] for k in K4_COUNTED}
+    if got != want:
+        log(f"{label}: K4 counts {got}, expected {want}")
+        K4_MISSES.append(dict(path=label, got=got, expected=want))
+
+
+def k4_off():
+    """A context in which every bottleneck epilogue takes the plain
+    composition (K4 off): the plain side of a comparison."""
+    from unittest import mock
+
+    from proben_tpu_torch.ops import epilogue_cuda
+
+    return mock.patch.object(epilogue_cuda, "kernel_takes", lambda *a: False)
 
 
 def write_flir_train_tree(codec, root, n=64, n_val=32, seed=5):
@@ -2259,7 +2500,8 @@ class TrainWatch:
         if t.iter == self.count_iter or self.every_step:
             torch.cuda.synchronize()
             now = launch_counts()
-            step = {k: now[k] - self._counts[k] for k in ("stem_pool", "roi_align_fwd", "roi_align_bwd")}
+            step = {k: now[k] - self._counts[k] for k in ("stem_pool", "roi_align_fwd", "roi_align_bwd")
+                    + K4_COUNTED}
             self.per_step.append(step)
             if t.iter == self.count_iter:
                 self.launches = step
@@ -2371,7 +2613,7 @@ def held_batch_checks(watch, label, stem, bare_steps=6):
 def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launches):
     """Checks of one training app run and its readings: every metric of
     every step finite and ``loss_finite`` 1; K1-K3 around one step as
-    ``expect_step``; every kernel of the path launched in the run; the
+    ``expect_step``, and K4's counts (``check_k4``); every kernel of the path launched in the run; the
     run's ``image_io`` launches equal to the batches the trainer's loader
     mapped (prefetched ones included) plus ``eval_launches``, the
     evaluations' batches, so one launch per training batch."""
@@ -2381,9 +2623,13 @@ def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launc
             np.isfinite(v) for m in losses for v in m.values()) \
             or not all(m["loss_finite"] == 1.0 for m in losses):
         raise AssertionError(f"{label}: {len(watch.metrics)} steps, metrics not all finite: {losses}")
-    if watch.launches != expect_step or any(p != expect_step for p in watch.per_step):
+    k1_k3 = ("stem_pool", "roi_align_fwd", "roi_align_bwd")
+    if any({k: p[k] for k in k1_k3} != {k: expect_step[k] for k in k1_k3}
+           for p in [watch.launches] + watch.per_step):
         raise AssertionError(f"{label}: launches around one step {watch.launches} (per counted step "
                              f"{watch.per_step}), expected {expect_step}")
+    for i, p in enumerate([watch.launches] + watch.per_step):
+        check_k4(f"{label}, {'the counted step' if i == 0 else f'counted step {i}'}", p, expect_step)
     missing = [k for k, v in expect_step.items() if v and not launches_run[k]]
     if missing:
         raise AssertionError(f"{label}: kernels not launched in the run: {missing}, {launches_run}")
@@ -2573,7 +2819,7 @@ def trainer_phase(card):
                               hooks=watch.hooks())
         wall = time.time() - t
         run = launch_counts()
-        one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1}
+        one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT)}
         # FLIR's evaluation maps the 32 val images at batch 1: one image_io launch each
         thermal = train_run_stats("train_flir thermal_only", watch, run, one, TRAIN_STEPS,
                                   eval_runs(0, TRAIN_STEPS, 6) * len(val))
@@ -2630,7 +2876,8 @@ def trainer_phase(card):
         flir.train_flir("middle_fusion", root, os.path.join(root, "out_middle"), max_iter=TRAIN_STEPS,
                         eval_every=1000, cfg=cfg, hooks=watch.hooks())
         middle = train_run_stats("train_flir middle_fusion", watch, launch_counts(),
-                                 {"stem_pool": 2, "roi_align_fwd": 1, "roi_align_bwd": 1}, TRAIN_STEPS,
+                                 {"stem_pool": 2, "roi_align_fwd": 1, "roi_align_bwd": 1,
+                                  **k4_expect(2, cfg.MODEL.BACKBONE.FREEZE_AT)}, TRAIN_STEPS,
                                  eval_runs(0, TRAIN_STEPS, 1000) * len(val))
         if watch.unmoved:
             raise AssertionError(f"train_flir middle_fusion: {len(watch.unmoved)} trainable tensors "
@@ -2651,7 +2898,8 @@ def trainer_phase(card):
         res = kaist_train_run(root, tree, "out", watch.hooks())
         # predict_split maps the 32 frames in batches of 4: one image_io launch each
         kst = train_run_stats("train_kaist thermal_only (float32)", watch, launch_counts(),
-                              {"stem_pool": 0, "roi_align_fwd": 1, "roi_align_bwd": 1}, TRAIN_STEPS,
+                              {"stem_pool": 0, "roi_align_fwd": 1, "roi_align_bwd": 1,
+                               **k4_expect(1, float32=True)}, TRAIN_STEPS,
                               eval_runs(0, TRAIN_STEPS, 1000) * -(-len(tree[2]) // 4))
         if watch.trainable_groups != ["fpn", "rpn_head"] or watch.unmoved:
             raise AssertionError(f"train_kaist: trainable {watch.trainable_groups}, "
@@ -2684,10 +2932,15 @@ def counted(fn):
 
 
 def expect_launches(label, got, expect):
+    """K1-K3's and ``image_io``'s launches as ``expect`` names them (0 where
+    it names none), else an AssertionError; K4's counts, where ``expect``
+    names them, through ``check_k4``."""
     log(f"{label} launches: {got}")
     want = {k: expect.get(k, 0) for k in COUNTED}
-    if got != want:
+    if {k: got.get(k, 0) for k in COUNTED} != want:
         raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
+    if K4_COUNTED[0] in expect:
+        check_k4(label, got, expect)
 
 
 def timed_pooling(timed, prefix, levels, boxes, pooler, capacity):
@@ -2738,11 +2991,13 @@ def check_detections(label, det, topk):
 
 def plain_agreement(label, infer, cfg):
     """The path with its kernels against the same path with their plain
-    versions (bf16), with the bf16-vs-f32 control of slice_phase's check
+    versions (bf16, K4 off), with the bf16-vs-f32 control of slice_phase's check
     (3): both ways, the share of detections matched (class, IoU >= 0.95,
     |dscore| <= 0.02) must be at least the control's less 5 points."""
     plain_cfg = cfg.replace(stem_impl="plain", roi_align_impl="plain")
-    out_k, out_p = det_records(infer(cfg)), det_records(infer(plain_cfg))
+    out_k = det_records(infer(cfg))
+    with k4_off():
+        out_p = det_records(infer(plain_cfg))
     out_32 = det_records(infer(plain_cfg.replace(compute_dtype="float32")))
     m = min(match_fraction(out_k, out_p), match_fraction(out_p, out_k))
     m_32 = min(match_fraction(out_p, out_32), match_fraction(out_32, out_p))
@@ -2815,7 +3070,7 @@ def c4_phase(images, sizes, batch):
     bias, n = bisect_bias(set_bias, lambda: float(infer().valid.sum(-1).float().mean()), 0.0, 16.0)
     log(f"C4 calibration: background bias {bias:.4g} -> {n:.1f} dets/img")
     det, launches = counted(infer)
-    expect_launches("C4 inference", launches, {"stem_pool": 1, "roi_align_fwd": 1})
+    expect_launches("C4 inference", launches, {"stem_pool": 1, "roi_align_fwd": 1, **k4_expect()})
     dets = check_detections("C4 inference", det, cfg.rcnn.topk_per_image)
     matched, matched_32 = plain_agreement("C4 inference", infer, cfg)
     ms = cuda_ms(infer, TIMED_CALLS)
@@ -2857,7 +3112,7 @@ def c4_phase(images, sizes, batch):
 
     (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
     expect_launches("C4 training step", train_launches,
-                    {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1})
+                    {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, **k4_expect(1, cfg.freeze_at)})
     check_step("C4 training step", losses, grads)
     step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
     log(f"C4 training step (forward + backward): {step_ms:.4g} ms, {BATCH * 1e3 / step_ms:.2f} img/s")
@@ -2916,7 +3171,7 @@ def cascade_phase(images, sizes, batch):
     bias, n = bisect_bias(set_bias, lambda: float(infer().valid.sum(-1).float().mean()), 0.0, 16.0)
     log(f"Cascade calibration: background bias {bias:.4g} (all stages) -> {n:.1f} dets/img")
     det, launches = counted(infer)
-    expect_launches("Cascade inference", launches, {"stem_pool": 1, "roi_align_fwd": 3})
+    expect_launches("Cascade inference", launches, {"stem_pool": 1, "roi_align_fwd": 3, **k4_expect()})
     dets = check_detections("Cascade inference", det, cfg.rcnn.topk_per_image)
     matched, matched_32 = plain_agreement("Cascade inference", infer, cfg)
     ms = cuda_ms(infer, TIMED_CALLS)
@@ -2970,7 +3225,7 @@ def cascade_phase(images, sizes, batch):
 
     (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
     expect_launches("Cascade training step", train_launches,
-                    {"stem_pool": 1, "roi_align_fwd": 6, "roi_align_bwd": 3})
+                    {"stem_pool": 1, "roi_align_fwd": 6, "roi_align_bwd": 3, **k4_expect(1, cfg.freeze_at)})
     check_step("Cascade training step", losses, grads)
     step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
     log(f"Cascade training step (forward + backward): {step_ms:.4g} ms, {BATCH * 1e3 / step_ms:.2f} img/s")
@@ -3017,7 +3272,7 @@ def retinanet_phase(images, sizes, batch):
                           -16.0, 0.0, fewer_when_higher=False)
     log(f"RetinaNet calibration: class bias {bias:.4g} -> {n:.1f} dets/img")
     det, launches = counted(infer)
-    expect_launches("RetinaNet inference", launches, {"stem_pool": 1})
+    expect_launches("RetinaNet inference", launches, {"stem_pool": 1, **k4_expect()})
     dets = check_detections("RetinaNet inference", det, cfg.topk_per_image)
     ms = cuda_ms(infer, TIMED_CALLS)
     log(f"RetinaNet inference: {BATCH * 1e3 / ms:.2f} img/s ({ms:.4g} ms per batch of {BATCH})")
@@ -3036,7 +3291,7 @@ def retinanet_phase(images, sizes, batch):
         return retinanet.retinanet_losses(model, cfg, batch["image"], batch["image_size"], batch["gt"])
 
     (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
-    expect_launches("RetinaNet training step", train_launches, {"stem_pool": 1})
+    expect_launches("RetinaNet training step", train_launches, {"stem_pool": 1, **k4_expect(1, cfg.freeze_at)})
     check_step("RetinaNet training step", losses, grads)
     step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
     log(f"RetinaNet training step (forward + backward): {step_ms:.4g} ms, "
@@ -3065,7 +3320,7 @@ def proposal_tta_phase(model, images, sizes):
         return proposal_network.proposal_network_inference(model, cfg, images, sizes)
 
     (boxes, scores, valid), launches = counted(propose)
-    expect_launches("ProposalNetwork inference", launches, {"stem_pool": 1})
+    expect_launches("ProposalNetwork inference", launches, {"stem_pool": 1, **k4_expect()})
     if not (bool(torch.isfinite(boxes[valid]).all()) and int(valid.sum(-1).min()) > 0):
         raise AssertionError("ProposalNetwork: non-finite proposals or an image without any")
     ms = cuda_ms(propose, TIMED_CALLS)
@@ -3087,7 +3342,7 @@ def proposal_tta_phase(model, images, sizes):
     out, tta_launches = counted(lambda: tta(image))
     pred.rescore_boxes = rescore
     expect_launches("TTA with rescore (10 augmentations)", tta_launches,
-                    {"stem_pool": 2, "roi_align_fwd": 2, "image_io": 1})
+                    {"stem_pool": 2, "roi_align_fwd": 2, "image_io": 1, **k4_expect(2)})
     errs = tta_kernel_checks(model, tta, image, seen)
     plain = DetectionTTA(pred, MapperConfig(pad_shape=(H, W)))(image)
     b, s = out["boxes"], out["scores"]
@@ -3622,7 +3877,9 @@ def split_phase(name, seed, root, card):
         return dict(results=results, launches=launches, wall_s=wall, dets=list(recs), timing=timing.records[0])
 
     try:
-        runs = {"kernels": run(cfg), "plain": run(plain)}
+        runs = {"kernels": run(cfg)}
+        with k4_off():
+            runs["plain"] = run(plain)
         # two more kernel runs: the rate is the median of three
         repeats = sorted([runs["kernels"], run(cfg), run(cfg)], key=lambda r: r["wall_s"])
     finally:
@@ -3631,15 +3888,17 @@ def split_phase(name, seed, root, card):
     if any(r["launches"] != runs["kernels"]["launches"] for r in repeats):
         raise AssertionError(f"{name}: launches differ between runs: {[r['launches'] for r in repeats]}")
     expect_launches(f"{name}: DefaultTrainer.test over {n} images", runs["kernels"]["launches"],
-                    {"stem_pool": n, "roi_align_fwd": n, "image_io": n})
-    expect_launches(f"{name}: the plain run", runs["plain"]["launches"], {"image_io": n})
+                    {"stem_pool": n, "roi_align_fwd": n, "image_io": n, **k4_expect(n)})
+    expect_launches(f"{name}: the plain run (K4 off)", runs["plain"]["launches"],
+                    {"image_io": n, "block_epilogue": 0, "epilogue_plain": k4_expect(n)["block_epilogue"]})
     out_k, out_p = runs["kernels"]["dets"], runs["plain"]["dets"]
     for r in out_k:
         if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()) or \
                 r["boxes"].shape[1:] != (4,) or len(r["boxes"]) > cfg.TEST.DETECTIONS_PER_IMAGE:
             raise AssertionError(f"{name}: bad detections of shape {r['boxes'].shape}")
     plain_mcfg = mcfg.replace(stem_impl="plain", roi_align_impl="plain")
-    out_k2 = split_predictions(model, mcfg.replace(stem_impl="plain"), cfg, dicts)
+    with k4_off():
+        out_k2 = split_predictions(model, mcfg.replace(stem_impl="plain"), cfg, dicts)
     out_32 = split_predictions(model, plain_mcfg.replace(compute_dtype="float32"), cfg, dicts)
 
     def both(a, b):
@@ -3647,7 +3906,8 @@ def split_phase(name, seed, root, card):
 
     m_k2, m_all, m_32 = both(out_k2, out_p), both(out_k, out_p), both(out_p, out_32)
     gap_k = feature_gap(model, mcfg, plain_mcfg, batch["image"])
-    gap_32 = feature_gap(model, plain_mcfg, plain_mcfg.replace(compute_dtype="float32"), batch["image"])
+    gap_32 = feature_gap(model, plain_mcfg, plain_mcfg.replace(compute_dtype="float32"), batch["image"],
+                         plain=(True, True))
     task, metric = HEADLINE[name]
     ap_k, ap_p = runs["kernels"]["results"][task][metric], runs["plain"]["results"][task][metric]
     dets_k = float(np.mean([len(r["scores"]) for r in out_k]))
@@ -3734,7 +3994,8 @@ def voc_train_phase(root, card, steps=4, seed=45):
     trainer.register_hooks(watch.hooks())
     trainer.train()
     wall = time.time() - t
-    one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1}
+    one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
+           **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT)}
     stats = train_run_stats(label, watch, launch_counts(), one, steps, 0)
     held = held_batch_checks(watch, label, stem=True)
     stats.update(held_batch=held, wall_s=wall, per_step=watch.per_step, card=card)
@@ -3926,7 +4187,8 @@ def crop_train_run(codec, root, dicts, val):
     zero_launch_counts()
     flir.train_flir("thermal_only", root, os.path.join(root, "out_crop"), max_iter=CROP_STEPS,
                     eval_every=1000, cfg=cfg, hooks=[CallbackHook(before_train=wrap)] + watch.hooks())
-    one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1}
+    one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
+           **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT)}
     stats = train_run_stats(label, watch, launch_counts(), one, CROP_STEPS,
                             eval_runs(0, CROP_STEPS, 1000) * len(val))
     if tuple(watch.held["image"].shape[1:3]) != CROP_PAD:
@@ -4065,7 +4327,7 @@ def draw_check(root, weights, n_val):
         "thermal_only", root, weights, out, max_images=DRAW_IMAGES, cfg=cfg))
     wall = time.time() - t
     n = min(DRAW_IMAGES, n_val)
-    expect = {"stem_pool": n, "roi_align_fwd": n, "roi_align_bwd": 0, "image_io": 2 * n}
+    expect = {"stem_pool": n, "roi_align_fwd": n, "roi_align_bwd": 0, "image_io": 2 * n, **k4_expect(n)}
     expect_launches("apps/flir.py draw", launches, expect)
     import importlib
 
@@ -4210,6 +4472,8 @@ def plain_train_run(root, register, card):
             launches["image_io"] != loader.batches_mapped or loader.batches_mapped < PLAIN_STEPS:
         raise AssertionError(f"{label}: launches {launches} over {PLAIN_STEPS} steps, "
                              f"{loader.batches_mapped} batches mapped")
+    check_k4(f"{label}, {PLAIN_STEPS} steps", launches, k4_expect(PLAIN_STEPS, cfg.MODEL.BACKBONE.FREEZE_AT))
+    per_step.update({k: launches[k] / PLAIN_STEPS for k in K4_COUNTED})
     with open(os.path.join(out, "metrics.json")) as f:
         lines = [json.loads(line) for line in f if line.strip()]
     losses = {k: v for k, v in lines[-1].items() if k.startswith("loss") or k == "total_loss"} if lines else {}
@@ -4252,7 +4516,7 @@ def benchmark_runs(yaml_path, card):
     """``apps/benchmark.py`` for each of ``BENCH_RUNS`` from the shipped
     FLIR YAML, every launch counter set to 0 just before each and read just
     after: eval launches K1 and K2 once per call, train K1-K3 once per step
-    (a synthetic batch: no ``image_io``), data ``image_io`` once per batch
+    (a synthetic batch: no ``image_io``), K4 as ``k4_expect`` (FREEZE_AT 2), data ``image_io`` once per batch
     its loader mapped, from ``smoke_tools_train`` as registered in this
     process; each prints the JAX tool's line, whose img/s is kept beside
     the card."""
@@ -4285,7 +4549,9 @@ def benchmark_runs(yaml_path, card):
                 raise AssertionError(f"benchmark data: batch {tuple(result['image'].shape)}")
         else:
             per_call = {k: v / calls for k, v in launches.items()}
-            ok = per_call == expect[task]
+            ok = {k: per_call[k] for k in COUNTED} == expect[task]
+            check_k4(f"benchmark {task}, {calls} calls", launches,
+                     k4_expect(calls, 2 if task == "train" else None))
             finite = torch.isfinite(result.scores).all() if task == "eval" else all(
                 np.isfinite(float(v)) for v in result.values())
             if not finite:
@@ -4487,13 +4753,14 @@ def export_phase(model, images, sizes):
         t = time.time()
         loaded = load_exported(root)
         stats["load_s"] = time.time() - t
-    for op in ("proben.stem_pool.default", "proben.roi_align_fwd.default"):
-        if nodes.get(op) != 1:
+    for op, want in (("proben.stem_pool.default", 1), ("proben.roi_align_fwd.default", 1),
+                     ("proben.block_epilogue.default", 3 * sum(R101_BLOCKS))):
+        if nodes.get(op) != want:
             raise AssertionError(f"exported graph: {op} appears {nodes.get(op, 0)} times ({nodes})")
     with torch.no_grad():
         got, launches = counted(lambda: loaded(images[0], sizes))
         want = rcnn.rcnn_inference(model, cfg, images[0], sizes)
-    expect_launches("exported inference", launches, {"stem_pool": 1, "roi_align_fwd": 1})
+    expect_launches("exported inference", launches, {"stem_pool": 1, "roi_align_fwd": 1, **k4_expect()})
     diffs = {}
     for f in dataclasses.fields(want):
         a, b = getattr(got, f.name), getattr(want, f.name)
@@ -4531,7 +4798,8 @@ def export_phase(model, images, sizes):
         f"detections equal eager's bit for bit ({n_dets} valid); img/s exported "
         f"{img_s['exported']:.2f} / eager {img_s['eager']:.2f} (turns {[round(v, 2) for _, v in turns]})")
     del loaded
-    return dict(stats, graph_nodes=nodes, launches={k: launches[k] for k in ("stem_pool", "roi_align_fwd")},
+    return dict(stats, graph_nodes=nodes,
+                launches={k: launches[k] for k in ("stem_pool", "roi_align_fwd") + K4_COUNTED},
                 equal=True, detections=n_dets, img_s_exported=img_s["exported"], img_s_eager=img_s["eager"],
                 turns=turns, seconds=time.time() - t0)
 
@@ -4586,7 +4854,7 @@ def ddp_train(cfg, hooks=()):
         ms.append((time.perf_counter() - clock["t"]) * 1e3)
         now = launch_counts()
         launches.append({k: now[k] - clock["counts"][k] for k in ("stem_pool", "roi_align_fwd",
-                                                                   "roi_align_bwd")})
+                                                                   "roi_align_bwd") + K4_COUNTED})
         steps.append({k: float(v) for k, v in t._last_metrics.items()})
 
     trainer.register_hooks([CallbackHook(before_train=start, before_step=before, after_step=after),
@@ -4689,9 +4957,14 @@ def ddp_compare(ranks, one, dtype, label):
         raise AssertionError(f"{label}: the ranks' rows {[r['rows'] for r in ranks]}")
     # K1 takes bf16 only: the float32 witness runs the plain stem
     per_step = {"stem_pool": int(dtype == "bfloat16"), "roi_align_fwd": 1, "roi_align_bwd": 1}
+    k4 = k4_expect(1, 2, float32=dtype == "float32")  # FREEZE_AT 2
     for r in ranks + [one]:
-        if len(r["launches"]) != DDP_STEPS or any(c != per_step for c in r["launches"]):
+        if len(r["launches"]) != DDP_STEPS or any({k: c[k] for k in per_step} != per_step
+                                                  for c in r["launches"]):
             raise AssertionError(f"{label}: launches per step {r['launches']}, expected {per_step}")
+        for i, c in enumerate(r["launches"]):
+            who = "one process" if r is one else f"rank {r['rank']}"
+            check_k4(f"{label}, {who}, step {i + 1}", c, k4)
         if r["io"]["image_io"] != r["io"]["batches_mapped"] or r["io"]["batches_mapped"] < DDP_STEPS:
             raise AssertionError(f"{label}: image_io launches {r['io']} (one per batch mapped)")
     if ranks[0]["steps"] != ranks[1]["steps"] or ranks[0]["digest"] != ranks[1]["digest"]:
@@ -4723,7 +4996,7 @@ def ddp_compare(ranks, one, dtype, label):
         raise AssertionError(f"{label}: the ranks' run differs from the one process's beyond the tolerance: "
                              f"losses {loss_gaps}, update {update_gap}")
     return dict(loss_gap_rel=loss_gaps, loss_gap_own=own_gaps, update_gap=update_gap, param_gap=param_gap,
-                worst_param=ranks[0]["worst"], launches_per_step={**per_step, "image_io": 1},
+                worst_param=ranks[0]["worst"], launches_per_step={**per_step, "image_io": 1, **k4},
                 losses=[s["total_loss"] for s in ranks[0]["steps"]], step_metrics=ranks[0]["steps"],
                 image_io=[r["io"] for r in ranks], ms_per_step=[float(np.median(r["ms"][1:])) for r in ranks],
                 peak_gb=[r["peak_gb"] for r in ranks])
@@ -4904,7 +5177,7 @@ def main() -> int:
     from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
 
     tb = time.time()
-    _build.build(["stem", "roi_align_fwd", "roi_align_bwd", "image_io"])
+    _build.build(["stem", "roi_align_fwd", "roi_align_bwd", "block_epilogue", "image_io"])
     log(f"build: {time.time() - tb:.1f} s")
     if "--kaist-divergence" in sys.argv[1:]:
         kaist_divergence_probe(card)
@@ -4912,6 +5185,9 @@ def main() -> int:
     if "--ddp-float32" in sys.argv[1:]:
         ddp_stats, zoo_stats = ddp_zoo_phases(card, "float32")
         print(json.dumps({"ddp_float32": ddp_stats, "zoo": zoo_stats}), flush=True)
+        if K4_MISSES:
+            print(json.dumps({"k4_misses": K4_MISSES}), flush=True)
+            raise AssertionError(f"K4's counts missed k4_expect on {[m['path'] for m in K4_MISSES]}")
         return 0
 
     cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
@@ -4928,7 +5204,8 @@ def main() -> int:
     profiling = "--profile" in sys.argv[1:]
     once = {"stem_pool": 1, "roi_align_fwd": 1}
     k1 = stem_phase(model)
-    launches, slice_stats = slice_phase(model, images, sizes, once)
+    k4 = epilogue_phase(BATCH * cfg.rpn.post_nms_topk_test)  # C4's res5 on every proposal
+    launches, slice_stats = slice_phase(model, images, sizes, {**once, **k4_expect()})
     k2 = roi_phase(model, images[0], sizes)  # the calibrated model's proposals
     export_stats = export_phase(model, images, sizes)
     if profiling:
@@ -4936,7 +5213,8 @@ def main() -> int:
     # training reuses the calibrated model and updates it in place
     batch = train_batch()
     k3 = bwd_phase(model, batch)
-    train_launches, train_stats = train_phase(model, batch, {**once, "roi_align_bwd": 1})
+    train_launches, train_stats = train_phase(model, batch, {**once, "roi_align_bwd": 1,
+                                                             **k4_expect(1, cfg.freeze_at)})
     if profiling:
         train_profile(model, batch)
     del model, batch
@@ -4947,7 +5225,7 @@ def main() -> int:
                           freeze_at=3)
     model = build_model(ef_cfg, params=random_affines(init_rcnn(4, ef_cfg), 4))
     ef_images = [torch.from_numpy(fused(a, 4)).cuda() for a in base]
-    ef_launches, ef_stats = slice_phase(model, ef_images, sizes, once, hi=32.0)
+    ef_launches, ef_stats = slice_phase(model, ef_images, sizes, {**once, **k4_expect()}, hi=32.0)
     del model, ef_images
 
     # middle fusion: BGRTTT, two R101-FPNs (configs/FLIR-Detection/
@@ -4958,13 +5236,14 @@ def main() -> int:
     model = build_model(mf_cfg, params=random_affines(init_rcnn(1, mf_cfg), 1))
     mf_images = [torch.from_numpy(np.ascontiguousarray(fused(a, 6))).cuda() for a in base]
     twice = {"stem_pool": 2, "roi_align_fwd": 1}
-    mf_launches, mf_stats = slice_phase(model, mf_images, sizes, twice, hi=32.0)
+    mf_launches, mf_stats = slice_phase(model, mf_images, sizes, {**twice, **k4_expect(2)}, hi=32.0)
     k2_512 = roi_phase(model, mf_images[0], sizes)
     if profiling:
         profile_phase(Predictor(model, mf_cfg), mf_images, sizes)
     batch = train_batch(6)
     k3_512 = bwd_phase(model, batch)
-    mf_train_launches, mf_train_stats = train_phase(model, batch, {**twice, "roi_align_bwd": 1})
+    mf_train_launches, mf_train_stats = train_phase(model, batch, {**twice, "roi_align_bwd": 1,
+                                                                   **k4_expect(2, mf_cfg.freeze_at)})
     if profiling:
         train_profile(model, batch)
     del model, batch, mf_images
@@ -5015,9 +5294,10 @@ def main() -> int:
              **{f"{name} ({tools_stats[name]['images']} images)": {
                  k: v for k, v in tools_stats[name]["launches"].items() if v}
                 for name in ("visualize_data", "visualize_json_results")}}
-    for d in (k1, k2, k3):
+    for d in (k1, k2, k3, k4):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
+    k4["plain_epilogues_per_path"] = {p: n["epilogue_plain"] for p, n in paths.items() if "epilogue_plain" in n}
     reading_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "max_abs_err_f32", "gflop",
                     "mbytes", "alloc_mb", "rois", "out_of_window")
     for d, wide, c4, cas in ((k2, k2_512, heads_k["k2_c4"], heads_k["k2_cascade"]),
@@ -5035,6 +5315,10 @@ def main() -> int:
                           "bound_by": d["bound_by"], "gflop": d["gflop"], "mbytes": d["mbytes"],
                           "launches": d["launches"], "max_abs_err": d["max_abs_err"],
                           **{k: d[k] for k in ("deterministic", "alloc_mb", "c512") if k in d}}))
+    print(json.dumps({"kernel": k4["name"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
+                      "library_ms": None, "bound_ms": k4["bound_ms"], "bound_by": "bytes", "gflop": 0.0,
+                      "mbytes": k4["mbytes"], "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
+                      **{k: k4[k] for k in ("deterministic", "backward", "sum_err_ulp", "c4_res5")}}))
     print(json.dumps({"slice": {**slice_stats, "card": card}}))
     print(json.dumps({"train": {**train_stats, "launches_per_step": train_launches, "card": card}}))
     print(json.dumps({"early_fusion": {**ef_stats, "launches_per_batch": ef_launches, "card": card}}))
@@ -5065,8 +5349,13 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: d[k] for k in keys + ("deterministic", "launches_per_path", "c512",
                                                              "p14_c1024", "cascade_stage2",
                                                              "c4", "c6", "train_flips", "png_cityscapes",
-                                                             "train_crop")
-                                   if k in d} for d in (k1, k2, k3, k_io)]}), flush=True)
+                                                             "train_crop", "backward", "sum_err_ulp",
+                                                             "per_case", "c4_res5", "plain_epilogues_per_path")
+                                   if k in d} for d in (k1, k2, k3, k4, k_io)]}), flush=True)
+    if K4_MISSES:
+        print(json.dumps({"k4_misses": K4_MISSES}), flush=True)
+        raise AssertionError(f"K4's counts missed k4_expect on {len(K4_MISSES)} paths: "
+                             f"{[m['path'] for m in K4_MISSES]}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

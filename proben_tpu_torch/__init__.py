@@ -21,6 +21,7 @@ at first use (``_build.py``):
   * ``csrc/roi_align_fwd.cu``   windowed multi-level RoIAlignV2 forward
   * ``csrc/roi_align_bwd.cu``   its backward with respect to the feature maps
   * ``csrc/image_io.cu``        nvJPEG decode and the compose + resize + pad kernel
+  * ``csrc/block_epilogue.cu``  a bottleneck conv's affine + residual + ReLU, and its backward
 
 Entry points (``models.build_model``, ``engine.Predictor``, the data mapper
 and the apps) default to ``device="cuda"`` and raise when no GPU is

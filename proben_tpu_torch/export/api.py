@@ -4,11 +4,11 @@ serializes a StableHLO program with ``jax.export``): the artifact is a
 without the model-building Python code.
 
 The detector's hand-written kernels are custom ops (``proben::stem_pool``,
-``proben::roi_align_fwd``) and NMS's fixpoint is one (``proben::
-nms_fixpoint``), so the exported graph holds them as nodes: the loaded
-program launches K1 and K2 on the card and runs their plain versions on the
-CPU. Importing this module registers those ops, which ``load_exported``
-needs. The exported function is the model on a padded batch
+``proben::roi_align_fwd``, ``proben::block_epilogue``) and NMS's fixpoint is
+one (``proben::nms_fixpoint``), so the exported graph holds them as nodes:
+the loaded program launches K1, K2 and K4 on the card and runs their plain
+versions on the CPU. Importing this module registers those ops, which
+``load_exported`` needs. The exported function is the model on a padded batch
 (``rcnn_inference``); the host-side resize of ``Predictor`` and the
 ``image_io`` decode stay outside it.
 """
@@ -21,7 +21,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from ..ops import nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
+from ..ops import epilogue_cuda, nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
 from ..structures.detections import Detections
 
 ARTIFACT = "model.pt2"

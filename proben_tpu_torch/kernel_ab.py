@@ -3,6 +3,7 @@
     python -m proben_tpu_torch.kernel_ab image_io TREE [TREE ...]
     python -m proben_tpu_torch.kernel_ab roi_align TREE [TREE ...]
     python -m proben_tpu_torch.kernel_ab slice TREE [TREE ...]
+    python -m proben_tpu_torch.kernel_ab epilogue TREE [TREE ...]
     python -m proben_tpu_torch.kernel_ab sass TREE_A TREE_B SOURCE KERNEL_A KERNEL_B
 
 Each TREE is the root of a checkout (``.`` for this one).
@@ -23,10 +24,24 @@ where the tree's kernels are ``torch.library`` ops, through the op's CUDA
 implementation called directly (the launch without the op's dispatch). ``slice`` times K1 through its wrapper at the BGR slice's shape (8
 800x1024 bf16 images, C = 3) and the slice's img/s: ``chip_smoke.py``'s
 calibrated R101-FPN (seed 0) through ``Predictor.infer``, 12 batches of 8
-between CUDA events, three readings. Each tree is timed in a process of its own, which builds that
+between CUDA events, three readings. ``epilogue`` times a bottleneck's
+conv epilogue (affine + ReLU on the width maps, affine + identity residual
++ ReLU and affine + shortcut affine + ReLU on the block outputs) at the four
+stage shapes of R101 on a batch of 16 800x1024 images, forward (no grad)
+and backward (``autograd.grad`` through the call), as the plain composition
+and, where the tree has it, through K4 (``ops/epilogue_cuda.py::
+block_epilogue``). Each case cycles through copies of its inputs that
+exceed the L2 cache three times, and its readings are device time: the
+kernels' durations in a profile of 20 calls (host dispatch outlasts the
+small cases' kernels, so CUDA events would time the host). With each case's
+bytes (forward 4 or 6 an element, backward 8, 10 or 12), its count per
+batch, the per-batch sums (the backward over res3-res5, which training at
+FREEZE_AT 2 runs) and the host us of one res4 call.
+
+Each tree is timed in a process of its own, which builds that
 checkout's kernels, in the order given (for example parent, change, change,
-parent). A run is three readings per case, each the median of 5 groups of
-10 back-to-back calls timed with CUDA events. Prints one line per tree and a
+parent). A run is three readings per case, each (``epilogue``'s aside) the
+median of 5 groups of 10 back-to-back calls timed with CUDA events. Prints one line per tree and a
 JSON object last. Each group's start event is queued behind one untimed
 call, so a call's host time (the op's dispatch included) overlaps the
 device work before it and the readings are device time while the host
@@ -183,7 +198,122 @@ out["slice img/s"] = rates
 print(json.dumps(out))
 """
 
-TIMINGS = {"image_io": _IMAGE_IO, "roi_align": _ROI_ALIGN, "slice": _SLICE}
+_EPILOGUE = _MS + r"""
+import math, time
+from pathlib import Path
+BF = torch.bfloat16
+k4 = (Path(sys.argv[1]) / "proben_tpu_torch" / "csrc" / "block_epilogue.cu").exists()
+if k4:
+    from proben_tpu_torch.ops import epilogue_cuda as ep
+    _build.build(["block_epilogue"])
+
+def plain(x, s, b, r=None, rs=None, rb=None):
+    # the epilogue as models/resnet.py ran it before K4 (layers.affine, +, torch.relu)
+    out = x * s.to(x.dtype).view(1, -1, 1, 1) + b.to(x.dtype).view(1, -1, 1, 1)
+    if r is not None:
+        if rs is not None:
+            r = r * rs.to(r.dtype).view(1, -1, 1, 1) + rb.to(r.dtype).view(1, -1, 1, 1)
+        out = out + r
+    return torch.relu(out)
+
+def device_ms(fn, n=20):
+    # the device time of one call: the kernels' durations in a profile of n
+    # calls (so host dispatch, which outlasts the small cases' kernels, is
+    # left out), ms
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / n / 1e3
+
+def host_us(fn, n=10):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t) / n * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+def amap(n, c, h, w):  # channels_last bf16
+    return torch.randn(n, h, w, c, generator=g, device="cuda").to(BF).permute(0, 3, 1, 2)
+
+def case(kind, n, c, h, w):
+    # copies whose inputs together exceed the 50 MB L2 three times, used in turn
+    maps = 1 if kind == "relu" else 2
+    copies = max(2, math.ceil(150e6 / (2 * n * c * h * w * maps)))
+    out = []
+    for _ in range(copies):
+        args = [amap(n, c, h, w), 1 + 0.1 * torch.randn(c, generator=g, device="cuda"),
+                0.1 * torch.randn(c, generator=g, device="cuda")]
+        if kind != "relu":
+            args.append(amap(n, c, h, w))
+        if kind == "shortcut":
+            args += [1 + 0.1 * torch.randn(c, generator=g, device="cuda"),
+                     0.1 * torch.randn(c, generator=g, device="cuda")]
+        out.append(args)
+    return out
+
+def cycle(items, fn):
+    state = {"i": 0}
+    def call():
+        item = items[state["i"] % len(items)]
+        state["i"] += 1
+        return fn(item)
+    return call
+
+# per stage of R101 on a batch of 16 800x1024 images: width, map size, blocks
+STAGES = (("res2", 64, 200, 256, 3), ("res3", 128, 100, 128, 4), ("res4", 256, 50, 64, 23),
+          ("res5", 512, 25, 32, 3))
+FWD_BYTES = {"relu": 4, "identity": 6, "shortcut": 6}
+BWD_BYTES = {"relu": 8, "identity": 10, "shortcut": 12}
+impls = {"plain": plain, **({"k4": ep.block_epilogue} if k4 else {})}
+out = {"fwd": {}, "bwd": {}, "host_us": {}, "per_batch_ms": {}}
+for stage, width, h, w, blocks in STAGES:
+    for kind, c, count in (("relu", width, 2 * blocks), ("identity", 4 * width, blocks - 1),
+                           ("shortcut", 4 * width, 1)):
+        name = f"{stage} {kind} C={c}"
+        items = case(kind, 16, c, h, w)
+        numel = 16 * c * h * w
+        rec_f = {"bytes": FWD_BYTES[kind] * numel, "count": count}
+        rec_b = {"bytes": BWD_BYTES[kind] * numel, "count": count}
+        for impl, fn in impls.items():
+            with torch.no_grad():
+                rec_f[impl] = [device_ms(cycle(items, lambda a: fn(*a))) for _ in range(3)]
+            graphs = []
+            for a in items:
+                leaves = [t.clone().requires_grad_() for t in a]
+                y = fn(*leaves)
+                graphs.append((y, leaves, torch.randn_like(y)))
+            grad = lambda gr: torch.autograd.grad(gr[0], gr[1], gr[2], retain_graph=True)
+            rec_b[impl] = [device_ms(cycle(graphs, grad)) for _ in range(3)]
+            del graphs
+            if stage == "res4":
+                with torch.no_grad():
+                    out["host_us"][f"{name} {impl}"] = host_us(cycle(items, lambda a: fn(*a)))
+        out["fwd"][name], out["bwd"][name] = rec_f, rec_b
+        del items
+        torch.cuda.empty_cache()
+for d, trained in (("fwd", STAGES), ("bwd", STAGES[1:])):  # training freezes res2 (FREEZE_AT 2)
+    stages = {s[0] for s in trained}
+    rows = [r for k, r in out[d].items() if k.split()[0] in stages]
+    out["per_batch_ms"][d] = {impl: sum(r["count"] * float(np.median(r[impl])) for r in rows)
+                              for impl in impls}
+    out["per_batch_ms"][d]["bound"] = sum(r["count"] * r["bytes"] for r in rows) / 3.35e12 * 1e3
+print(json.dumps(out))
+"""
+
+TIMINGS = {"image_io": _IMAGE_IO, "roi_align": _ROI_ALIGN, "slice": _SLICE, "epilogue": _EPILOGUE}
 
 
 def run_trees(trees, timing: str, key: str) -> int:

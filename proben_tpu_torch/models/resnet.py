@@ -6,7 +6,10 @@ input channels from the config (4 for BGRT early fusion).
 Feature maps are NCHW in channels_last memory. The stem runs kernel K1
 (``ops/stem_cuda.py``) when the compute dtype is bf16 and the shape passes
 its gate, as ``apply_resnet`` does with the Pallas stem; otherwise the plain
-composition. For training, ``freeze_at`` runs the frozen sections under
+composition. Each bottleneck ends its three convs in the fused epilogue
+``ops/epilogue_cuda.py::block_epilogue`` (affine, the residual, ReLU): kernel
+K4 for the card's bf16 channels_last maps, the same composition elsewhere.
+For training, ``freeze_at`` runs the frozen sections under
 ``torch.no_grad()`` (JAX: ``stop_gradient``) and ``freeze_mask`` names the
 parameters the optimizer leaves alone; ``remat`` recomputes each trainable
 residual block in the backward (``torch.utils.checkpoint``, JAX
@@ -24,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..ops.epilogue_cuda import block_epilogue
 from ..ops.stem_cuda import stem_pool, stem_supported
 from .layers import Affine, Conv, affine, conv2d, init_affine, init_conv
 
@@ -108,19 +112,19 @@ def init_resnet(rng: np.random.Generator, depth: int = 50, in_channels: int = 3)
 
 
 def _bottleneck(block: Bottleneck, x: torch.Tensor, stride: int, dtype=None) -> torch.Tensor:
-    """Caffe-style bottleneck: stride in conv1 (1x1)."""
+    """Caffe-style bottleneck: stride in conv1 (1x1); each conv's affine,
+    the residual add and the ReLUs in ``block_epilogue``."""
+    n1, n2, n3 = block.norm1, block.norm2, block.norm3
     out = conv2d(x, block.conv1.weight, None, stride, 0, dtype)
-    out = torch.relu(affine(out, block.norm1))
+    out = block_epilogue(out, n1.scale, n1.bias)
     out = conv2d(out, block.conv2.weight, None, 1, 1, dtype)
-    out = torch.relu(affine(out, block.norm2))
+    out = block_epilogue(out, n2.scale, n2.bias)
     out = conv2d(out, block.conv3.weight, None, 1, 0, dtype)
-    out = affine(out, block.norm3)
-    if block.shortcut is not None:
-        sc = conv2d(x, block.shortcut.weight, None, stride, 0, dtype)
-        sc = affine(sc, block.shortcut_norm)
-    else:
-        sc = x
-    return torch.relu(out + sc)
+    if block.shortcut is None:
+        return block_epilogue(out, n3.scale, n3.bias, x)
+    sc = conv2d(x, block.shortcut.weight, None, stride, 0, dtype)
+    return block_epilogue(out, n3.scale, n3.bias, sc, block.shortcut_norm.scale,
+                          block.shortcut_norm.bias)
 
 
 def apply_stem(stem: Stem, x: torch.Tensor, dtype=None, stem_impl: str = "kernel") -> torch.Tensor:

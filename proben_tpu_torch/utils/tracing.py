@@ -34,6 +34,8 @@ launch it made, an iteration of a loop whose exit it already read).
 |---|---|
 | ``k1.launches``, ``k2.launches`` | launches of K1 and K2 (never of their plain versions) |
 | ``k3.launches``, ``io.launches`` | launches of K3 and of ``image_io``'s compose kernel |
+| ``k4.launches`` | calls of K4, forward and backward (the backward's second kernel sums its partials) |
+| ``epilogue.plain`` | bottleneck epilogues on CUDA maps K4 does not take, run as the plain composition |
 | ``nms.calls``, ``nms.iters`` | NMS fixpoint calls and their iterations (one host read each) |
 | ``roi.oow`` | RoIs out of their pooling window: the fallback re-pools them |
 | ``roi.oow_over_capacity`` | of those, the ones past its per-image capacity: left windowed |

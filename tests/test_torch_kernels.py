@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from proben_tpu_torch.ops import roi_align as t_ra
-from proben_tpu_torch.ops import nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
+from proben_tpu_torch.ops import epilogue_cuda, nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
 from proben_tpu_torch.structures.boxes import pairwise_iou
 from proben_tpu_torch.utils import tracing
 
@@ -20,7 +20,7 @@ STRIDES = (4, 8, 16, 32)
 
 
 def launches(kernel: str) -> int:
-    """Launches of one kernel so far: ``k1``, ``k2``, ``k3`` or ``io``."""
+    """Launches of one kernel so far: ``k1``, ``k2``, ``k3``, ``k4`` or ``io``."""
     return tracing.counters().get(f"{kernel}.launches", 0)
 
 
@@ -512,6 +512,258 @@ def test_opcheck_on_cuda_tensors():
     suppress = (pairwise_iou(bx, bx) > 0.3) & torch.ones(4, 4, dtype=torch.bool, device="cuda").triu(1)
     torch.library.opcheck(torch.ops.proben.nms_fixpoint.default,
                           (suppress, torch.ones(4, dtype=torch.bool, device="cuda")))
+
+
+# ---------------------------------------------------------------------------
+# K4: the bottleneck epilogue, forward and backward
+# ---------------------------------------------------------------------------
+
+# the cells' stage maps (16 images on the 800x1024 canvas: width maps and
+# block outputs of res2..res5), then ragged rows, odd channel counts and the
+# C4 head's RoI maps
+EPILOGUE_SHAPES = [
+    (16, 64, 200, 256), (16, 256, 200, 256), (16, 128, 100, 128), (16, 512, 100, 128),
+    (16, 256, 50, 64), (16, 1024, 50, 64), (16, 512, 25, 32), (16, 2048, 25, 32),
+    (3, 72, 7, 11), (1, 8, 1, 1), (2, 24, 3, 5), (1, 1536, 9, 13), (40, 2048, 7, 7),
+]
+
+
+def _epilogue_case(shape, mode, seed=0, plant=True):
+    """CUDA bf16 channels_last maps and f32 parameters; ``plant``: NaN, +-inf
+    and -0.0 among the map values, a -0.0 scale and a NaN bias. ``mode`` 0:
+    no residual, 1: identity, 2: projection shortcut."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, c, h, w = shape
+
+    def amap():
+        t = (torch.randn(n, h, w, c, generator=gen, device="cuda") * 2).to(BF)
+        if plant:
+            flat = t.view(-1)
+            idx = torch.randint(0, flat.numel(), (4 + flat.numel() // 997,), generator=gen,
+                                device="cuda")
+            flat[idx] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0], dtype=BF,
+                                     device="cuda").repeat(len(idx) // 4 + 1)[:len(idx)]
+        return t.permute(0, 3, 1, 2)  # channels_last
+
+    def params():
+        s = torch.randn(c, generator=gen, device="cuda") * 1.5
+        b = torch.randn(c, generator=gen, device="cuda")
+        if plant:
+            s[0], b[min(1, c - 1)] = -0.0, float("nan")
+        return s, b
+
+    x = amap()
+    s, b = params()
+    if mode == 0:
+        return x, s, b, None, None, None
+    if mode == 1:
+        return x, s, b, amap(), None, None
+    return (x, s, b, amap()) + params()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_epilogue_kernel_is_the_plain_route_bitwise(shape):
+    """K4's forward keeps every rounding point of the composition it
+    replaces: its output equals the plain route's bit for bit (int16 views),
+    NaN payloads, infinities and signed zeros included, in all three
+    modes."""
+    _cuda()
+    for mode in range(3):
+        args = _epilogue_case(shape, mode, seed=mode)
+        assert epilogue_cuda.kernel_takes(*args)
+        before = launches("k4")
+        got = epilogue_cuda.block_epilogue(*args)
+        want = epilogue_cuda.block_epilogue_plain(*args)
+        torch.cuda.synchronize()
+        assert launches("k4") == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(_bits(got), _bits(want)), (shape, mode)
+
+
+def _sums_close(got, want, terms=None):
+    """Per-channel sums, each rounded to bf16: NaN where NaN, infinities
+    equal, and the rest within one bf16 ulp of the larger magnitude plus, for
+    the (N, C, H, W) addends ``terms``, the f32 rounding two summation orders
+    of them can differ by: each order a chain of under 512 additions (K4's:
+    a thread's rows, the CTA's rows of threads, a group of partials, the
+    groups), so at most 2^-14 of the channel's sum of |terms|. That term
+    matters only where a channel's sum cancels to far below its addends."""
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    keep = ~(nan | inf)
+    g, w = got[keep], want[keep]
+    tol = torch.ldexp(torch.ones_like(w), torch.frexp(torch.maximum(g.abs(), w.abs())).exponent - 8)
+    if terms is not None:
+        tol = tol + 2.0 ** -14 * terms.float().abs().sum((0, 2, 3))[keep]
+    assert bool(((g - w).abs() <= tol).all()), float((g - w).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_epilogue_backward_kernel_matches_plain(shape):
+    """K4's backward: the map gradients (the conv output's, the identity
+    residual's, the shortcut conv output's) equal the plain backward's bit
+    for bit; the parameter gradients (f32 sums in another order, rounded to
+    bf16) lie within one bf16 ulp of it (``_sums_close``: more only where a
+    channel's sum cancels) and are identical from run to run.
+    Finite inputs, then the planted non-finite values and signed zeros."""
+    _cuda()
+    for mode, plant in [(m, p) for p in (False, True) for m in range(3)]:
+        x, s, b, r, rs, rb = _epilogue_case(shape, mode, seed=10 + mode, plant=plant)
+        y = epilogue_cuda.block_epilogue(x, s, b, r, rs, rb)
+        g = _epilogue_case(shape, 0, seed=20 + mode, plant=plant)[0]
+        shortcut = r if mode == 2 else None
+        before = launches("k4")
+        got = torch.ops.proben.block_epilogue_bwd(g, y, x, s, shortcut, rs, mode > 0)
+        again = torch.ops.proben.block_epilogue_bwd(g, y, x, s, shortcut, rs, mode > 0)
+        want = epilogue_cuda.block_epilogue_bwd_plain(g, y, x, s, shortcut, rs, mode > 0)
+        torch.cuda.synchronize()
+        assert launches("k4") == before + 2
+        assert len(got) == len(want) == (3, 4, 6)[mode]
+        gm = torch.ops.aten.threshold_backward(g, y, 0)
+        terms = {1: gm * x, 2: gm, 4: gm * r if mode == 2 else None, 5: gm}
+        for i, (a, a2, w) in enumerate(zip(got, again, want)):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            assert torch.equal(_bits(a), _bits(a2)), (shape, mode, i)
+            if i in terms:
+                _sums_close(a, w, terms[i])
+            else:  # the maps' gradients
+                assert torch.equal(_bits(a), _bits(w)), (shape, mode, i)
+
+
+@pytest.mark.cuda
+def test_epilogue_gate_on_the_card():
+    """NCHW-contiguous and f32 CUDA maps take the plain composition (counted
+    as ``epilogue.plain``, no K4 launch) and give its values; autograd
+    through ``block_epilogue`` on the card (``_K4``) equals autograd through
+    the composition (maps bitwise, parameters within one bf16 ulp) and, bit
+    for bit, autograd through the op's own registered backward."""
+    _cuda()
+    x, s, b, r, rs, rb = _epilogue_case((2, 64, 12, 20), 2)
+    for xx, rr in ((x.contiguous(), r.contiguous()), (x.float(), r.float())):
+        assert not epilogue_cuda.kernel_takes(xx, s, b, rr, rs, rb)
+        before = (launches("k4"), tracing.counters().get("epilogue.plain", 0))
+        got = epilogue_cuda.block_epilogue(xx, s, b, rr, rs, rb)
+        want = epilogue_cuda.block_epilogue_plain(xx, s, b, rr, rs, rb)
+        assert torch.equal(_bits(got), _bits(want))
+        assert (launches("k4"), tracing.counters().get("epilogue.plain", 0)) == (
+            before[0], before[1] + 1)
+    x, s, b, r, rs, rb = _epilogue_case((2, 64, 12, 20), 2, plant=False)
+    go = torch.randn(x.shape, device="cuda").to(BF).contiguous(memory_format=torch.channels_last)
+    grads = {}
+    for name, fn in (("k4", epilogue_cuda.block_epilogue), ("op", torch.ops.proben.block_epilogue),
+                     ("plain", epilogue_cuda.block_epilogue_plain)):
+        leaves = [t.clone().requires_grad_() for t in (x, s, b, r, rs, rb)]
+        grads[name] = torch.autograd.grad(fn(*leaves), leaves, go)
+    for i, (a, o, w) in enumerate(zip(grads["k4"], grads["op"], grads["plain"])):
+        assert torch.equal(_bits(a), _bits(o)), i
+        if i in (0, 3):
+            assert torch.equal(_bits(a), _bits(w)), i
+        else:
+            _sums_close(a, w)
+
+
+@pytest.mark.cuda
+def test_epilogue_export_records_the_op_with_grad_on():
+    """``torch.export`` traces fake tensors with grad on, here with
+    parameters that require grad: the trace records the op (its fake), not
+    ``_K4``, whose launch cannot run on fake tensors; the loaded program
+    launches K4 and equals eager bit for bit."""
+    _cuda()
+    x, s, b, r, rs, rb = _epilogue_case((2, 64, 12, 20), 2, plant=False)
+
+    class Epilogue(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.s, self.b, self.rs, self.rb = (torch.nn.Parameter(t.clone()) for t in (s, b, rs, rb))
+
+        def forward(self, x, r):
+            return epilogue_cuda.block_epilogue(x, self.s, self.b, r, self.rs, self.rb)
+
+    module = Epilogue()
+    assert torch.is_grad_enabled() and module.s.requires_grad
+    program = torch.export.export(module, (x, r))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets.count("proben.block_epilogue.default") == 1, targets
+    before = launches("k4")
+    with torch.no_grad():
+        got = program.module()(x, r)
+        want = module(x, r)
+    torch.cuda.synchronize()
+    assert launches("k4") == before + 2
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_exported_bottleneck_launches_k4():
+    """An exported bottleneck, its convolutions included (a trace's fake
+    convolution output is NCHW-contiguous where cuDNN's is channels_last),
+    holds three ``proben.block_epilogue`` nodes; the loaded program launches
+    K4 three times, runs no plain epilogue and equals eager bit for bit."""
+    _cuda()
+    from proben_tpu_torch.models import resnet
+
+    torch.manual_seed(0)
+    block = resnet.Bottleneck(64, 32, 128, True)
+    for p in block.parameters():
+        p.data = (torch.randn(p.shape) * 0.3 + (1.0 if p.dim() == 1 else 0.0)).cuda().contiguous(
+            memory_format=torch.channels_last if p.dim() == 4 else torch.contiguous_format)
+    x = torch.randn(2, 64, 12, 20, device="cuda").to(BF).contiguous(memory_format=torch.channels_last)
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block = block
+
+        def forward(self, x):
+            return resnet._bottleneck(self.block, x, 2, BF)
+
+    with torch.no_grad():
+        program = torch.export.export(Block(), (x,))
+        targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+        assert targets.count("proben.block_epilogue.default") == 3, targets
+        before = (launches("k4"), tracing.counters().get("epilogue.plain", 0))
+        got = program.module()(x)
+        torch.cuda.synchronize()
+        assert (launches("k4") - before[0], tracing.counters().get("epilogue.plain", 0) - before[1]) == (3, 0)
+        want = resnet._bottleneck(block, x, 2, BF)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_predict_batch_with_k4_equals_the_plain_route(monkeypatch):
+    """A seeded bf16 R50-FPN batch through ``Predictor.predict_batch`` gives
+    the same detections bit for bit with K4 (3 launches a block, no plain
+    epilogue) and with K4 turned off inside this test (every epilogue the
+    plain composition), in one process."""
+    _cuda()
+    from proben_tpu_torch.engine import Predictor
+    from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
+
+    cfg = build_config(depth=50, compute_dtype="bfloat16")
+    model = build_model(cfg, params=random_affines(init_rcnn(0, cfg), 0))
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy((rng.rand(4, 320, 416, 3) * 255).astype(np.float32)).cuda()
+    sizes = torch.tensor([[320, 416], [300, 400], [320, 380], [256, 416]], dtype=torch.int32)
+    batch = {"image": images, "image_size": sizes, "orig_size": sizes, "image_id": list(range(4))}
+    pred = Predictor(model, cfg)
+    outs, counts = [], []
+    for off in (False, True):
+        if off:
+            monkeypatch.setattr(epilogue_cuda, "kernel_takes", lambda *a: False)
+        before = (launches("k4"), tracing.counters().get("epilogue.plain", 0))
+        outs.append(pred.predict_batch(batch))
+        torch.cuda.synchronize()
+        counts.append((launches("k4") - before[0],
+                       tracing.counters().get("epilogue.plain", 0) - before[1]))
+    assert counts == [(48, 0), (0, 48)]  # R50: 16 blocks x 3 epilogues
+    assert sum(len(o["boxes"]) for o in outs[0]) > 0
+    for a, b in zip(*outs):
+        for key in ("boxes", "scores", "classes"):
+            assert np.array_equal(a[key], b[key]), key
 
 
 # ---------------------------------------------------------------------------
