@@ -33,30 +33,28 @@ def _dets(items):
 def readings(workload: str, seeds, device, faults: int, root: Path = ROOT, dump: Path = None) -> None:
     """Per seed: the program's numbers as a run would judge them; on the
     first ``faults`` seeds also the control's and each planted fault's."""
-    from harness import cells, frames, judge, program
+    from harness import cells, frames, judge
 
     cell = cells.Cell(root, workload)
-    tf, conf = cell.traffic, cell.conf
-    cfg = program.read_config(str(cell.config_file.parent), conf)
-    channels = 6 if cell.ref_cfg.dual else 3
+    arch, tf, conf = cell.arch, cell.traffic, cell.conf
+    pcfg = arch.read_config(str(cell.config_file.parent), conf)
     for n_seed, seed in enumerate(seeds):
         t = time.perf_counter()
         more = n_seed < faults
         if tf["loop"] == "predict_batch":
-            pool = frames.inference_pool(seed, tf, conf["input"], channels, device)
-            sd = cells.make_weights(cell, seed, pool[0], device)
-            model, mcfg = program.build(cfg, sd, device)
-            pred = program.predictor(model, mcfg, device)
+            pool = frames.inference_pool(seed, tf, conf["input"], cell.channels, device)
+            state = cells.make_weights(cell, seed, pool[0], device)
+            pred = arch.predictor(pcfg, state, device)
             served = [pred.predict_batch(b) for b in pool]
-            del pred, model
+            del pred
             cells.free(device)
             picks = cells.pick_images(seed, served, tf["check_images"])
             imgs = [pool[b]["image"][r] for b, r in picks]
             got = [served[b][r] for b, r in picks]
-            want = cells.reference_detections(cell, sd, imgs, device)
+            want = arch.reference_detections(conf, state, imgs, device)
             emit(kind="program", workload=workload, seed=seed, **judge.detection_numbers(got, want))
             if more:
-                ctrl = cells.reference_detections(cell, sd, imgs, device, precision="fp8")
+                ctrl = arch.reference_detections(conf, state, imgs, device, precision="fp8")
                 emit(kind="control_fp8", workload=workload, seed=seed, **judge.detection_numbers(ctrl, want))
             if dump is not None:
                 dump.mkdir(parents=True, exist_ok=True)
@@ -69,11 +67,10 @@ def readings(workload: str, seeds, device, faults: int, root: Path = ROOT, dump:
                 emit(kind="fault_answer_altered", workload=workload, seed=seed,
                      **judge.detection_numbers(swapped, want))
         else:
-            pool = frames.training_pool(seed, tf, conf["input"], channels, device)
-            sd = cells.make_weights(cell, seed, pool[0], device)
-            model, mcfg = program.build(cfg, sd, device)
-            trainer = program.Trainer(cfg, model, mcfg, seed)
-            batches = [program.train_batch(b) for b in pool]
+            pool = frames.training_pool(seed, tf, conf["input"], cell.channels, device)
+            state = cells.make_weights(cell, seed, pool[0], device)
+            trainer = arch.trainer(pcfg, state, seed, device)
+            batches = [trainer.batch(b) for b in pool]
             before = {n: p.detach().clone() for n, p in trainer.params().items()}
             prog = {"losses": []}
             for i in range(tf["checked_steps"]):
@@ -82,20 +79,20 @@ def readings(workload: str, seeds, device, faults: int, root: Path = ROOT, dump:
                 if i == 0:
                     prog["grad"] = cells.norms(trainer.momentum())
             prog["update"] = cells.norms({n: p.detach() - before[n] for n, p in trainer.params().items()})
-            del trainer, model, batches, before
+            del trainer, batches, before
             cells.free(device)
-            want = cells.reference_steps(cell, sd, pool, seed, tf["checked_steps"], device)
+            want = arch.reference_steps(conf, state, pool, seed, tf["checked_steps"], device)
             emit(kind="program", workload=workload, seed=seed,
                  losses=[x["total_loss"] for x in prog["losses"]],
                  ref_losses=[x["total_loss"] for x in want["losses"]], **judge.training_numbers(prog, want))
             if more:
-                ctrl = cells.reference_steps(cell, sd, pool, seed, tf["checked_steps"], device, precision="fp8")
+                ctrl = arch.reference_steps(conf, state, pool, seed, tf["checked_steps"], device, precision="fp8")
                 emit(kind="control_fp8", workload=workload, seed=seed, **judge.training_numbers(ctrl, want))
-                half = cells.reference_steps(cell, sd, pool, seed, tf["checked_steps"], device,
-                                             batch_filter=lambda n: list(range(n // 2)))
+                half = arch.reference_steps(conf, state, pool, seed, tf["checked_steps"], device,
+                                            batch_filter=lambda n: list(range(n // 2)))
                 emit(kind="fault_half_batch", workload=workload, seed=seed, **judge.training_numbers(half, want))
         emit(kind="seconds", workload=workload, seed=seed, seconds=time.perf_counter() - t)
-        del sd
+        del state
         cells.free(device)
 
 

@@ -1,7 +1,10 @@
 """One run of one cell: set-up, the measured window, the traced iterations
-(``--trace 1``) and the check against the reference, for the two loops a
-traffic file can name: ``predict_batch`` (inference, closed loop, one
-caller) and ``train_step`` (training)."""
+(``--trace 1``) and the check against the reference. A cell's
+configuration names its architecture (``arch/<name>.py``, by default
+``faster_rcnn_fpn``), through which alone the loops reach the program and
+the reference. A traffic file's loop is one of the two here,
+``predict_batch`` (inference, closed loop, one caller) and ``train_step``
+(training), or else ``loops/<loop>.py``."""
 
 from __future__ import annotations
 
@@ -16,14 +19,15 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional
 
-import numpy as np
 import torch
 
-from . import counts, frames, judge, weights
-from .trace import OpArgs, Trace, profile
-from reference import model as ref
+from proben_tpu_torch.utils import tracing
 
-CHECK_CHUNK = 4  # images per reference call
+from . import counts, frames, judge
+from .spans import Spans
+from .trace import OpArgs, Trace, profile
+
+DEFAULT_ARCH = "faster_rcnn_fpn"
 
 
 def log(msg: str) -> None:
@@ -47,7 +51,8 @@ class Cell:
         self.bench_dir = self.root / self.bench["paths"][0]
         self.traffic = json.loads((self.bench_dir / "traffic" / f"{self.workload['traffic']}.json").read_text())
         self.limits = json.loads((self.bench_dir / "limits" / f"{workload}.json").read_text())["limits"]
-        self.ref_cfg = ref.Config(self.conf["model"], self.conf["solver"])
+        self.arch = load_module(self.bench_dir / "arch" / f"{self.conf.get('arch', DEFAULT_ARCH)}.py")
+        self.channels = self.arch.channels(self.conf)
 
     def metrics_of(self, kind: str) -> List[Mapping]:
         """The end-to-end or per-layer entries this cell reports."""
@@ -55,21 +60,36 @@ class Cell:
         return [m for m in self.bench[kind] if name in m.get("workloads", [name])]
 
     def reader(self, metric: str) -> Callable:
-        path = self.bench_dir / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(f"port_bench_metric_{len(sys.modules)}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load_module(self.bench_dir / "metrics" / f"{metric}.py").read
+
+    def loop(self) -> Callable:
+        """The traffic's loop: one of ``LOOPS``, or ``run`` of its file."""
+        name = self.traffic["loop"]
+        return LOOPS[name] if name in LOOPS else load_module(self.bench_dir / "loops" / f"{name}.py").run
+
+
+def load_module(path: Path):
+    """A file of the benchmark's (an architecture, a loop, a metric) as a
+    module of its own."""
+    if not path.is_file():
+        raise FileNotFoundError(f"port_bench: no {path}")
+    name = f"port_bench_{path.parent.name}_{path.stem.replace('.', '_')}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Layers:
-    """What the per-layer readers read: the traced iterations' trace, each
-    custom op call's least time and device time, the window's rate and the
-    model FLOPs of one image."""
+    """What the per-layer readers read: the first traced pass's trace, the
+    program's spans in it (``harness/spans.py``) and its counters'
+    increase per traced iteration, each custom op call's least time and
+    device time, the window's rate and the model FLOPs of one image."""
 
-    def __init__(self, kind: str, trace: Trace, iters: int, op_calls: List, img_s: float,
-                 flops_per_image: float):
-        self.kind, self.trace, self.iters = kind, trace, iters
+    def __init__(self, kind: str, trace: Trace, spans: Spans, counters: Dict[str, float], iters: int,
+                 op_calls: List, img_s: float, flops_per_image: float):
+        self.kind, self.trace, self.spans, self.counters, self.iters = kind, trace, spans, counters, iters
         self.op_calls, self.img_s, self.flops_per_image = op_calls, img_s, flops_per_image
 
     def roofline_pct(self, op: str) -> Optional[float]:
@@ -78,23 +98,45 @@ class Layers:
         return 100.0 * least / spent if spent > 0 and least > 0 else None
 
 
-def traced(cell: Cell, kind: str, step: Callable, img_s: float, flops: float, ops) -> Dict:
-    """The per-layer metrics and the breakdown from the traced iterations;
-    ``ops``: the program's custom ops whose calls are timed and counted."""
+def traced(cell: Cell, kind: str, step: Callable, img_s: float, flops: float) -> Dict:
+    """The per-layer metrics and the breakdown from the traced iterations."""
+    return report(cell, trace_layers(cell, kind, step, img_s, flops))
+
+
+def trace_layers(cell: Cell, kind: str, step: Callable, img_s: float, flops: float) -> Layers:
+    """Two profiled passes of ``step``: the first read whole, with the
+    program's counters around it; the second under the recorder of the
+    architecture's custom ops, whose calls are timed and counted. The
+    spans are parsed after both passes, so the host's work between them
+    is what it was before spans were read."""
     tr = cell.traffic["trace"]
+    iters = tr["iterations"]
     scratch = cell.root / "build" / "port_bench"
     scratch.mkdir(parents=True, exist_ok=True)
-    trace = Trace(profile(step, tr["iterations"], str(scratch / "trace.json")))
+    before = tracing.counters()
+    raw = profile(step, iters, str(scratch / "trace.json"))
+    after = tracing.counters()
+    counters = {k: (v - before.get(k, 0)) / iters for k, v in sorted(after.items())}
+    trace = Trace(raw)
+    ops = cell.arch.OPS
     rec = OpArgs(ops)
     captured = Trace(profile(step, tr["captured_iterations"], str(scratch / "trace_ops.json"), rec))
+    spans = Spans(raw)
+    del raw
     op_calls = []
     for name in sorted(set(n for n, _, _ in rec.calls)):
         calls = [(a, o) for n, a, o in rec.calls if n == name]
         spent = captured.op_kernel_seconds(name)
         if len(spent) != len(calls):
             raise RuntimeError(f"trace: {len(calls)} calls of {name} recorded, {len(spent)} traced")
-        op_calls += [(name, counts.kernel_least_seconds(name, a, o), d) for (a, o), d in zip(calls, spent)]
-    layers = Layers(kind, trace, tr["iterations"], op_calls, img_s, flops)
+        op_calls += [(name, counts.least_seconds(*ops[name](a, o))[0], d) for (a, o), d in zip(calls, spent)]
+    return Layers(kind, trace, spans, counters, iters, op_calls, img_s, flops)
+
+
+def report(cell: Cell, layers: Layers) -> Dict:
+    """The cell's per-layer metrics read from ``layers``, the traced
+    window and the breakdown."""
+    trace = layers.trace
     metrics = {}
     for m in cell.metrics_of("per_layer"):
         v = cell.reader(m["name"])(layers)
@@ -154,50 +196,22 @@ def free(device) -> None:
         torch.cuda.empty_cache()
 
 
-def make_weights(cell: Cell, seed: int, batch: Mapping, device) -> Dict[str, np.ndarray]:
-    """The run's detectron2 state dict (on the host), drawn from the seed
-    and fitted by the reference to the first frames of ``batch``. A mix
-    that names a ``model_seed`` serves one model on every seed: the weights
-    are drawn from that seed and fitted to frames drawn from it."""
-    conf, tf = cell.conf, cell.traffic
+def make_weights(cell: Cell, seed: int, batch: Mapping, device):
+    """The run's model state, drawn by the architecture from the seed and
+    fitted to the first frames of ``batch``. A mix that names a
+    ``model_seed`` serves one model on every seed: the state is drawn from
+    that seed and fitted to frames drawn from it."""
+    tf = cell.traffic
     if "model_seed" in tf:
         seed = tf["model_seed"]
-        batch = frames.inference_pool(seed, dict(tf, pool_batches=1), conf["input"],
-                                      6 if cell.ref_cfg.dual else 3, device)[0]
-    sd = weights.make_state_dict(conf["model"], conf["weights"], seed, device)
-    k = conf["weights"]["calibration_images"]
-    weights.calibrate(conf["model"], conf["weights"], sd, batch["image"][:k],
-                      [tuple(hw) for hw in batch["image_size"][:k].tolist()])
-    return weights.to_numpy(sd)
+        batch = frames.inference_pool(seed, dict(tf, pool_batches=1), cell.conf["input"], cell.channels,
+                                      device)[0]
+    return cell.arch.make_state(cell.conf, seed, batch, device)
 
 
 # ---------------------------------------------------------------------------
-# inference: Predictor.predict_batch, one caller, closed loop
+# inference: predict_batch, one caller, closed loop
 # ---------------------------------------------------------------------------
-
-
-def reference_detections(cell: Cell, sd: Mapping, images: List[torch.Tensor], device,
-                         precision: str = "fp32") -> List[Dict[str, np.ndarray]]:
-    """The reference's detections of ``images`` (H, W, C) in the original
-    frame, as ``predict_batch`` rescales and clips them."""
-    net = ref.Net(cell.ref_cfg, ref.params_from_d2(cell.ref_cfg, sd, device), precision)
-    inp = cell.conf["input"]
-    hw = frames.resized_hw(inp["frame_hw"], inp["min_size_test"], inp["max_size_test"])
-    oh, ow = inp["frame_hw"]
-    sx, sy = ow / hw[1], oh / hw[0]
-    out = []
-    for s in range(0, len(images), CHECK_CHUNK):
-        chunk = torch.stack(images[s:s + CHECK_CHUNK]).to(device)
-        with tf32_off():
-            dets = net.detect(chunk, [hw] * chunk.shape[0])
-        for d in dets:
-            b = d["boxes"] * torch.tensor([sx, sy, sx, sy], device=device)
-            b = ref.bx.clip(b, float(oh), float(ow))
-            out.append({"boxes": b.cpu().numpy(), "scores": d["scores"].cpu().numpy(),
-                        "classes": d["classes"].cpu().numpy()})
-    del net
-    free(device)
-    return out
 
 
 def pick_images(seed: int, served: List[List[Mapping]], k: int) -> List[tuple]:
@@ -212,17 +226,14 @@ def pick_images(seed: int, served: List[List[Mapping]], k: int) -> List[tuple]:
 
 
 def run_infer(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float) -> Dict:
-    from . import program
-
-    tf, conf = cell.traffic, cell.conf
+    arch, tf, conf = cell.arch, cell.traffic, cell.conf
     mark = Marks(t0, device)
-    cfg = program.read_config(str(cell.config_file.parent), conf)
-    pool = frames.inference_pool(seed, tf, conf["input"], 6 if cell.ref_cfg.dual else 3, device)
+    pcfg = arch.read_config(str(cell.config_file.parent), conf)
+    pool = frames.inference_pool(seed, tf, conf["input"], cell.channels, device)
     mark("frames")
-    sd = make_weights(cell, seed, pool[0], device)
+    state = make_weights(cell, seed, pool[0], device)
     mark("weights")
-    model, mcfg = program.build(cfg, sd, device)
-    pred = program.predictor(model, mcfg, device)
+    pred = arch.predictor(pcfg, state, device)
     mark("program")
     for i in range(tf["warmup_batches"]):
         pred.predict_batch(pool[i % len(pool)])
@@ -244,26 +255,24 @@ def run_infer(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: fl
         f"{statistics.median(lat) * 1e3:.4g} ms, p95 {p95:.4g} ms")
     result = {"metrics": {"setup_s": setup_s, "infer_img_s": img_s, "infer_batch_p95_ms": p95}}
     if trace:
-        flops = counts.flops_per_image(conf["model"], conf["input"]["pad_shape"],
-                                       conf["model"]["rpn"]["post_nms_topk_test"], False)
         it = iter(range(1 << 30))
         result["traced"] = traced(cell, "infer", lambda: pred.predict_batch(pool[next(it) % len(pool)]),
-                                  img_s, flops, program.CUSTOM_OPS)
+                                  img_s, arch.flops_per_image(conf, False))
     result["device"] = device_info(device, cell.workload["chips"])
-    del pred, model
+    del pred
     free(device)
 
     picks = pick_images(seed, served, tf["check_images"])
     imgs = [pool[b % len(pool)]["image"][r] for b, r in picks]
     got = [served[b][r] for b, r in picks]
-    want = reference_detections(cell, sd, imgs, device)
+    want = arch.reference_detections(conf, state, imgs, device)
     numbers = judge.detection_numbers(got, want)
     result.update(numbers=numbers, attempted=images, failed=0)
     return result
 
 
 # ---------------------------------------------------------------------------
-# training: make_train_step's train_step, batches on the card
+# training: the architecture's training step, batches on the card
 # ---------------------------------------------------------------------------
 
 
@@ -273,74 +282,17 @@ def norms(tensors: Mapping[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(names, vals))
 
 
-def reference_steps(cell: Cell, sd: Mapping, pool: List[Mapping], seed: int, steps: int, device,
-                    precision: str = "fp32", batch_filter: Optional[Callable] = None) -> Dict:
-    """The reference's first ``steps`` steps from the same weights on the
-    same batches, with the same sampling priorities: each step's total
-    loss, the momentum after step 1 and the plain gradient of step 1, and
-    the parameters' change after the last step, as norms per leaf."""
-    cfg = cell.ref_cfg
-    params = ref.params_from_d2(cfg, sd, device)
-    train = [n for n in params if ref.trainable(cfg, n)]
-    for n in train:
-        params[n].requires_grad_(True)
-    start = {n: params[n].detach().clone() for n in train}
-    net = ref.Net(cfg, params, precision)
-    canvas = cell.conf["input"]["pad_shape"]
-    n_anchor = ref.num_anchors(cfg, canvas)
-    post = cfg["rpn"]["post_nms_topk_train"]
-    momentum: Dict[str, torch.Tensor] = {}
-    out = {"losses": []}
-    keys = ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg")
-    for step in range(steps):
-        b = pool[step]
-        images, sizes, (gb, gc, gv) = b["image"], b["image_size"].tolist(), b["gt"]
-        n = images.shape[0]
-        gen = torch.Generator(device=device).manual_seed(ref.step_seed(seed, step))
-        rpn_rand = torch.rand((n, n_anchor), generator=gen, device=device)
-        roi_rand = torch.rand((n, post + gb.shape[1]), generator=gen, device=device)
-        rows = list(range(n)) if batch_filter is None else batch_filter(n)
-        grads = {k: torch.zeros_like(params[k]) for k in train}
-        total = dict.fromkeys(keys, 0.0)
-        for s in range(0, len(rows), CHECK_CHUNK):
-            r = rows[s:s + CHECK_CHUNK]
-            with tf32_off():
-                losses = net.losses(images[r], [sizes[i] for i in r], gb[r], gc[r], gv[r], rpn_rand[r],
-                                    roi_rand[r], len(rows))
-                loss = sum(losses.values())
-                got = torch.autograd.grad(loss, [params[k] for k in train], allow_unused=True)
-            for k, g in zip(train, got):
-                if g is not None:
-                    grads[k] += g
-            for k in keys:
-                total[k] += float(losses[k].detach())
-        total["total_loss"] = sum(total[k] for k in keys)
-        out["losses"].append(total)
-        if step == 0:
-            out["grad_raw"] = norms(grads)
-        ref.sgd_step(cfg, params, grads, momentum, step)
-        if step == 0:
-            out["grad"] = norms(momentum)
-    out["update"] = norms({k: params[k].detach() - start[k] for k in train})
-    del net, params, momentum, start
-    free(device)
-    return out
-
-
 def run_train(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float) -> Dict:
-    from . import program
-
-    tf, conf = cell.traffic, cell.conf
+    arch, tf, conf = cell.arch, cell.traffic, cell.conf
     mark = Marks(t0, device)
-    cfg = program.read_config(str(cell.config_file.parent), conf)
-    pool = frames.training_pool(seed, tf, conf["input"], 6 if cell.ref_cfg.dual else 3, device)
+    pcfg = arch.read_config(str(cell.config_file.parent), conf)
+    pool = frames.training_pool(seed, tf, conf["input"], cell.channels, device)
     mark("frames")
-    sd = make_weights(cell, seed, pool[0], device)
+    state = make_weights(cell, seed, pool[0], device)
     mark("weights")
-    model, mcfg = program.build(cfg, sd, device)
-    trainer = program.Trainer(cfg, model, mcfg, seed)
+    trainer = arch.trainer(pcfg, state, seed, device)
     mark("program")
-    batches = [program.train_batch(b) for b in pool]
+    batches = [trainer.batch(b) for b in pool]
     n_check = tf["checked_steps"]
 
     def step(i: int) -> Dict[str, float]:
@@ -375,15 +327,13 @@ def run_train(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: fl
     log(f"window: {done - first} steps in {window_s:.3f} s")
     result = {"metrics": {"setup_s": setup_s, "train_img_s": img_s}}
     if trace:
-        flops = counts.flops_per_image(conf["model"], conf["input"]["pad_shape"],
-                                       conf["model"]["roi"]["batch_size_per_image"], True)
         it = iter(range(done, 1 << 30))
-        result["traced"] = traced(cell, "train", lambda: step(next(it)), img_s, flops, program.CUSTOM_OPS)
+        result["traced"] = traced(cell, "train", lambda: step(next(it)), img_s, arch.flops_per_image(conf, True))
     result["device"] = device_info(device, cell.workload["chips"])
-    del trainer, model, batches
+    del trainer, batches
     free(device)
 
-    want = reference_steps(cell, sd, pool, seed, n_check, device)
+    want = arch.reference_steps(conf, state, pool, seed, n_check, device)
     numbers = judge.training_numbers(prog, want)
     result.update(numbers=numbers, attempted=done - first, failed=0)
     return result
@@ -393,9 +343,9 @@ LOOPS = {"predict_batch": run_infer, "train_step": run_train}
 
 
 def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, device, t0: float) -> Dict:
-    """The result line of one run (without the checks against JAX)."""
+    """The result line of one run."""
     cell = Cell(root, workload)
-    res = LOOPS[cell.traffic["loop"]](cell, seed, seconds, trace, device, t0)
+    res = cell.loop()(cell, seed, seconds, trace, device, t0)
     verdict = judge.verdict(res["numbers"], cell.limits)
     extra = {k: v for k, v in res["numbers"].items() if k not in verdict["checks"]}
     log(f"readings: {json.dumps(extra)}")

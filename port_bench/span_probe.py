@@ -3,17 +3,18 @@ what the spans cost while the profiler records.
 
     python3 port_bench/span_probe.py --workload <name> --seed <n> [--seconds 40] [--pairs 3]
 
-Runs the cell as ``run.py --trace 1`` does. Before the harness's own traced
-passes it profiles the cell's traced iterations ``1 + 2 * pairs`` times:
+Runs the cell as ``run.py --trace 1`` does, and reads what the per-layer
+readers read (``cells.Layers``):
 
-- the first pass gives the device idle inside the iterations split by the
-  innermost program span (``harness/spans.py``), each span's idle, and each
-  program counter's increase per iteration (``nms.iters``, ``roi.oow``, the
-  kernels' launches, ...);
-- then ``pairs`` pairs of passes, one with the spans and one with ``span``
-  made the program's no-op, alternating which comes first: each pass's
-  seconds per iteration, device idle share, blocking calls and kernel
-  launches per iteration, as ``Trace`` reads them.
+- from the harness's first traced pass, the device idle inside the
+  iterations split by the innermost program span (``harness/spans.py``),
+  each span's idle, and each program counter's increase per iteration
+  (``nms.iters``, ``roi.oow``, the kernels' launches, ...);
+- then, after the harness's passes, ``pairs`` pairs of passes over the
+  cell's traced iterations, one with the spans and one with ``span`` made
+  the program's no-op, alternating which comes first: each pass's seconds
+  per iteration, device idle share, blocking calls and kernel launches per
+  iteration, as ``Trace`` reads them.
 
 Prints one JSON line: those numbers (ms per iteration), the harness's
 per-layer metrics and ``correct``. Reads the program's counters from
@@ -43,28 +44,24 @@ def _pass(trace, n):
 
 def probe(root: Path, workload: str, seed: int, seconds: float, pairs: int, device: str) -> dict:
     from harness import cells
-    from harness.spans import Spans
     from harness.trace import Trace, profile
     from proben_tpu_torch.utils import tracing
 
     rec = {"workload": workload, "seed": seed}
     harness_traced = cells.traced
 
-    def traced(cell, kind, step, img_s, flops, ops):
-        n = cell.traffic["trace"]["iterations"]
-        scratch = cell.root / "build" / "port_bench"
-        scratch.mkdir(parents=True, exist_ok=True)
-        path = str(scratch / "span_probe.json")
-        before = tracing.counters()
-        raw = profile(step, n, path)
-        after = tracing.counters()
-        sp = Spans(raw)
-        rec["counters"] = {k: (v - before.get(k, 0)) / n for k, v in sorted(after.items())}
+    def traced(cell, kind, step, img_s, flops):
+        layers = cells.trace_layers(cell, kind, step, img_s, flops)
+        n, sp = layers.iters, layers.spans
+        rec["counters"] = layers.counters
         rec["idle_ms"] = 1e3 * sp.idle_s / n
         rec["idle_by_span_ms"] = {k: 1e3 * v / n for k, v in sp.idle_by_span().items()}
         rec["span_idle_ms"] = {k: 1e3 * sp.span_idle_seconds(k) / n for k in sp.names}
         rec["span_calls"] = {k: sp.calls(k) / n for k in sp.names}
-        rec["first"] = _pass(Trace(raw), n)
+        rec["first"] = _pass(layers.trace, n)
+        out = cells.report(cell, layers)
+        rec["harness"] = {k: v["value"] for k, v in out["metrics"].items()}
+        path = str(cell.root / "build" / "port_bench" / "span_probe.json")
         passes = {"on": [], "off": []}
         span = tracing.span
         for i in range(pairs):
@@ -79,8 +76,6 @@ def probe(root: Path, workload: str, seed: int, seconds: float, pairs: int, devi
         if pairs:
             rec["on_minus_off_ms"] = (statistics.median(p["iter_ms"] for p in passes["on"])
                                       - statistics.median(p["iter_ms"] for p in passes["off"]))
-        out = harness_traced(cell, kind, step, img_s, flops, ops)
-        rec["harness"] = {k: v["value"] for k, v in out["metrics"].items()}
         return out
 
     cells.traced = traced

@@ -9,19 +9,21 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from harness import counts, weights
+from harness import cells, counts
 from reference import model as ref
 import tiny
 
+fpn = cells.load_module(tiny.BENCH / "arch" / "faster_rcnn_fpn.py")
+
 pytestmark = pytest.mark.card_free
 
-CANVAS = (64, 96)
+CANVAS = (64, 96)  # the tiny configuration's pad_shape
 
 
 def _net(fmt):
     conf = tiny.tiny_config("t", "float32", fmt)
     cfg = ref.Config(conf["model"], conf["solver"])
-    sd = weights.make_state_dict(conf["model"], conf["weights"], 3, "cpu")
+    sd = fpn.make_state_dict(conf["model"], conf["weights"], 3, "cpu")
     return conf, cfg, ref.Net(cfg, ref.params_from_d2(cfg, sd, "cpu"))
 
 
@@ -46,12 +48,12 @@ def test_forward_flops_match_the_flop_counter(fmt, monkeypatch):
     conf, cfg, net = _net(fmt)
     monkeypatch.setattr(ref, "multilevel_roi_align", _pool_stub(None))
     images = torch.randint(0, 255, (1,) + CANVAS + (6 if fmt == "BGRTTT" else 3,), dtype=torch.uint8)
-    rois = torch.tensor([[4.0, 4.0, 40.0, 30.0]] * 10)
+    rois = torch.tensor([[4.0, 4.0, 40.0, 30.0]] * conf["model"]["rpn"]["post_nms_topk_test"])
     with FlopCounterMode(display=False) as mode, torch.no_grad():
         feats = net.features(images)
         net.rpn_head(feats)
         net.box_head(feats, 0, rois)
-    assert _conv_linear_flops(mode) == counts.flops_per_image(conf["model"], CANVAS, 10, False)
+    assert _conv_linear_flops(mode) == fpn.flops_per_image(conf, False)
 
 
 @pytest.mark.parametrize("fmt", ("BGR", "BGRTTT"))
@@ -61,14 +63,14 @@ def test_training_flops_match_the_flop_counter(fmt, monkeypatch):
     for name, p in net.params.items():
         p.requires_grad_(ref.trainable(cfg, name))
     images = torch.randint(0, 255, (1,) + CANVAS + (6 if fmt == "BGRTTT" else 3,), dtype=torch.uint8)
-    rois = torch.tensor([[4.0, 4.0, 40.0, 30.0]] * 10)
+    rois = torch.tensor([[4.0, 4.0, 40.0, 30.0]] * conf["model"]["roi"]["batch_size_per_image"])
     with FlopCounterMode(display=False) as mode:
         feats = net.features(images, training=True)
         logits, deltas = net.rpn_head(feats)
         cls, dl = net.box_head(feats, 0, rois)
         loss = sum(x.sum() for x in logits + deltas) + cls.sum() + dl.sum()
         loss.backward()
-    assert _conv_linear_flops(mode) == counts.flops_per_image(conf["model"], CANVAS, 10, True)
+    assert _conv_linear_flops(mode) == fpn.flops_per_image(conf, True)
 
 
 def test_stem_counts_by_hand():
@@ -76,7 +78,7 @@ def test_stem_counts_by_hand():
     w = torch.zeros(7, 7, 3, 64, dtype=torch.bfloat16)
     s = b = torch.zeros(64, dtype=torch.bfloat16)
     out = torch.zeros(2, 4, 5, 64, dtype=torch.bfloat16)
-    flops, nbytes = counts.stem_counts(x, w, s, b, out)
+    flops, nbytes = fpn.stem_counts(x, w, s, b, out)
     assert flops == 2 * 2 * 8 * 10 * 64 * 49 * 3
     assert nbytes == 2 * (2 * 16 * 20 * 3 + 7 * 7 * 3 * 64 + 64 + 64 + 2 * 4 * 5 * 64)
 
@@ -100,7 +102,7 @@ def test_roi_align_counts_by_hand():
     # two RoIs of one image: rows {0, 1} x cols {0, 1, 2}, rows {1, 2} x cols {2}
     lvl, y0, x0, wy, wx = _windows(2, p, [[0, 1], [1, 2]], [[0, 1, 2], [2]])
     out = torch.zeros(2, p, p, c, dtype=torch.bfloat16)
-    flops, nbytes = counts.roi_align_fwd_counts([feat], lvl, y0, x0, wy, wx, 2, out)
+    flops, nbytes = fpn.roi_align_fwd_counts([feat], lvl, y0, x0, wy, wx, 2, out)
     # distinct pixels: (0,0) (0,1) (0,2) (1,0) (1,1) (1,2) (2,2) = 7
     pixels = 7
     assert nbytes == (2 * p * p * c * 2 + wy.numel() * 4 + wx.numel() * 4 + 4 * 6 + pixels * c * 2)
@@ -108,7 +110,7 @@ def test_roi_align_counts_by_hand():
     assert flops == 2 * c * ((3 * 2 + p * 3) + (1 * 2 + p * 1))
     g = torch.zeros(2, p, p, c, dtype=torch.bfloat16)
     grads = [torch.zeros(1, 10, 12, c, dtype=torch.bfloat16)]
-    flops, nbytes = counts.roi_align_bwd_counts(g, [1, 10, 12, c], lvl, y0, x0, wy, wx, 2, grads)
+    flops, nbytes = fpn.roi_align_bwd_counts(g, [1, 10, 12, c], lvl, y0, x0, wy, wx, 2, grads)
     assert nbytes == g.numel() * 2 + wy.numel() * 4 + wx.numel() * 4 + 4 * 6 + 10 * 12 * c * 2
     # per channel: P * nnz(wy) + (rows with a wy tap) * nnz(wx)
     assert flops == 2 * c * ((p * 2 + 2 * 3) + (p * 2 + 2 * 1))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from harness import cells, frames, program
+from harness import cells, frames
 from reference import model as ref
 import tiny
 
@@ -33,19 +33,17 @@ def _cell(tree, fmt, mix):
 
 
 def _build(cell, seed, batch):
-    cfg = program.read_config(str(cell.config_file.parent), cell.conf)
-    sd = cells.make_weights(cell, seed, batch, "cpu")
-    model, mcfg = program.build(cfg, sd, "cpu")
-    return cfg, sd, model, mcfg
+    pcfg = cell.arch.read_config(str(cell.config_file.parent), cell.conf)
+    return pcfg, cells.make_weights(cell, seed, batch, "cpu")
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_inference_detections_agree(tree, fmt):
     cell = _cell(tree, fmt, "tiny_infer")
     pool = frames.inference_pool(21, cell.traffic, cell.conf["input"], 6 if fmt == "BGRTTT" else 3, "cpu")
-    _, sd, model, mcfg = _build(cell, 21, pool[0])
-    served = program.predictor(model, mcfg, "cpu").predict_batch(pool[0])
-    want = cells.reference_detections(cell, sd, list(pool[0]["image"]), "cpu")
+    pcfg, sd = _build(cell, 21, pool[0])
+    served = cell.arch.predictor(pcfg, sd, "cpu").predict_batch(pool[0])
+    want = cell.arch.reference_detections(cell.conf, sd, list(pool[0]["image"]), "cpu")
     assert sum(len(w["scores"]) for w in want) > 0
     for got, exp in zip(served, want):
         assert np.array_equal(got["classes"], exp["classes"])
@@ -57,12 +55,12 @@ def test_inference_detections_agree(tree, fmt):
 def test_training_losses_and_gradients_agree(tree, fmt):
     cell = _cell(tree, fmt, "tiny_train")
     pool = frames.training_pool(22, cell.traffic, cell.conf["input"], 6 if fmt == "BGRTTT" else 3, "cpu")
-    cfg, sd, model, mcfg = _build(cell, 22, pool[0])
-    trainer = program.Trainer(cfg, model, mcfg, 22)
-    losses = [float(trainer.step(program.train_batch(pool[0]))["total_loss"])]
+    pcfg, sd = _build(cell, 22, pool[0])
+    trainer = cell.arch.trainer(pcfg, sd, 22, "cpu")
+    losses = [float(trainer.step(trainer.batch(pool[0]))["total_loss"])]
     grad = cells.norms(trainer.momentum())
-    losses.append(float(trainer.step(program.train_batch(pool[1]))["total_loss"]))
-    want = cells.reference_steps(cell, sd, pool, 22, 2, "cpu")
+    losses.append(float(trainer.step(trainer.batch(pool[1]))["total_loss"]))
+    want = cell.arch.reference_steps(cell.conf, sd, pool, 22, 2, "cpu")
     np.testing.assert_allclose(losses, [x["total_loss"] for x in want["losses"]], rtol=1e-4)
     assert sorted(grad) == sorted(want["grad"])
     for name, v in want["grad"].items():

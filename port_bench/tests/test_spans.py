@@ -101,3 +101,26 @@ def test_span_probe_splits_a_tiny_cells_idle(tree, capsys):
     assert rec["span_idle_ms"]["predictor.predict_batch"] <= rec["idle_ms"]
     assert [len(rec["passes"][m]) for m in ("on", "off")] == [1, 1]
     assert {"syncs_per_batch.infer", "launches_per_batch.infer"} <= set(rec["harness"])
+
+
+def test_layers_counters_are_what_span_probe_reads(tree, monkeypatch):
+    """The readers' ``layers.counters`` and ``layers.spans`` of a run are
+    span_probe's readings of it: the first traced pass's counters per
+    iteration (two NMS calls a batch, the RPN's and the classes') and its
+    spans."""
+    seen = []
+    report = cells.report
+
+    def keep(cell, layers):
+        seen.append(layers)
+        return report(cell, layers)
+
+    monkeypatch.setattr(cells, "report", keep)
+    rec = span_probe.probe(tree, "tiny.tiny_infer", 7, 0.3, 0, "cpu")
+    assert rec["correct"] is True and len(seen) == 1
+    layers = seen[0]
+    assert layers.counters == rec["counters"]
+    assert layers.counters["nms.calls"] == 2.0 and layers.counters["nms.iters"] >= 2.0
+    n = layers.iters
+    assert {k: 1e3 * layers.spans.span_idle_seconds(k) / n for k in layers.spans.names} == rec["span_idle_ms"]
+    assert layers.spans.calls("predictor.predict_batch") == n

@@ -89,16 +89,19 @@ TRAFFIC = {
 
 def make_tree(root: Path, configs=(("tiny", "float32", "BGR"),), limits=None) -> Path:
     """``root`` as a checkout: the repository's BENCHMARK.json extended by
-    the tiny configurations' cells, and ``port_bench`` holding links to the
-    benchmark's code and the tiny configurations', mixes' and limits' new
-    files. Returns ``root``."""
+    the tiny configurations' cells, and ``port_bench`` holding the
+    benchmark's code (linked, or copied where the tree adds files beside
+    it) and the tiny configurations', mixes' and limits' new files. Returns
+    ``root``."""
     root = Path(root)
     bench_dir = root / "port_bench"
     bench_dir.mkdir(parents=True)
-    for sub in ("harness", "reference", "run.py"):
+    for sub in ("harness", "reference"):
         os.symlink(BENCH / sub, bench_dir / sub)
-    for sub in ("configs", "traffic", "limits", "metrics"):
-        shutil.copytree(BENCH / sub, bench_dir / sub)
+    shutil.copy(BENCH / "run.py", bench_dir)  # a copy, so that it finds the tree around it
+    for sub in ("configs", "traffic", "limits", "metrics", "arch", "loops"):
+        if (BENCH / sub).is_dir():
+            shutil.copytree(BENCH / sub, bench_dir / sub)
     os.symlink(REPO / "proben_tpu_torch", root / "proben_tpu_torch")
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     for name, dtype, fmt in configs:
