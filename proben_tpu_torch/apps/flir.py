@@ -6,6 +6,8 @@ late fusion of saved predictions.
     python -m proben_tpu_torch.apps.flir map    --dataset_path D --fusion_method M
     python -m proben_tpu_torch.apps.flir proben --dataset_path D --prediction_path O \\
         --score_fusion probEn --box_fusion v-avg
+    python -m proben_tpu_torch.apps.flir ensemble --dataset_path D \\
+        --models thermal_only=T early_fusion=E middle_fusion=M --score_fusion probEn --box_fusion v-avg
 
     python -m proben_tpu_torch.apps.flir train  --dataset_path D --fusion_method M \\
         --outfolder O [--max_iter N] [--eval_every K]
@@ -14,7 +16,8 @@ late fusion of saved predictions.
 
 (the arguments of ``demo/FLIR/demo_FLIR_save_predictions.py``,
 ``demo_mAP_FLIR.py``, ``demo_probEn.py``, ``demo_train_FLIR.py`` and
-``demo_draw_FLIR.py``;
+``demo_draw_FLIR.py``; ``ensemble`` runs the members of ``proben`` from their
+checkpoints and fuses them on the device in the same pass, with no JSON between;
 ``--device cpu`` runs the plain versions on the CPU, and the images are then
 read with cv2). On the card, the images are decoded with nvJPEG and
 composed, resized (training: also cropped and flipped) and padded by the ``image_io``
@@ -32,6 +35,7 @@ numpy pytree in ``proben_tpu``'s layout. ``train_flir`` trains with
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -50,7 +54,7 @@ from ..data import (
     build_test_loader,
     register_coco_instances,
 )
-from ..engine import DefaultTrainer, EvalHook, Predictor
+from ..engine import DefaultTrainer, EvalHook, Predictor, ProbEnPredictor
 from ..evaluation import FLIREvaluator, inference_on_dataset
 from ..fusion import fuse_multi_model
 from ..models import RCNN, build_model, init_rcnn
@@ -61,6 +65,8 @@ VAL_JSON_NAME = "FLIR_thermal_RGBT_pairs_val.json"
 TRAIN_JSON_NAME = "FLIR_thermal_RGBT_pairs_train.json"
 
 THERMAL_MEAN = 135.438
+# the channels of a BGRTTT frame each method reads as a ProbEn member
+MEMBER_CHANNELS = {"rgb_only": (0, 3), "thermal_only": (3, 6), "early_fusion": (0, 4), "middle_fusion": (0, 6)}
 
 Device = Union[str, torch.device]
 
@@ -274,6 +280,59 @@ def run_proben(
     )
 
 
+def evaluate_proben(
+    dataset_path: str,
+    models: Sequence[Sequence[str]],
+    score_fusion: str = "probEn",
+    box_fusion: str = "v-avg",
+    out_folder: str = "out",
+    dataset_name: str = "FLIR_val",
+    batch_size: int = 4,
+    cfgs: Optional[Sequence[CfgNode]] = None,
+    params: Optional[Sequence] = None,
+    device: Device = "cuda",
+) -> Dict:
+    """ProbEn late fusion in one pass (``demo_FLIR_save_predictions.py`` for
+    each member, then ``demo_probEn.py``, with no JSON between): ``models``
+    (method, model_path) pairs, the paper's ProbEn3 being thermal_only,
+    early_fusion and middle_fusion, run by ``ProbEnPredictor`` on the val
+    split's BGRTTT frames (each member on its ``MEMBER_CHANNELS``), fused on
+    the device and scored by the FLIR evaluator through
+    ``inference_on_dataset``. ``cfgs`` and ``params`` (one per member)
+    stand in for ``build_flir_cfg(method)`` and ``load_params``; every
+    member's input sizes must agree."""
+    cfgs = list(cfgs) if cfgs is not None else [build_flir_cfg(method) for method, _ in models]
+    params = list(params) if params is not None else [load_params(c, path) for c, (_, path) in zip(cfgs, models)]
+    mappers = [dataclasses.replace(mapper_config_from_cfg(c), input_format="BGRTTT") for c in cfgs]
+    if any(m != mappers[0] for m in mappers):
+        raise ValueError("the members' input sizes differ: one frame feeds them all")
+    json_path = register_flir(dataset_name, dataset_path)
+    dicts = DatasetCatalog.get(dataset_name)
+    predictor = ProbEnPredictor.from_cfgs(
+        [(c, p, MEMBER_CHANNELS[method]) for c, p, (method, _) in zip(cfgs, params, models)],
+        device=device, score_method=score_fusion, box_method=box_fusion, thresh=0.5)
+    evaluator = FLIREvaluator(json_path, output_dir=out_folder)
+    mapper = DatasetMapper(mappers[0], is_train=False, device=device)
+    try:
+        return inference_on_dataset(predictor, build_test_loader(dicts, mapper, batch_size=batch_size), evaluator)
+    finally:
+        mapper.close()
+
+
+def ensemble_parser() -> argparse.ArgumentParser:
+    """The arguments of ``ensemble``: ``demo_probEn.py``'s, with the members'
+    checkpoints in place of their saved predictions."""
+    parser = argparse.ArgumentParser(prog="python -m proben_tpu_torch.apps.flir ensemble")
+    parser.add_argument("--dataset_path", required=True)
+    parser.add_argument("--models", nargs="+", required=True,
+                        help="method=checkpoint pairs (an empty checkpoint: random weights from seed 0)")
+    parser.add_argument("--score_fusion", default="probEn", choices=["avg", "max", "probEn"])
+    parser.add_argument("--box_fusion", default="v-avg", choices=["avg", "s-avg", "v-avg", "argmax"])
+    parser.add_argument("--outfolder", default="out/")
+    parser.add_argument("--dataset_name", default="FLIR_val")
+    return parser
+
+
 def draw_predictions(
     method: str,
     dataset_path: str,
@@ -400,9 +459,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         prog="python -m proben_tpu_torch.apps.flir",
         description="save: prediction JSON of one method; map: its FLIR mAP; "
                     "proben: ProbEn late fusion of saved JSONs and its mAP; "
+                    "ensemble: ProbEn late fusion of the members' checkpoints in one pass, and its mAP; "
                     "train: keep-best-AP50 training of one method; "
                     "draw: detections drawn over the thermal and RGB images")
-    parser.add_argument("command", choices=("save", "map", "proben", "train", "draw"))
+    parser.add_argument("command", choices=("save", "map", "proben", "ensemble", "train", "draw"))
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     known, rest = parser.parse_known_args(argv)
     setup_logger()
@@ -410,6 +470,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         args = train_parser().parse_args(rest)
         results = train_flir(args.fusion_method, args.dataset_path, args.outfolder,
                              args.max_iter, args.eval_every, device=known.device)
+        print(results)
+        return results
+    if known.command == "ensemble":
+        args = ensemble_parser().parse_args(rest)
+        models = [spec.partition("=")[::2] for spec in args.models]
+        results = evaluate_proben(args.dataset_path, models, args.score_fusion, args.box_fusion,
+                                  args.outfolder, args.dataset_name, device=known.device)
         print(results)
         return results
     if known.command == "draw":

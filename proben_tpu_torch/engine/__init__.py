@@ -1,4 +1,5 @@
 from .defaults import DefaultTrainer
+from .ensemble import ProbEnPredictor
 from .hooks import (
     CallbackHook,
     EvalHook,
@@ -24,6 +25,7 @@ __all__ = [
     "PeriodicWriter",
     "PreciseBNHook",
     "Predictor",
+    "ProbEnPredictor",
     "ProfilerHook",
     "TrainState",
     "losses_and_grads",

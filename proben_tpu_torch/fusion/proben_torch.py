@@ -17,6 +17,10 @@ changes a result:
     ``torch.backends.cuda.matmul.allow_tf32`` cannot reach them;
   * the output top-k is the stable sort of ``ops/topk.py`` (``lax.top_k``'s
     tie order, lower index first).
+
+The call is the span ``proben.fuse`` and its fixpoint the span
+``proben.fixpoint``; it counts ``proben.calls`` and ``proben.iters`` (one
+host read each) in ``utils/tracing.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.topk import topk_stable
+from ..utils import tracing
 
 Tensor = torch.Tensor
 
@@ -64,6 +69,23 @@ def _take(x: Tensor, idx: Tensor) -> Tensor:
         idx.shape + x.shape[2:]))
 
 
+def _keep_set(suppress: Tensor, valid: Tensor) -> Tensor:
+    """The greedy keep set: ``keep <- valid & ~any(keep & suppress)`` from
+    ``keep = valid`` until nothing changes, one ``torch.equal`` (host read)
+    an iteration."""
+    with tracing.span("proben.fixpoint"):
+        keep, iters = valid, 0
+        for _ in range(valid.shape[-1]):
+            new_keep = valid & ~(keep[..., :, None] & suppress).any(dim=-2)
+            iters += 1
+            if torch.equal(new_keep, keep):
+                break
+            keep = new_keep
+        tracing.count("proben.calls")
+        tracing.count("proben.iters", iters)
+        return keep
+
+
 def fuse_detections_torch(
     boxes: Tensor,  # (B, N, 4) per image, concatenated over models (padded)
     scores: Tensor,  # (B, N)
@@ -86,77 +108,73 @@ def fuse_detections_torch(
         raise ValueError(f"box_method {box_method!r} not in {BOX_METHODS}")
     if box_method == "v-avg" and variances is None:
         raise ValueError("box_method 'v-avg' needs per-box variances")
-    b, n = scores.shape
-    dev = scores.device
-    boxes, scores, probs = boxes.float(), scores.float(), probs.float()
-    classes = classes.long()
-    iou = _plus1_offset_iou(boxes, classes.float(), *class_offset)
+    with tracing.span("proben.fuse"):
+        b, n = scores.shape
+        dev = scores.device
+        boxes, scores, probs = boxes.float(), scores.float(), probs.float()
+        classes = classes.long()
+        iou = _plus1_offset_iou(boxes, classes.float(), *class_offset)
 
-    # ---- greedy keep set (heads)
-    masked = torch.where(valid, scores, _NEG_INF)
-    order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
-    rank = torch.empty_like(order).scatter_(-1, order, torch.arange(n, device=dev).expand(b, n))
-    earlier = rank[..., :, None] < rank[..., None, :]  # i ranks before j
-    overlap = (iou > thresh) & valid[..., :, None] & valid[..., None, :]
-    suppress = overlap & earlier
-    keep = valid
-    for _ in range(n):
-        new_keep = valid & ~(keep[..., :, None] & suppress).any(dim=-2)
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
+        # ---- greedy keep set (heads)
+        masked = torch.where(valid, scores, _NEG_INF)
+        order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
+        rank = torch.empty_like(order).scatter_(-1, order, torch.arange(n, device=dev).expand(b, n))
+        earlier = rank[..., :, None] < rank[..., None, :]  # i ranks before j
+        overlap = (iou > thresh) & valid[..., :, None] & valid[..., None, :]
+        suppress = overlap & earlier
+        keep = _keep_set(suppress, valid)
 
-    # ---- cluster assignment: a non-head joins its highest-scoring kept head
-    head_scores = torch.where(keep, masked, _NEG_INF)
-    claim = torch.where(overlap & keep[..., :, None], head_scores[..., :, None], _NEG_INF)
-    head_of = claim.argmax(dim=-2)  # (B, N) first best head per column
-    is_member = valid & ~keep & (claim.amax(dim=-2) > _NEG_INF / 2)
-    idx = torch.arange(n, device=dev)
-    member = ((idx[:, None] == head_of[..., None, :]) & is_member[..., None, :]) | (
-        torch.eye(n, dtype=torch.bool, device=dev) & keep[..., :, None])
-    member_f = member.float()
-    multi = keep & (member_f.sum(dim=-1) > 1.5)
+        # ---- cluster assignment: a non-head joins its highest-scoring kept head
+        head_scores = torch.where(keep, masked, _NEG_INF)
+        claim = torch.where(overlap & keep[..., :, None], head_scores[..., :, None], _NEG_INF)
+        head_of = claim.argmax(dim=-2)  # (B, N) first best head per column
+        is_member = valid & ~keep & (claim.amax(dim=-2) > _NEG_INF / 2)
+        idx = torch.arange(n, device=dev)
+        member = ((idx[:, None] == head_of[..., None, :]) & is_member[..., None, :]) | (
+            torch.eye(n, dtype=torch.bool, device=dev) & keep[..., :, None])
+        member_f = member.float()
+        multi = keep & (member_f.sum(dim=-1) > 1.5)
 
-    # ---- score fusion
-    if score_method == "probEn":
-        ext = torch.cat([probs, 1.0 - probs.sum(dim=-1, keepdim=True)], dim=-1)
-        sum_logits = _cluster_sum(member_f, torch.log(ext.clamp(min=1e-30)))
-        sum_logits = sum_logits - sum_logits.amax(dim=-1, keepdim=True)
-        expd = torch.exp(sum_logits)
-        norm = expd / expd.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-        fused_score, fused_class = norm.amax(dim=-1), norm.argmax(dim=-1)
-    elif score_method == "avg":
-        msum = _cluster_sum(member_f, torch.where(valid, scores, 0.0)[..., None])[..., 0]
-        fused_score, fused_class = msum / member_f.sum(dim=-1).clamp(min=1.0), classes
-    else:  # max
-        big = torch.where(member, probs.amax(dim=-1)[..., None, :], _NEG_INF)
-        fused_score, fused_class = big.amax(dim=-1), classes
+        # ---- score fusion
+        if score_method == "probEn":
+            ext = torch.cat([probs, 1.0 - probs.sum(dim=-1, keepdim=True)], dim=-1)
+            sum_logits = _cluster_sum(member_f, torch.log(ext.clamp(min=1e-30)))
+            sum_logits = sum_logits - sum_logits.amax(dim=-1, keepdim=True)
+            expd = torch.exp(sum_logits)
+            norm = expd / expd.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+            fused_score, fused_class = norm.amax(dim=-1), norm.argmax(dim=-1)
+        elif score_method == "avg":
+            msum = _cluster_sum(member_f, torch.where(valid, scores, 0.0)[..., None])[..., 0]
+            fused_score, fused_class = msum / member_f.sum(dim=-1).clamp(min=1.0), classes
+        else:  # max
+            big = torch.where(member, probs.amax(dim=-1)[..., None, :], _NEG_INF)
+            fused_score, fused_class = big.amax(dim=-1), classes
 
-    # ---- box fusion
-    if box_method == "argmax":
-        best = torch.where(member, scores[..., None, :], _NEG_INF).argmax(dim=-1)
-        fused_boxes = _take(boxes, best)
-    else:
-        if box_method == "v-avg":
-            w = 1.0 / variances.reshape(b, n).float().clamp(min=1e-20)
-        elif box_method == "s-avg":
-            w = scores
+        # ---- box fusion
+        if box_method == "argmax":
+            best = torch.where(member, scores[..., None, :], _NEG_INF).argmax(dim=-1)
+            fused_boxes = _take(boxes, best)
         else:
-            w = torch.ones_like(scores)
-        w = torch.where(valid, w, 0.0)
-        wsum = _cluster_sum(member_f, w[..., None])
-        fused_boxes = _cluster_sum(member_f, boxes * w[..., None]) / wsum.clamp(min=1e-20)
+            if box_method == "v-avg":
+                w = 1.0 / variances.reshape(b, n).float().clamp(min=1e-20)
+            elif box_method == "s-avg":
+                w = scores
+            else:
+                w = torch.ones_like(scores)
+            w = torch.where(valid, w, 0.0)
+            wsum = _cluster_sum(member_f, w[..., None])
+            fused_boxes = _cluster_sum(member_f, boxes * w[..., None]) / wsum.clamp(min=1e-20)
 
-    # ---- singleton passthrough and assembly in head-score order
-    out_scores = torch.where(multi, fused_score, scores)
-    out_classes = torch.where(multi, fused_class, classes)
-    out_boxes = torch.where(multi[..., None], fused_boxes, boxes)
-    top_scores, top_idx = topk_stable(head_scores, min(topk, n))
-    out_valid = top_scores > _NEG_INF / 2
-    top_idx = torch.where(out_valid, top_idx, 0)
-    return (
-        torch.where(out_valid[..., None], _take(out_boxes, top_idx), 0.0),
-        torch.where(out_valid, _take(out_scores, top_idx), 0.0),
-        torch.where(out_valid, _take(out_classes, top_idx), 0).to(torch.int32),
-        out_valid,
-    )
+        # ---- singleton passthrough and assembly in head-score order
+        out_scores = torch.where(multi, fused_score, scores)
+        out_classes = torch.where(multi, fused_class, classes)
+        out_boxes = torch.where(multi[..., None], fused_boxes, boxes)
+        top_scores, top_idx = topk_stable(head_scores, min(topk, n))
+        out_valid = top_scores > _NEG_INF / 2
+        top_idx = torch.where(out_valid, top_idx, 0)
+        return (
+            torch.where(out_valid[..., None], _take(out_boxes, top_idx), 0.0),
+            torch.where(out_valid, _take(out_scores, top_idx), 0.0),
+            torch.where(out_valid, _take(out_classes, top_idx), 0).to(torch.int32),
+            out_valid,
+        )

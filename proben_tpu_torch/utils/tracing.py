@@ -29,6 +29,9 @@ launch it made, an iteration of a loop whose exit it already read).
 | ``train.all_reduce`` | the mean over ranks (world > 1 only) |
 | ``train.update`` | the SGD update, the NaN guard, the copy into the parameters |
 | ``train.nan_guard`` | the guard inside ``train.update`` |
+| ``ensemble.member`` | one member's ``Predictor.infer`` inside ``ProbEnPredictor`` (its ``rcnn.*`` spans nested) |
+| ``proben.fuse`` | ``fusion/proben_torch.py::fuse_detections_torch``, the whole call |
+| ``proben.fixpoint`` | its keep-set loop |
 
 | counter | counts |
 |---|---|
@@ -37,6 +40,7 @@ launch it made, an iteration of a loop whose exit it already read).
 | ``k4.launches`` | calls of K4, forward and backward (the backward's second kernel sums its partials) |
 | ``epilogue.plain`` | bottleneck epilogues on CUDA maps K4 does not take, run as the plain composition |
 | ``nms.calls``, ``nms.iters`` | NMS fixpoint calls and their iterations (one host read each) |
+| ``proben.calls``, ``proben.iters`` | late-fusion fixpoint calls and their iterations (one host read each) |
 | ``roi.oow`` | RoIs out of their pooling window: the fallback re-pools them |
 | ``roi.oow_over_capacity`` | of those, the ones past its per-image capacity: left windowed |
 """

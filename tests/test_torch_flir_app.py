@@ -17,6 +17,7 @@ are the same numpy code on the same inputs: their results are equal
 
 import json
 import os
+import types
 
 import cv2
 import jax
@@ -277,3 +278,66 @@ def test_draw_writes_both_overlays_as_jax_draws_them(flir_root, tmp_path, monkey
                      "--outfolder", str(out), "--max_images", "2", "--device", "cpu"])
     assert res == {"written": ["x"]}
     assert seen == [(("middle_fusion", str(root), "", str(out), 2), {"device": "cpu"})]
+
+
+ENSEMBLE = ("thermal_only", "early_fusion", "middle_fusion")
+
+
+def test_ensemble_evaluates_the_members_fused_on_their_channels(flir_root, tmp_path):
+    """``evaluate_proben`` (ProbEn3 through ``ProbEnPredictor`` and
+    ``inference_on_dataset``, one BGRTTT loader) gives the FLIR results of
+    the members run each on its own loader (``save_predictions``, the JSON
+    path's frames), padded in the same slots and fused by
+    ``fuse_detections_torch``: on the CPU both read the same pixels, so
+    the results are equal."""
+    from proben_tpu_torch.config import model_config_from_cfg
+    from proben_tpu_torch.fusion import fuse_detections_torch
+    from proben_tpu_torch.models import init_rcnn
+    from proben_tpu_torch.structures.detections import pad_detections_numpy
+
+    cfgs = [_tiny_cfg(flir, m) for m in ENSEMBLE]
+    params = [init_rcnn(11 + i, model_config_from_cfg(c)) for i, c in enumerate(cfgs)]
+    got = flir.evaluate_proben(flir_root, [(m, "") for m in ENSEMBLE], "probEn", "v-avg", str(tmp_path / "ens"),
+                               batch_size=2, cfgs=cfgs, params=params, device="cpu")
+    saved = []
+    for m, c, p in zip(ENSEMBLE, cfgs, params):
+        with open(flir.save_predictions(m, flir_root, "", str(tmp_path / "json"), batch_size=2, cfg=c, params=p,
+                                        device="cpu")) as f:
+            saved.append(json.load(f))
+    slots = cfgs[0].TEST.DETECTIONS_PER_IMAGE
+    ev = FLIREvaluator(os.path.join(flir_root, flir.VAL_JSON_NAME), output_dir=str(tmp_path / "direct"))
+    ev.reset()
+    for i, image_id in enumerate(saved[0]["image_id"]):
+        members = [pad_detections_numpy(np.asarray(s["boxes"][i], np.float32).reshape(-1, 4),
+                                        np.asarray(s["scores"][i], np.float32), np.asarray(s["classes"][i]), slots,
+                                        probs=np.asarray(s["probs"][i], np.float32).reshape(-1, 3),
+                                        variance=np.asarray(s["vars"][i], np.float32)) for s in saved]
+        assert all(int(d.valid.sum()) == slots for d in members)
+        cat = {k: torch.cat([getattr(d, k)[None] for d in members], 1)
+               for k in ("boxes", "scores", "classes", "probs", "variance", "valid")}
+        boxes, scores, classes, valid = fuse_detections_torch(
+            cat["boxes"], cat["scores"], cat["classes"], cat["probs"], cat["variance"], cat["valid"])
+        ev.process(image_id, boxes[0][valid[0]].numpy(), scores[0][valid[0]].numpy(), classes[0][valid[0]].numpy())
+    _equal_results(got, ev.evaluate())
+    assert got["bbox"].keys() >= {"AP", "AP50"}
+
+
+def test_command_line_ensemble(flir_root, capsys, monkeypatch, tmp_path):
+    """``python -m proben_tpu_torch.apps.flir ensemble --models method=path ...``
+    runs ``evaluate_proben`` with ``build_flir_cfg`` and ``load_params``
+    (here the tiny configuration, random weights from seed 0)."""
+    original = types.SimpleNamespace(build_flir_cfg=flir.build_flir_cfg)
+    monkeypatch.setattr(flir, "build_flir_cfg", lambda method: _tiny_cfg(original, method))
+    res = flir.main(["ensemble", "--dataset_path", flir_root, "--models"] + [f"{m}=" for m in ENSEMBLE]
+                    + ["--score_fusion", "avg", "--box_fusion", "s-avg", "--outfolder", str(tmp_path / "cli"),
+                       "--device", "cpu"])
+    assert "'bbox'" in capsys.readouterr().out
+    cfgs = [flir.build_flir_cfg(m) for m in ENSEMBLE]
+    want = flir.evaluate_proben(flir_root, [(m, "") for m in ENSEMBLE], "avg", "s-avg", str(tmp_path / "api"),
+                                cfgs=cfgs, params=[flir.load_params(c, "") for c in cfgs], device="cpu")
+    _equal_results(res, want)
+    with pytest.raises(ValueError, match="input sizes"):
+        other = flir.build_flir_cfg("thermal_only")
+        other.INPUT.MIN_SIZE_TEST = 128
+        flir.evaluate_proben(flir_root, [("thermal_only", ""), ("early_fusion", "")], cfgs=[other, cfgs[1]],
+                             params=[None, None], device="cpu")
