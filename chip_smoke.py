@@ -13,8 +13,8 @@ Phases, each raising on a miss (exit code != 0, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the main paths (K1 stem, K2 RoIAlign forward, K3
-   RoIAlign backward, K4 bottleneck epilogue, ``image_io``: nvJPEG decode
-   and the compose + resize + pad kernel) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
+   RoIAlign backward, K4 bottleneck epilogue, K5 NMS, ``image_io``: nvJPEG
+   decode and the compose + resize + pad kernel) from ``proben_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a``, one process per source, in parallel;
 3. K1 and K2 against their plain PyTorch versions on the card, at the
    inference path's shapes and on hazard inputs, with the tolerance stated
@@ -22,7 +22,11 @@ Phases, each raising on a miss (exit code != 0, no result line):
    against the plain composition and its backward at R101's stage shapes
    on 16 800x1024 images and at C4's res5 on 8 x 1000 RoIs
    (``epilogue_phase``: maps bit for bit, parameter sums within one bf16
-   ulp, two backward calls bit for bit), device times and bounds;
+   ulp, two backward calls bit for bit), device times and bounds; K5
+   (``nms_phase``) at the cells' three NMS shapes (RPN inference (16, 5,
+   1000), the box head (16, 3000) with class offsets, RPN training (16, 5,
+   2000)) against the dense route on the card and the CPU route, bit for
+   bit, device ms of both routes and the bound;
 4. inference slice: random-init R101-FPN (random affines, so every residual
    branch is live; RPN and class head calibrated) through
    ``Predictor.predict_batch`` at batch 8, 800x1024 (true size 800x1000),
@@ -204,9 +208,11 @@ Phases, each raising on a miss (exit code != 0, no result line):
 
 K4's counts (its launches, 3 a bottleneck block in each backbone forward
 and 3 a trainable block in each backward, and ``epilogue.plain``, the
-epilogues of float32 paths) are read on every path whose launches are
-counted; a path that misses ``k4_expect`` does not stop the run, which
-prints every other line, then a ``k4_misses`` line and fails.
+epilogues of float32 paths) and K5's (``k5.launches``, one a ``nms_mask``
+call: the RPN's and the box head's in inference, the RPN's in training)
+are read on every path whose launches are counted; a path that misses them
+does not stop the run, which prints every other line, then a
+``count_misses`` line and fails.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run from a directory that holds this file and nothing else of the repo.
@@ -384,18 +390,22 @@ def device_ms(fn, n=10):
     """Device time of one call of ``fn()`` in ms: the durations of the
     device work of ``n`` calls in a profile, after two untimed calls (a
     small map's kernels are shorter than the host's dispatch of a call, so
-    CUDA events around back-to-back calls would time the host)."""
+    CUDA events around back-to-back calls would time the host). A profile
+    that comes back without device events is taken again, twice at most."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / n / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / n / 1e3
+    raise RuntimeError("device_ms: three profiles recorded no device time")
 
 
 def epilogue_inputs(gen, kind, n, c, h, w):
@@ -537,6 +547,83 @@ def epilogue_phase(c4_rois):
                                                    "bwd_bound_ms", "count")} for k, r in cases.items()},
                 c4_res5={k: {kk: r[kk] for kk in ("ms", "plain_ms", "bound_ms", "bwd_ms", "bwd_plain_ms")}
                          for k, r in c4.items()})
+
+
+# ---------------------------------------------------------------------------
+# K5: greedy NMS as a bitmask and a block sweep
+# ---------------------------------------------------------------------------
+
+# the cells' NMS calls: (label, shape, class count for the coordinate offsets, threshold)
+NMS_SHAPES = (("rpn_infer", (16, 5, 1000), 0, 0.7), ("box_head", (16, 3000), 3, 0.5),
+              ("rpn_train", (16, 5, 2000), 0, 0.7))
+NMS_FLOPS_PER_PAIR = 10  # min, max and a difference per axis, the product, union's add and sub, the division
+
+
+def nms_phase():
+    """K5 at the cells' three NMS shapes (RPN inference, the box head with
+    class offsets, RPN training) on clustered candidates: its keep mask
+    against the dense route on the card (``nms_keep_plain``) and the CPU
+    route, bit for bit, two calls bitwise equal, one ``k5.launches`` a call;
+    device ms of the op on sorted boxes and of the whole ``nms_mask`` call
+    (sort, gather, scatter) for both routes; the bound: the IoUs of the
+    valid pairs (``NMS_FLOPS_PER_PAIR`` each at the f32 peak) or the bytes
+    of boxes, flags and keep mask, whichever is larger."""
+    from unittest import mock
+
+    from proben_tpu_torch.ops import nms
+    from proben_tpu_torch.utils import tracing
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from nms_cases import cell_problems
+
+    cases = {}
+    for label, shape, classes, t in NMS_SHAPES:
+        boxes, scores, valid, ids = cell_problems(shape, seed=sum(shape), classes=classes)
+        b, s, v = (torch.from_numpy(a).cuda() for a in (boxes, scores, valid))
+        if ids is not None:  # batched_nms_mask's coordinate offsets
+            b = b + torch.from_numpy(ids).cuda().to(torch.float32)[..., None] * 8193.0
+
+        def call(plain=False):
+            with mock.patch.object(nms, "nms_keep", nms.nms_keep_plain) if plain else contextlib.nullcontext():
+                return nms.nms_mask(b, s, v, t)
+
+        before = tracing.counters().get("k5.launches", 0)
+        got = call()
+        torch.cuda.synchronize()
+        if tracing.counters().get("k5.launches", 0) != before + 1:
+            raise AssertionError(f"K5 {label}: not one launch a call")
+        want = call(plain=True)
+        cpu = nms.nms_mask(b.cpu(), s.cpu(), v.cpu(), t)
+        if not (torch.equal(got, call()) and torch.equal(got, want) and torch.equal(got.cpu(), cpu)):
+            raise AssertionError(f"K5 {label}: the keep mask differs from the dense route's or between calls")
+        order = torch.sort(torch.where(v, s, -1e10), dim=-1, descending=True, stable=True)[1]
+        sb = torch.gather(b, -2, order[..., None].expand(order.shape + (4,))).contiguous()
+        sv = torch.gather(v, -1, order)
+        iters = tracing.counters().get("nms.iters", 0)
+        nms.nms_keep_plain(sb, sv, t)
+        iters = tracing.counters().get("nms.iters", 0) - iters
+        nv = v.reshape(-1, shape[-1]).sum(-1).double()
+        pairs = float((nv * (nv - 1) / 2).sum())
+        mbytes = v.numel() * (16 + 1 + 1) / 1e6
+        bound_ms = max(pairs * NMS_FLOPS_PER_PAIR / PEAK_F32, mbytes * 1e6 / HBM_BYTES_S) * 1e3
+        r = cases[label] = dict(
+            shape=list(shape), threshold=t, kept=int(got.sum()), valid=int(v.sum()), fixpoint_iters=iters,
+            ms=cuda_ms(lambda: nms.nms_keep(sb, sv, t), 50), plain_ms=cuda_ms(lambda: nms.nms_keep_plain(sb, sv, t), 5),
+            call_ms=cuda_ms(call, 50), plain_call_ms=cuda_ms(lambda: call(plain=True), 5), bound_ms=bound_ms,
+            bound_by="operations" if pairs * NMS_FLOPS_PER_PAIR / PEAK_F32 > mbytes * 1e6 / HBM_BYTES_S else "bytes",
+            gflop=pairs * NMS_FLOPS_PER_PAIR / 1e9, mbytes=mbytes,
+            mask_mb=v.numel() * -(-shape[-1] // 64) * 8 / 1e6)
+        log(f"K5 {label} {shape}: {r['ms']:.4g} ms (bound {bound_ms:.4g} ms by {r['bound_by']}), dense route "
+            f"{r['plain_ms']:.4g} ms ({iters} fixpoint iterations); nms_mask {r['call_ms']:.4g} ms, dense "
+            f"{r['plain_call_ms']:.4g}; kept {r['kept']} of {r['valid']} valid; bit for bit")
+        del b, s, v, sb, sv, got, want
+        torch.cuda.empty_cache()
+    head = cases["box_head"]
+    return dict(name="nms", route="cuda", source="proben_tpu_torch/csrc/nms.cu",
+                replaces="ops/nms.py's dense IoU matrices and host-checked fixpoint (the JAX package's MXU design)",
+                max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None, gflop=head["gflop"], mbytes=head["mbytes"],
+                deterministic=True, per_case=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1026,7 +1113,7 @@ def slice_phase(model, images_list, sizes, expect, hi=16.0):
     with k4_off():
         zero_launch_counts()
         out_off = pred.predict_batch(batch)
-        check_k4(f"{cfg.input_format} inference, K4 off", launch_counts(*K4_COUNTED),
+        check_counts(f"{cfg.input_format} inference, K4 off", launch_counts(*CHECKED),
                  {"block_epilogue": 0, "epilogue_plain": expect["block_epilogue"]})
     if not all(np.array_equal(a[k], b[k]) for a, b in zip(out_k, out_off) for k in ("boxes", "scores", "classes")):
         raise AssertionError(f"{cfg.input_format} inference: detections with K4 differ from those with K4 off")
@@ -1740,10 +1827,10 @@ def flir_phase(card):
                 timing.records.clear()
                 results = flir.evaluate_map(method, root, "", out_dir, batch_size=BATCH, cfg=cfg,
                                             params=params)
-                launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *K4_COUNTED)
+                launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *CHECKED)
                 n_batches = -(-len(dicts) // BATCH)
                 expect = {"stem_pool": expect_k1 * n_batches, "roi_align_fwd": n_batches,
-                          "image_io": n_batches, **k4_expect(expect_k1 * n_batches)}
+                          "image_io": n_batches, **k4_expect(expect_k1 * n_batches), **k5_expect(n_batches)}
                 log(f"FLIR {method}: launches {launches} over {n_batches} batches; "
                     f"bbox AP {results['bbox']['AP']:.3f}")
                 expect_launches(f"FLIR {method} evaluate_map", launches, expect)
@@ -2068,9 +2155,9 @@ def kaist_phase(card):
             out_txt, var_npz = os.path.join(root, f"{method}_dets.txt"), os.path.join(root, f"{method}_vars.npz")
             results = kaist.predict_split(method, root, split, params, cfg=cfg, out_txt=out_txt,
                                           var_npz=var_npz, batch_size=BATCH)
-            launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *K4_COUNTED)
+            launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *CHECKED)
             expect = {"stem_pool": k1 * n_batches, "roi_align_fwd": n_batches, "image_io": n_batches,
-                      **k4_expect(k1 * n_batches)}
+                      **k4_expect(k1 * n_batches), **k5_expect(n_batches)}
             expect_launches(f"KAIST {method} predict_split", launches, expect)
             if sorted(results) != frames:
                 raise AssertionError(f"KAIST {method}: results for frames {sorted(results)}")
@@ -2150,9 +2237,9 @@ def kaist_phase(card):
         mcfg32 = model_config_from_cfg(cfg32)
         zero_launch_counts()
         res32 = kaist.predict_split("thermal_only", root, split, t_bf16["params"], cfg=cfg32, batch_size=BATCH)
-        launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *K4_COUNTED)
+        launches = launch_counts("stem_pool", "roi_align_fwd", "image_io", *CHECKED)
         expect = {"stem_pool": 0, "roi_align_fwd": n_batches, "image_io": n_batches,
-                  **k4_expect(n_batches, float32=True)}
+                  **k4_expect(n_batches, float32=True), **k5_expect(n_batches)}
         expect_launches("KAIST thermal_only, float32, predict_split", launches, expect)
         if sorted(res32) != frames or not all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
                                               for r in res32.values()):
@@ -2215,26 +2302,29 @@ def kaist_phase(card):
 TRAIN_BATCH = 16  # SOLVER.IMS_PER_BATCH of configs/Base-RCNN-FPN.yaml
 TRAIN_STEPS = 12  # per training app run; its rates are medians of the last 10 steps
 COUNTED = ("stem_pool", "roi_align_fwd", "roi_align_bwd", "image_io")
-# K4 (``block_epilogue``): its launches, forward and backward, and the
-# bottleneck epilogues that ran as the plain composition on CUDA maps
-K4_COUNTED = ("block_epilogue", "epilogue_plain")
+# counts read on every path and checked by ``check_counts``, which logs a
+# miss and lets the run go on: K4's launches (``block_epilogue``), forward
+# and backward, the bottleneck epilogues that ran as the plain composition
+# on CUDA maps, and K5's launches (``nms``, one a ``nms_mask`` call)
+CHECKED = ("block_epilogue", "epilogue_plain", "nms")
 
 
 # each counted kernel's launch counter in ``proben_tpu_torch.utils.tracing``
 LAUNCH_COUNTERS = {"stem_pool": "k1.launches", "roi_align_fwd": "k2.launches",
                    "roi_align_bwd": "k3.launches", "image_io": "io.launches",
-                   "block_epilogue": "k4.launches", "epilogue_plain": "epilogue.plain"}
+                   "block_epilogue": "k4.launches", "epilogue_plain": "epilogue.plain",
+                   "nms": "k5.launches"}
 _launch_base: dict = {}
 
 
 def launch_counts(*kernels):
-    """Launches of each counted kernel and K4's two counts (or of
+    """Launches of each counted kernel and the ``CHECKED`` counts (or of
     ``kernels`` alone) since the last ``zero_launch_counts``."""
     from proben_tpu_torch.utils import tracing
 
     now = tracing.counters()
     return {k: now.get(LAUNCH_COUNTERS[k], 0) - _launch_base.get(k, 0)
-            for k in kernels or COUNTED + K4_COUNTED}
+            for k in kernels or COUNTED + CHECKED}
 
 
 def zero_launch_counts():
@@ -2245,7 +2335,7 @@ def zero_launch_counts():
 
 
 R101_BLOCKS = (3, 4, 23, 3)  # bottleneck blocks of res2..res5
-K4_MISSES: list = []  # every path whose K4 counts differ from ``k4_expect``'s
+COUNT_MISSES: list = []  # every path whose K4 or K5 counts differ from those expected
 
 
 def k4_expect(forwards=1, train_freeze_at=None, float32=False):
@@ -2264,15 +2354,24 @@ def k4_expect(forwards=1, train_freeze_at=None, float32=False):
     return {"block_epilogue": fwd + bwd, "epilogue_plain": 0}
 
 
-def check_k4(label, got, want):
-    """K4's two counts on a path against ``want``: a difference is logged
-    and kept in ``K4_MISSES``; ``main`` fails on it once every path has
-    run, so one run names every path that missed."""
-    got = {k: got.get(k, 0) for k in K4_COUNTED}
-    want = {k: want[k] for k in K4_COUNTED}
+def k5_expect(inferences=0, steps=0):
+    """K5's launches on a path of ``inferences`` Faster R-CNN forwards in
+    evaluation (the RPN's NMS and the box head's) and ``steps`` training
+    steps (the RPN's); a middle-fusion forward runs one RPN on the
+    concatenated maps."""
+    return {"nms": 2 * inferences + steps}
+
+
+def check_counts(label, got, want):
+    """The ``CHECKED`` counts ``want`` names (K4's two from ``k4_expect``,
+    K5's launches, one a ``nms_mask`` call) on a path: a difference is
+    logged and kept in ``COUNT_MISSES``; ``main`` fails on it once every
+    path has run, so one run names every path that missed."""
+    got = {k: got.get(k, 0) for k in CHECKED if k in want}
+    want = {k: want[k] for k in CHECKED if k in want}
     if got != want:
-        log(f"{label}: K4 counts {got}, expected {want}")
-        K4_MISSES.append(dict(path=label, got=got, expected=want))
+        log(f"{label}: K4 / K5 counts {got}, expected {want}")
+        COUNT_MISSES.append(dict(path=label, got=got, expected=want))
 
 
 def k4_off():
@@ -2501,7 +2600,7 @@ class TrainWatch:
             torch.cuda.synchronize()
             now = launch_counts()
             step = {k: now[k] - self._counts[k] for k in ("stem_pool", "roi_align_fwd", "roi_align_bwd")
-                    + K4_COUNTED}
+                    + CHECKED}
             self.per_step.append(step)
             if t.iter == self.count_iter:
                 self.launches = step
@@ -2613,7 +2712,7 @@ def held_batch_checks(watch, label, stem, bare_steps=6):
 def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launches):
     """Checks of one training app run and its readings: every metric of
     every step finite and ``loss_finite`` 1; K1-K3 around one step as
-    ``expect_step``, and K4's counts (``check_k4``); every kernel of the path launched in the run; the
+    ``expect_step``, and K4's counts (``check_counts``); every kernel of the path launched in the run; the
     run's ``image_io`` launches equal to the batches the trainer's loader
     mapped (prefetched ones included) plus ``eval_launches``, the
     evaluations' batches, so one launch per training batch."""
@@ -2629,7 +2728,7 @@ def train_run_stats(label, watch, launches_run, expect_step, n_steps, eval_launc
         raise AssertionError(f"{label}: launches around one step {watch.launches} (per counted step "
                              f"{watch.per_step}), expected {expect_step}")
     for i, p in enumerate([watch.launches] + watch.per_step):
-        check_k4(f"{label}, {'the counted step' if i == 0 else f'counted step {i}'}", p, expect_step)
+        check_counts(f"{label}, {'the counted step' if i == 0 else f'counted step {i}'}", p, expect_step)
     missing = [k for k, v in expect_step.items() if v and not launches_run[k]]
     if missing:
         raise AssertionError(f"{label}: kernels not launched in the run: {missing}, {launches_run}")
@@ -2819,7 +2918,8 @@ def trainer_phase(card):
                               hooks=watch.hooks())
         wall = time.time() - t
         run = launch_counts()
-        one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT)}
+        one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT),
+               **k5_expect(steps=1)}
         # FLIR's evaluation maps the 32 val images at batch 1: one image_io launch each
         thermal = train_run_stats("train_flir thermal_only", watch, run, one, TRAIN_STEPS,
                                   eval_runs(0, TRAIN_STEPS, 6) * len(val))
@@ -2877,7 +2977,7 @@ def trainer_phase(card):
                         eval_every=1000, cfg=cfg, hooks=watch.hooks())
         middle = train_run_stats("train_flir middle_fusion", watch, launch_counts(),
                                  {"stem_pool": 2, "roi_align_fwd": 1, "roi_align_bwd": 1,
-                                  **k4_expect(2, cfg.MODEL.BACKBONE.FREEZE_AT)}, TRAIN_STEPS,
+                                  **k4_expect(2, cfg.MODEL.BACKBONE.FREEZE_AT), **k5_expect(steps=1)}, TRAIN_STEPS,
                                  eval_runs(0, TRAIN_STEPS, 1000) * len(val))
         if watch.unmoved:
             raise AssertionError(f"train_flir middle_fusion: {len(watch.unmoved)} trainable tensors "
@@ -2899,7 +2999,7 @@ def trainer_phase(card):
         # predict_split maps the 32 frames in batches of 4: one image_io launch each
         kst = train_run_stats("train_kaist thermal_only (float32)", watch, launch_counts(),
                               {"stem_pool": 0, "roi_align_fwd": 1, "roi_align_bwd": 1,
-                               **k4_expect(1, float32=True)}, TRAIN_STEPS,
+                               **k4_expect(1, float32=True), **k5_expect(steps=1)}, TRAIN_STEPS,
                               eval_runs(0, TRAIN_STEPS, 1000) * -(-len(tree[2]) // 4))
         if watch.trainable_groups != ["fpn", "rpn_head"] or watch.unmoved:
             raise AssertionError(f"train_kaist: trainable {watch.trainable_groups}, "
@@ -2933,14 +3033,14 @@ def counted(fn):
 
 def expect_launches(label, got, expect):
     """K1-K3's and ``image_io``'s launches as ``expect`` names them (0 where
-    it names none), else an AssertionError; K4's counts, where ``expect``
-    names them, through ``check_k4``."""
+    it names none), else an AssertionError; K4's and K5's counts, where
+    ``expect`` names them, through ``check_counts``."""
     log(f"{label} launches: {got}")
     want = {k: expect.get(k, 0) for k in COUNTED}
     if {k: got.get(k, 0) for k in COUNTED} != want:
         raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
-    if K4_COUNTED[0] in expect:
-        check_k4(label, got, expect)
+    if any(k in expect for k in CHECKED):
+        check_counts(label, got, expect)
 
 
 def timed_pooling(timed, prefix, levels, boxes, pooler, capacity):
@@ -3070,7 +3170,7 @@ def c4_phase(images, sizes, batch):
     bias, n = bisect_bias(set_bias, lambda: float(infer().valid.sum(-1).float().mean()), 0.0, 16.0)
     log(f"C4 calibration: background bias {bias:.4g} -> {n:.1f} dets/img")
     det, launches = counted(infer)
-    expect_launches("C4 inference", launches, {"stem_pool": 1, "roi_align_fwd": 1, **k4_expect()})
+    expect_launches("C4 inference", launches, {"stem_pool": 1, "roi_align_fwd": 1, **k4_expect(), **k5_expect(1)})
     dets = check_detections("C4 inference", det, cfg.rcnn.topk_per_image)
     matched, matched_32 = plain_agreement("C4 inference", infer, cfg)
     ms = cuda_ms(infer, TIMED_CALLS)
@@ -3112,7 +3212,8 @@ def c4_phase(images, sizes, batch):
 
     (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
     expect_launches("C4 training step", train_launches,
-                    {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, **k4_expect(1, cfg.freeze_at)})
+                    {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1, **k4_expect(1, cfg.freeze_at),
+                     **k5_expect(steps=1)})
     check_step("C4 training step", losses, grads)
     step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
     log(f"C4 training step (forward + backward): {step_ms:.4g} ms, {BATCH * 1e3 / step_ms:.2f} img/s")
@@ -3171,7 +3272,8 @@ def cascade_phase(images, sizes, batch):
     bias, n = bisect_bias(set_bias, lambda: float(infer().valid.sum(-1).float().mean()), 0.0, 16.0)
     log(f"Cascade calibration: background bias {bias:.4g} (all stages) -> {n:.1f} dets/img")
     det, launches = counted(infer)
-    expect_launches("Cascade inference", launches, {"stem_pool": 1, "roi_align_fwd": 3, **k4_expect()})
+    expect_launches("Cascade inference", launches, {"stem_pool": 1, "roi_align_fwd": 3, **k4_expect(),
+                                                    **k5_expect(1)})
     dets = check_detections("Cascade inference", det, cfg.rcnn.topk_per_image)
     matched, matched_32 = plain_agreement("Cascade inference", infer, cfg)
     ms = cuda_ms(infer, TIMED_CALLS)
@@ -3225,7 +3327,8 @@ def cascade_phase(images, sizes, batch):
 
     (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
     expect_launches("Cascade training step", train_launches,
-                    {"stem_pool": 1, "roi_align_fwd": 6, "roi_align_bwd": 3, **k4_expect(1, cfg.freeze_at)})
+                    {"stem_pool": 1, "roi_align_fwd": 6, "roi_align_bwd": 3, **k4_expect(1, cfg.freeze_at),
+                     **k5_expect(steps=1)})
     check_step("Cascade training step", losses, grads)
     step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
     log(f"Cascade training step (forward + backward): {step_ms:.4g} ms, {BATCH * 1e3 / step_ms:.2f} img/s")
@@ -3272,7 +3375,7 @@ def retinanet_phase(images, sizes, batch):
                           -16.0, 0.0, fewer_when_higher=False)
     log(f"RetinaNet calibration: class bias {bias:.4g} -> {n:.1f} dets/img")
     det, launches = counted(infer)
-    expect_launches("RetinaNet inference", launches, {"stem_pool": 1, **k4_expect()})
+    expect_launches("RetinaNet inference", launches, {"stem_pool": 1, **k4_expect(), "nms": 1})
     dets = check_detections("RetinaNet inference", det, cfg.topk_per_image)
     ms = cuda_ms(infer, TIMED_CALLS)
     log(f"RetinaNet inference: {BATCH * 1e3 / ms:.2f} img/s ({ms:.4g} ms per batch of {BATCH})")
@@ -3291,7 +3394,8 @@ def retinanet_phase(images, sizes, batch):
         return retinanet.retinanet_losses(model, cfg, batch["image"], batch["image_size"], batch["gt"])
 
     (losses, grads), train_launches = counted(lambda: grads_step(model, params, losses_fn))
-    expect_launches("RetinaNet training step", train_launches, {"stem_pool": 1, **k4_expect(1, cfg.freeze_at)})
+    expect_launches("RetinaNet training step", train_launches, {"stem_pool": 1, **k4_expect(1, cfg.freeze_at),
+                                                                "nms": 0})
     check_step("RetinaNet training step", losses, grads)
     step_ms = cuda_ms(lambda: grads_step(model, params, losses_fn), TIMED_CALLS)
     log(f"RetinaNet training step (forward + backward): {step_ms:.4g} ms, "
@@ -3320,7 +3424,7 @@ def proposal_tta_phase(model, images, sizes):
         return proposal_network.proposal_network_inference(model, cfg, images, sizes)
 
     (boxes, scores, valid), launches = counted(propose)
-    expect_launches("ProposalNetwork inference", launches, {"stem_pool": 1, **k4_expect()})
+    expect_launches("ProposalNetwork inference", launches, {"stem_pool": 1, **k4_expect(), "nms": 1})
     if not (bool(torch.isfinite(boxes[valid]).all()) and int(valid.sum(-1).min()) > 0):
         raise AssertionError("ProposalNetwork: non-finite proposals or an image without any")
     ms = cuda_ms(propose, TIMED_CALLS)
@@ -3342,7 +3446,7 @@ def proposal_tta_phase(model, images, sizes):
     out, tta_launches = counted(lambda: tta(image))
     pred.rescore_boxes = rescore
     expect_launches("TTA with rescore (10 augmentations)", tta_launches,
-                    {"stem_pool": 2, "roi_align_fwd": 2, "image_io": 1, **k4_expect(2)})
+                    {"stem_pool": 2, "roi_align_fwd": 2, "image_io": 1, **k4_expect(2), **k5_expect(1)})
     errs = tta_kernel_checks(model, tta, image, seen)
     plain = DetectionTTA(pred, MapperConfig(pad_shape=(H, W)))(image)
     b, s = out["boxes"], out["scores"]
@@ -3888,9 +3992,10 @@ def split_phase(name, seed, root, card):
     if any(r["launches"] != runs["kernels"]["launches"] for r in repeats):
         raise AssertionError(f"{name}: launches differ between runs: {[r['launches'] for r in repeats]}")
     expect_launches(f"{name}: DefaultTrainer.test over {n} images", runs["kernels"]["launches"],
-                    {"stem_pool": n, "roi_align_fwd": n, "image_io": n, **k4_expect(n)})
+                    {"stem_pool": n, "roi_align_fwd": n, "image_io": n, **k4_expect(n), **k5_expect(n)})
     expect_launches(f"{name}: the plain run (K4 off)", runs["plain"]["launches"],
-                    {"image_io": n, "block_epilogue": 0, "epilogue_plain": k4_expect(n)["block_epilogue"]})
+                    {"image_io": n, "block_epilogue": 0, "epilogue_plain": k4_expect(n)["block_epilogue"],
+                     **k5_expect(n)})
     out_k, out_p = runs["kernels"]["dets"], runs["plain"]["dets"]
     for r in out_k:
         if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()) or \
@@ -3995,7 +4100,7 @@ def voc_train_phase(root, card, steps=4, seed=45):
     trainer.train()
     wall = time.time() - t
     one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
-           **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT)}
+           **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT), **k5_expect(steps=1)}
     stats = train_run_stats(label, watch, launch_counts(), one, steps, 0)
     held = held_batch_checks(watch, label, stem=True)
     stats.update(held_batch=held, wall_s=wall, per_step=watch.per_step, card=card)
@@ -4188,7 +4293,7 @@ def crop_train_run(codec, root, dicts, val):
     flir.train_flir("thermal_only", root, os.path.join(root, "out_crop"), max_iter=CROP_STEPS,
                     eval_every=1000, cfg=cfg, hooks=[CallbackHook(before_train=wrap)] + watch.hooks())
     one = {"stem_pool": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
-           **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT)}
+           **k4_expect(1, cfg.MODEL.BACKBONE.FREEZE_AT), **k5_expect(steps=1)}
     stats = train_run_stats(label, watch, launch_counts(), one, CROP_STEPS,
                             eval_runs(0, CROP_STEPS, 1000) * len(val))
     if tuple(watch.held["image"].shape[1:3]) != CROP_PAD:
@@ -4327,7 +4432,8 @@ def draw_check(root, weights, n_val):
         "thermal_only", root, weights, out, max_images=DRAW_IMAGES, cfg=cfg))
     wall = time.time() - t
     n = min(DRAW_IMAGES, n_val)
-    expect = {"stem_pool": n, "roi_align_fwd": n, "roi_align_bwd": 0, "image_io": 2 * n, **k4_expect(n)}
+    expect = {"stem_pool": n, "roi_align_fwd": n, "roi_align_bwd": 0, "image_io": 2 * n, **k4_expect(n),
+              **k5_expect(n)}
     expect_launches("apps/flir.py draw", launches, expect)
     import importlib
 
@@ -4472,8 +4578,9 @@ def plain_train_run(root, register, card):
             launches["image_io"] != loader.batches_mapped or loader.batches_mapped < PLAIN_STEPS:
         raise AssertionError(f"{label}: launches {launches} over {PLAIN_STEPS} steps, "
                              f"{loader.batches_mapped} batches mapped")
-    check_k4(f"{label}, {PLAIN_STEPS} steps", launches, k4_expect(PLAIN_STEPS, cfg.MODEL.BACKBONE.FREEZE_AT))
-    per_step.update({k: launches[k] / PLAIN_STEPS for k in K4_COUNTED})
+    check_counts(f"{label}, {PLAIN_STEPS} steps", launches,
+                 {**k4_expect(PLAIN_STEPS, cfg.MODEL.BACKBONE.FREEZE_AT), **k5_expect(steps=PLAIN_STEPS)})
+    per_step.update({k: launches[k] / PLAIN_STEPS for k in CHECKED})
     with open(os.path.join(out, "metrics.json")) as f:
         lines = [json.loads(line) for line in f if line.strip()]
     losses = {k: v for k, v in lines[-1].items() if k.startswith("loss") or k == "total_loss"} if lines else {}
@@ -4550,8 +4657,9 @@ def benchmark_runs(yaml_path, card):
         else:
             per_call = {k: v / calls for k, v in launches.items()}
             ok = {k: per_call[k] for k in COUNTED} == expect[task]
-            check_k4(f"benchmark {task}, {calls} calls", launches,
-                     k4_expect(calls, 2 if task == "train" else None))
+            check_counts(f"benchmark {task}, {calls} calls", launches,
+                         {**k4_expect(calls, 2 if task == "train" else None),
+                          **(k5_expect(steps=calls) if task == "train" else k5_expect(calls))})
             finite = torch.isfinite(result.scores).all() if task == "eval" else all(
                 np.isfinite(float(v)) for v in result.values())
             if not finite:
@@ -4760,7 +4868,8 @@ def export_phase(model, images, sizes):
     with torch.no_grad():
         got, launches = counted(lambda: loaded(images[0], sizes))
         want = rcnn.rcnn_inference(model, cfg, images[0], sizes)
-    expect_launches("exported inference", launches, {"stem_pool": 1, "roi_align_fwd": 1, **k4_expect()})
+    expect_launches("exported inference", launches, {"stem_pool": 1, "roi_align_fwd": 1, **k4_expect(),
+                                                     **k5_expect(1)})
     diffs = {}
     for f in dataclasses.fields(want):
         a, b = getattr(got, f.name), getattr(want, f.name)
@@ -4799,7 +4908,7 @@ def export_phase(model, images, sizes):
         f"{img_s['exported']:.2f} / eager {img_s['eager']:.2f} (turns {[round(v, 2) for _, v in turns]})")
     del loaded
     return dict(stats, graph_nodes=nodes,
-                launches={k: launches[k] for k in ("stem_pool", "roi_align_fwd") + K4_COUNTED},
+                launches={k: launches[k] for k in ("stem_pool", "roi_align_fwd") + CHECKED},
                 equal=True, detections=n_dets, img_s_exported=img_s["exported"], img_s_eager=img_s["eager"],
                 turns=turns, seconds=time.time() - t0)
 
@@ -4854,7 +4963,7 @@ def ddp_train(cfg, hooks=()):
         ms.append((time.perf_counter() - clock["t"]) * 1e3)
         now = launch_counts()
         launches.append({k: now[k] - clock["counts"][k] for k in ("stem_pool", "roi_align_fwd",
-                                                                   "roi_align_bwd") + K4_COUNTED})
+                                                                   "roi_align_bwd") + CHECKED})
         steps.append({k: float(v) for k, v in t._last_metrics.items()})
 
     trainer.register_hooks([CallbackHook(before_train=start, before_step=before, after_step=after),
@@ -4957,14 +5066,14 @@ def ddp_compare(ranks, one, dtype, label):
         raise AssertionError(f"{label}: the ranks' rows {[r['rows'] for r in ranks]}")
     # K1 takes bf16 only: the float32 witness runs the plain stem
     per_step = {"stem_pool": int(dtype == "bfloat16"), "roi_align_fwd": 1, "roi_align_bwd": 1}
-    k4 = k4_expect(1, 2, float32=dtype == "float32")  # FREEZE_AT 2
+    k4 = {**k4_expect(1, 2, float32=dtype == "float32"), **k5_expect(steps=1)}  # FREEZE_AT 2
     for r in ranks + [one]:
         if len(r["launches"]) != DDP_STEPS or any({k: c[k] for k in per_step} != per_step
                                                   for c in r["launches"]):
             raise AssertionError(f"{label}: launches per step {r['launches']}, expected {per_step}")
         for i, c in enumerate(r["launches"]):
             who = "one process" if r is one else f"rank {r['rank']}"
-            check_k4(f"{label}, {who}, step {i + 1}", c, k4)
+            check_counts(f"{label}, {who}, step {i + 1}", c, k4)
         if r["io"]["image_io"] != r["io"]["batches_mapped"] or r["io"]["batches_mapped"] < DDP_STEPS:
             raise AssertionError(f"{label}: image_io launches {r['io']} (one per batch mapped)")
     if ranks[0]["steps"] != ranks[1]["steps"] or ranks[0]["digest"] != ranks[1]["digest"]:
@@ -5177,7 +5286,7 @@ def main() -> int:
     from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
 
     tb = time.time()
-    _build.build(["stem", "roi_align_fwd", "roi_align_bwd", "block_epilogue", "image_io"])
+    _build.build(["stem", "roi_align_fwd", "roi_align_bwd", "block_epilogue", "image_io", "nms"])
     log(f"build: {time.time() - tb:.1f} s")
     if "--kaist-divergence" in sys.argv[1:]:
         kaist_divergence_probe(card)
@@ -5185,9 +5294,9 @@ def main() -> int:
     if "--ddp-float32" in sys.argv[1:]:
         ddp_stats, zoo_stats = ddp_zoo_phases(card, "float32")
         print(json.dumps({"ddp_float32": ddp_stats, "zoo": zoo_stats}), flush=True)
-        if K4_MISSES:
-            print(json.dumps({"k4_misses": K4_MISSES}), flush=True)
-            raise AssertionError(f"K4's counts missed k4_expect on {[m['path'] for m in K4_MISSES]}")
+        if COUNT_MISSES:
+            print(json.dumps({"count_misses": COUNT_MISSES}), flush=True)
+            raise AssertionError(f"K4's or K5's counts missed on {[m['path'] for m in COUNT_MISSES]}")
         return 0
 
     cfg = build_config(depth=101, input_format="BGR", num_classes=3, compute_dtype="bfloat16")
@@ -5205,7 +5314,8 @@ def main() -> int:
     once = {"stem_pool": 1, "roi_align_fwd": 1}
     k1 = stem_phase(model)
     k4 = epilogue_phase(BATCH * cfg.rpn.post_nms_topk_test)  # C4's res5 on every proposal
-    launches, slice_stats = slice_phase(model, images, sizes, {**once, **k4_expect()})
+    k5 = nms_phase()
+    launches, slice_stats = slice_phase(model, images, sizes, {**once, **k4_expect(), **k5_expect(1)})
     k2 = roi_phase(model, images[0], sizes)  # the calibrated model's proposals
     export_stats = export_phase(model, images, sizes)
     if profiling:
@@ -5214,7 +5324,8 @@ def main() -> int:
     batch = train_batch()
     k3 = bwd_phase(model, batch)
     train_launches, train_stats = train_phase(model, batch, {**once, "roi_align_bwd": 1,
-                                                             **k4_expect(1, cfg.freeze_at)})
+                                                             **k4_expect(1, cfg.freeze_at),
+                                                             **k5_expect(steps=1)})
     if profiling:
         train_profile(model, batch)
     del model, batch
@@ -5225,7 +5336,8 @@ def main() -> int:
                           freeze_at=3)
     model = build_model(ef_cfg, params=random_affines(init_rcnn(4, ef_cfg), 4))
     ef_images = [torch.from_numpy(fused(a, 4)).cuda() for a in base]
-    ef_launches, ef_stats = slice_phase(model, ef_images, sizes, {**once, **k4_expect()}, hi=32.0)
+    ef_launches, ef_stats = slice_phase(model, ef_images, sizes, {**once, **k4_expect(), **k5_expect(1)},
+                                        hi=32.0)
     del model, ef_images
 
     # middle fusion: BGRTTT, two R101-FPNs (configs/FLIR-Detection/
@@ -5236,14 +5348,16 @@ def main() -> int:
     model = build_model(mf_cfg, params=random_affines(init_rcnn(1, mf_cfg), 1))
     mf_images = [torch.from_numpy(np.ascontiguousarray(fused(a, 6))).cuda() for a in base]
     twice = {"stem_pool": 2, "roi_align_fwd": 1}
-    mf_launches, mf_stats = slice_phase(model, mf_images, sizes, {**twice, **k4_expect(2)}, hi=32.0)
+    mf_launches, mf_stats = slice_phase(model, mf_images, sizes, {**twice, **k4_expect(2), **k5_expect(1)},
+                                        hi=32.0)
     k2_512 = roi_phase(model, mf_images[0], sizes)
     if profiling:
         profile_phase(Predictor(model, mf_cfg), mf_images, sizes)
     batch = train_batch(6)
     k3_512 = bwd_phase(model, batch)
     mf_train_launches, mf_train_stats = train_phase(model, batch, {**twice, "roi_align_bwd": 1,
-                                                                   **k4_expect(2, mf_cfg.freeze_at)})
+                                                                   **k4_expect(2, mf_cfg.freeze_at),
+                                                                   **k5_expect(steps=1)})
     if profiling:
         train_profile(model, batch)
     del model, batch, mf_images
@@ -5294,7 +5408,7 @@ def main() -> int:
              **{f"{name} ({tools_stats[name]['images']} images)": {
                  k: v for k, v in tools_stats[name]["launches"].items() if v}
                 for name in ("visualize_data", "visualize_json_results")}}
-    for d in (k1, k2, k3, k4):
+    for d in (k1, k2, k3, k4, k5):
         d["launches"] = train_launches[d["name"]] if d is k3 else launches[d["name"]]
         d["launches_per_path"] = {p: n[d["name"]] for p, n in paths.items() if d["name"] in n}
     k4["plain_epilogues_per_path"] = {p: n["epilogue_plain"] for p, n in paths.items() if "epilogue_plain" in n}
@@ -5319,6 +5433,10 @@ def main() -> int:
                       "library_ms": None, "bound_ms": k4["bound_ms"], "bound_by": "bytes", "gflop": 0.0,
                       "mbytes": k4["mbytes"], "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
                       **{k: k4[k] for k in ("deterministic", "backward", "sum_err_ulp", "c4_res5")}}))
+    print(json.dumps({"kernel": k5["name"], "kernel_ms": k5["ms"], "plain_ms": k5["plain_ms"], "library_ms": None,
+                      "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"], "gflop": k5["gflop"],
+                      "mbytes": k5["mbytes"], "launches": k5["launches"], "max_abs_err": 0.0,
+                      "deterministic": True, "per_case": k5["per_case"]}))
     print(json.dumps({"slice": {**slice_stats, "card": card}}))
     print(json.dumps({"train": {**train_stats, "launches_per_step": train_launches, "card": card}}))
     print(json.dumps({"early_fusion": {**ef_stats, "launches_per_batch": ef_launches, "card": card}}))
@@ -5351,11 +5469,11 @@ def main() -> int:
                                                              "c4", "c6", "train_flips", "png_cityscapes",
                                                              "train_crop", "backward", "sum_err_ulp",
                                                              "per_case", "c4_res5", "plain_epilogues_per_path")
-                                   if k in d} for d in (k1, k2, k3, k4, k_io)]}), flush=True)
-    if K4_MISSES:
-        print(json.dumps({"k4_misses": K4_MISSES}), flush=True)
-        raise AssertionError(f"K4's counts missed k4_expect on {len(K4_MISSES)} paths: "
-                             f"{[m['path'] for m in K4_MISSES]}")
+                                   if k in d} for d in (k1, k2, k3, k4, k5, k_io)]}), flush=True)
+    if COUNT_MISSES:
+        print(json.dumps({"count_misses": COUNT_MISSES}), flush=True)
+        raise AssertionError(f"K4's or K5's counts missed on {len(COUNT_MISSES)} paths: "
+                             f"{[m['path'] for m in COUNT_MISSES]}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -4,10 +4,9 @@ serializes a StableHLO program with ``jax.export``): the artifact is a
 without the model-building Python code.
 
 The detector's hand-written kernels are custom ops (``proben::stem_pool``,
-``proben::roi_align_fwd``, ``proben::block_epilogue``) and NMS's fixpoint is
-one (``proben::nms_fixpoint``), so the exported graph holds them as nodes:
-the loaded program launches K1, K2 and K4 on the card and runs their plain
-versions on the CPU. Importing this module registers those ops, which
+``proben::roi_align_fwd``, ``proben::block_epilogue``, ``proben::nms_keep``),
+so the exported graph holds them as nodes: the loaded program launches K1,
+K2, K4 and K5 on the card and runs their plain versions on the CPU. Importing this module registers those ops, which
 ``load_exported`` needs. The exported function is the model on a padded batch
 (``rcnn_inference``); the host-side resize of ``Predictor`` and the
 ``image_io`` decode stay outside it.

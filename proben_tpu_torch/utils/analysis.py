@@ -16,10 +16,10 @@ not the dense contractions over each RoI's whole window that their plain
 versions use to compute it. Those plain versions are ops with the same
 formula (``proben::roi_align_fwd_plain``, ``proben::roi_align_bwd_plain``),
 so a path through the kernels and one through the plain versions
-(``stem_impl``, ``roi_align_impl`` "plain") count the same. NMS's fixpoint (``proben::nms_fixpoint``) has no formula and counts 0:
-its 0/1 matrix products are a way to solve the greedy recurrence, not model
-work, and their number follows how the suppression chains of the run's
-boxes fall.
+(``stem_impl``, ``roi_align_impl`` "plain") count the same. NMS (``proben::nms_keep``: K5 on the card, the fixpoint
+``proben::nms_fixpoint`` on the CPU) has no formula and counts 0: it solves
+the greedy recurrence, no model work, and the fixpoint's 0/1 matrix
+products follow how the suppression chains of the run's boxes fall.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ launch it made, an iteration of a loop whose exit it already read).
 | ``rcnn.roi_pool`` | the multi-level RoIAlign: window inputs, K2, the fallback |
 | ``roi.window_inputs`` | K2's level assignment, window origins and weights |
 | ``roi.fallback`` | the out-of-window read and the whole-map re-pooling |
-| ``nms.fixpoint`` | the NMS fixpoint loop (RPN and class NMS) |
+| ``nms.fixpoint`` | the NMS fixpoint loop (RPN and class NMS) of the CPU route; the card runs K5, outside any span of its own |
 | ``rcnn.box`` | box head, output layers, then the detections or the losses |
 | ``train.backward`` | ``torch.autograd.grad`` |
 | ``train.all_reduce`` | the mean over ranks (world > 1 only) |
@@ -38,8 +38,9 @@ launch it made, an iteration of a loop whose exit it already read).
 | ``k1.launches``, ``k2.launches`` | launches of K1 and K2 (never of their plain versions) |
 | ``k3.launches``, ``io.launches`` | launches of K3 and of ``image_io``'s compose kernel |
 | ``k4.launches`` | calls of K4, forward and backward (the backward's second kernel sums its partials) |
+| ``k5.launches`` | calls of K5, NMS on the card (its mask pass and sweep), one per ``nms_mask`` call |
 | ``epilogue.plain`` | bottleneck epilogues on CUDA maps K4 does not take, run as the plain composition |
-| ``nms.calls``, ``nms.iters`` | NMS fixpoint calls and their iterations (one host read each) |
+| ``nms.calls``, ``nms.iters`` | NMS fixpoint calls and their iterations (one host read each): the CPU route |
 | ``proben.calls``, ``proben.iters`` | late-fusion fixpoint calls and their iterations (one host read each) |
 | ``roi.oow`` | RoIs out of their pooling window: the fallback re-pools them |
 | ``roi.oow_over_capacity`` | of those, the ones past its per-image capacity: left windowed |

@@ -10,7 +10,7 @@ and the custom ops that make the detector exportable, on the CPU.
   its detections equal the eager port's bit for bit (the same aten ops on
   the same inputs), and its graph holds ``proben::stem_pool``,
   ``proben::roi_align_fwd``, ``proben::block_epilogue`` (each bottleneck's
-  three conv epilogues) and ``proben::nms_fixpoint``. RoIAlign with
+  three conv epilogues) and ``proben::nms_keep``. RoIAlign with
   out-of-window boxes exported alone: both branches of the fallback's
   ``torch.cond`` equal eager bit for bit.
 - ``torch.library.opcheck`` on each op's CPU implementation (schema, fake,
@@ -117,7 +117,7 @@ def test_tiny_detector_exports_with_its_ops_and_equals_eager(tmp_path):
     for name in ("boxes", "scores", "classes", "valid", "probs", "class_logits"):
         assert torch.equal(got[name], getattr(want, name)), name
     assert int(want.valid.sum()) > 0
-    ops = ["proben.block_epilogue.default", "proben.nms_fixpoint.default", "proben.roi_align_fwd.default",
+    ops = ["proben.block_epilogue.default", "proben.nms_keep.default", "proben.roi_align_fwd.default",
            "proben.stem_pool.default"]
     assert _proben_ops(torch.export.load(path).graph) == ops
     assert report["ops"] == ops

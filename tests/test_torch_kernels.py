@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from nms_cases import THRESHOLDS, cell_problems, hazard_problems
 from proben_tpu_torch.ops import roi_align as t_ra
 from proben_tpu_torch.ops import epilogue_cuda, nms, roi_align_cuda, stem_cuda  # noqa: F401  (registers the ops)
 from proben_tpu_torch.structures.boxes import pairwise_iou
@@ -20,7 +21,8 @@ STRIDES = (4, 8, 16, 32)
 
 
 def launches(kernel: str) -> int:
-    """Launches of one kernel so far: ``k1``, ``k2``, ``k3``, ``k4`` or ``io``."""
+    """Launches of one kernel so far: ``k1``, ``k2``, ``k3``, ``k4``, ``k5``
+    or ``io``."""
     return tracing.counters().get(f"{kernel}.launches", 0)
 
 
@@ -512,6 +514,8 @@ def test_opcheck_on_cuda_tensors():
     suppress = (pairwise_iou(bx, bx) > 0.3) & torch.ones(4, 4, dtype=torch.bool, device="cuda").triu(1)
     torch.library.opcheck(torch.ops.proben.nms_fixpoint.default,
                           (suppress, torch.ones(4, dtype=torch.bool, device="cuda")))
+    torch.library.opcheck(torch.ops.proben.nms_keep.default,
+                          (bx, torch.ones(4, dtype=torch.bool, device="cuda"), 0.3))
 
 
 # ---------------------------------------------------------------------------
@@ -764,6 +768,167 @@ def test_predict_batch_with_k4_equals_the_plain_route(monkeypatch):
     for a, b in zip(*outs):
         for key in ("boxes", "scores", "classes"):
             assert np.array_equal(a[key], b[key]), key
+
+
+# ---------------------------------------------------------------------------
+# K5: greedy NMS as a bitmask and a block sweep
+# ---------------------------------------------------------------------------
+
+
+def _nms_on_card(args, t, classes=None, plain=False):
+    """``nms_mask`` (``batched_nms_mask`` with class ids) on CUDA tensors:
+    through K5, or with ``plain`` through the dense route on the card. The
+    keep mask on the host and the K5 launches and fixpoint iterations it
+    counted."""
+    fn = nms.nms_mask if classes is None else (
+        lambda b, s, v, th: nms.batched_nms_mask(b, s, classes, v, th))
+    with pytest.MonkeyPatch.context() as m:
+        if plain:
+            m.setattr(nms, "nms_keep", nms.nms_keep_plain)
+        before = tracing.counters()
+        keep = fn(*args, t)
+        torch.cuda.synchronize()
+        after = tracing.counters()
+    counts = {k: after.get(k, 0) - before.get(k, 0) for k in ("k5.launches", "nms.iters")}
+    return keep.cpu(), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,classes,t", [
+    ((16, 5, 1000), 0, 0.7), ((16, 3000), 3, 0.5), ((16, 5, 2000), 0, 0.7),
+], ids=["rpn_infer", "box_head", "rpn_train"])
+def test_k5_is_the_plain_route_bitwise_at_the_cells_shapes(shape, classes, t):
+    """K5 at the cells' three NMS shapes (RPN inference, the box head with
+    class offsets, RPN training) equals the dense route on the card and the
+    CPU route bit for bit; one K5 launch a call, no fixpoint iteration; two
+    calls are bitwise equal."""
+    _cuda()
+    boxes, scores, valid, ids = cell_problems(shape, seed=sum(shape), classes=classes)
+    args = [torch.from_numpy(a).cuda() for a in (boxes, scores, valid)]
+    cls = None if ids is None else torch.from_numpy(ids).cuda()
+    got, counts = _nms_on_card(args, t, cls)
+    assert counts == {"k5.launches": 1, "nms.iters": 0}
+    again, _ = _nms_on_card(args, t, cls)
+    plain, plain_counts = _nms_on_card(args, t, cls, plain=True)
+    assert plain_counts["k5.launches"] == 0 and plain_counts["nms.iters"] > 0
+    assert torch.equal(got, again) and torch.equal(got, plain)
+    cpu_args = [a.cpu() for a in args]
+    want = (nms.nms_mask(*cpu_args, t) if cls is None
+            else nms.batched_nms_mask(cpu_args[0], cpu_args[1], cls.cpu(), cpu_args[2], t))
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 624, 1000, 8192])
+def test_k5_planted_cases(n):
+    """K5 on the planted problems (chains through the whole problem, ties,
+    IoUs at float32(t) and one ulp either side, NaN / inf / degenerate
+    boxes, no valid box) equals the CPU route bit for bit. At 8192 boxes,
+    the most K5 takes, the chain and the problem with no valid box against
+    the dense route on the card (the CPU's fixpoint would take 8191
+    iterations over 8192 x 8192 matrices) and greedy's every other box."""
+    _cuda()
+    for t in THRESHOLDS:
+        cpu = [torch.from_numpy(a) for a in hazard_problems(n, t, seed=n)]
+        if n == 8192:
+            cpu = [a[[0, -1]] for a in cpu]
+        args = [a.cuda() for a in cpu]
+        got, counts = _nms_on_card(args, t)
+        assert counts == {"k5.launches": 1, "nms.iters": 0}
+        want = _nms_on_card(args, t, plain=True)[0] if n == 8192 else nms.nms_mask(*cpu, t)
+        assert torch.equal(got, want), (n, t)
+        if n > 64:
+            assert got[0].tolist() == [i % 2 == 0 for i in range(n)]
+            assert not got[-1].any()
+
+
+@pytest.mark.cuda
+def test_k5_wrapper_raises_on_what_it_does_not_take():
+    _cuda()
+    b = torch.rand(2, 10, 4, device="cuda")
+    v = torch.ones(2, 10, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        nms.nms_keep(b.double(), v, 0.5)
+    with pytest.raises(ValueError, match="at most 8192"):
+        nms.nms_keep(torch.rand(1, 8193, 4, device="cuda"), torch.ones(1, 8193, dtype=torch.bool,
+                                                                        device="cuda"), 0.5)
+    with pytest.raises(ValueError, match="bad shapes"):
+        nms.nms_keep(b, v[:, :9], 0.5)
+    assert nms.nms_keep(b[:, :0], v[:, :0], 0.5).shape == (2, 0)
+
+
+def _r50_bf16(seed=0):
+    from proben_tpu_torch.models import build_config, build_model, init_rcnn, random_affines
+
+    cfg = build_config(depth=50, num_classes=3, compute_dtype="bfloat16")
+    return cfg, build_model(cfg, params=random_affines(init_rcnn(seed, cfg), seed))
+
+
+@pytest.mark.cuda
+def test_predict_batch_with_k5_equals_the_plain_route(monkeypatch):
+    """A seeded bf16 R50-FPN batch through ``Predictor.predict_batch``
+    gives the same detections bit for bit with K5 (2 launches: the RPN's
+    and the box head's NMS, no fixpoint iteration) and with the dense route
+    on the card, in one process."""
+    _cuda()
+    from proben_tpu_torch.engine import Predictor
+
+    cfg, model = _r50_bf16()
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy((rng.rand(4, 320, 416, 3) * 255).astype(np.float32)).cuda()
+    sizes = torch.tensor([[320, 416], [300, 400], [320, 380], [256, 416]], dtype=torch.int32)
+    batch = {"image": images, "image_size": sizes, "orig_size": sizes, "image_id": list(range(4))}
+    pred = Predictor(model, cfg)
+    outs, counts = [], []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(nms, "nms_keep", nms.nms_keep_plain)
+        before = tracing.counters()
+        outs.append(pred.predict_batch(batch))
+        torch.cuda.synchronize()
+        after = tracing.counters()
+        counts.append(tuple(after.get(k, 0) - before.get(k, 0) for k in ("k5.launches", "nms.calls")))
+    assert counts == [(2, 0), (0, 2)]
+    assert sum(len(o["boxes"]) for o in outs[0]) > 0
+    for a, b in zip(*outs):
+        for key in ("boxes", "scores", "classes"):
+            assert np.array_equal(a[key], b[key]), key
+
+
+@pytest.mark.cuda
+def test_train_step_losses_with_k5_equal_the_plain_route(monkeypatch):
+    """One bf16 R50-FPN ``train_step`` from the same weights and seed:
+    its losses with K5 (one launch, the RPN's NMS) and with the dense route
+    on the card are equal bit for bit."""
+    _cuda()
+    from proben_tpu_torch.engine import make_train_step, trainable_mask
+    from proben_tpu_torch.solver import SolverConfig
+    from proben_tpu_torch.structures import GroundTruth
+
+    rng = np.random.RandomState(3)
+    gt = GroundTruth(torch.tensor([[[10.0, 10.0, 160.0, 170.0], [200.0, 40.0, 300.0, 200.0]],
+                                   [[30.0, 60.0, 90.0, 120.0], [0.0, 0.0, 0.0, 0.0]]], device="cuda"),
+                     torch.tensor([[1, 2], [0, 0]], dtype=torch.int32, device="cuda"),
+                     torch.tensor([[True, True], [True, False]], device="cuda"))
+    batch = {"image": torch.from_numpy((rng.rand(2, 256, 320, 3) * 255).astype(np.float32)).cuda(),
+             "image_size": torch.tensor([[256, 320], [240, 320]], dtype=torch.int32, device="cuda"),
+             "gt": gt}
+    losses, counts = [], []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(nms, "nms_keep", nms.nms_keep_plain)
+        cfg, model = _r50_bf16()
+        init_state, train_step = make_train_step(cfg, SolverConfig(), trainable_mask(model, cfg.freeze_at))
+        before = tracing.counters()
+        _, metrics = train_step(init_state(model, seed=0), batch)
+        torch.cuda.synchronize()
+        after = tracing.counters()
+        counts.append(tuple(after.get(k, 0) - before.get(k, 0) for k in ("k5.launches", "nms.calls")))
+        losses.append({k: v.item() for k, v in metrics.items()})
+    assert counts == [(1, 0), (0, 1)]
+    assert all(np.isfinite(v) for v in losses[0].values())
+    assert losses[0] == losses[1]
 
 
 # ---------------------------------------------------------------------------
